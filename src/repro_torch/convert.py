@@ -1,0 +1,57 @@
+"""Carry state of the JAX package (``repro``) into this one.
+
+The system runs no model: what crosses between the two packages is data
+— a streamed round's reducer carry, a server optimizer's state, and the
+pytree an update is shaped like. Each comes over as numpy arrays, which
+is how a ``repro`` caller holds them (``np.asarray`` of its leaves), so
+nothing here imports JAX.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.fusion.serveropt import FedAdam, FedAvgM
+from repro_torch.utils.device import DeviceLike, resolve_device
+from repro_torch.utils.dtypes import to_device
+from repro_torch.utils.pytree import PyTree, tree_leaves, tree_unflatten
+
+
+def _f32(x, device: torch.device) -> torch.Tensor:
+    return to_device(np.asarray(x, np.float32), device)
+
+
+def carry_from_numpy(acc_state, device: DeviceLike = None
+                     ) -> Tuple[torch.Tensor, ...]:
+    """A ``repro`` ``StreamReport.acc_state`` (a tuple of ndarrays: the
+    (P,) weighted sum and the weight total for the sum family) as this
+    package's carry, for ``LocalEngine.fuse_stream(init=...)``."""
+    dev = resolve_device(device)
+    return tuple(_f32(leaf, dev) for leaf in acc_state)
+
+
+def load_server_state(fusion, arrays: Mapping[str, object],
+                      device: DeviceLike = None) -> None:
+    """Set a server optimizer's state from ``repro``'s: FedAvgM takes
+    ``{"velocity": (P,)}``; FedAdam takes ``{"m": (P,), "v": (P,),
+    "t": step count}`` (its ``_velocity`` / ``_m``, ``_v``, ``_t``)."""
+    dev = resolve_device(device)
+    if isinstance(fusion, FedAvgM):
+        fusion._velocity = _f32(arrays["velocity"], dev)
+    elif isinstance(fusion, FedAdam):
+        fusion._m = _f32(arrays["m"], dev)
+        fusion._v = _f32(arrays["v"], dev)
+        fusion._t = int(arrays["t"])
+    else:
+        raise TypeError(f"{fusion.name} keeps no server state")
+
+
+def tree_from_numpy(tree: PyTree, device: DeviceLike = None) -> PyTree:
+    """A numpy pytree as tensors on ``device``, same structure, with every
+    dict rebuilt in JAX's leaf order (sorted keys), so iterating it
+    visits leaves in the order both packages flatten them."""
+    dev = resolve_device(device)
+    leaves = [to_device(np.asarray(leaf), dev) for leaf in tree_leaves(tree)]
+    return tree_unflatten(tree, iter(leaves))

@@ -1,0 +1,203 @@
+"""Quantized update transport with error feedback (beyond-paper).
+
+The paper attacks the aggregator's ingest bottleneck with a distributed
+store; an orthogonal, composable lever is shrinking w_s itself. We
+implement symmetric per-block int8 quantization with client-side error
+feedback (EF-SGD, Karimireddy et al. 2019): each client keeps the
+quantization residual and adds it to its next update, so the DC error
+doesn't accumulate and FedAvg convergence is preserved in expectation.
+
+~4x ingest reduction (fp32 -> int8 + one fp32 scale per block), applied
+before ``UpdateStore.write``; the aggregator never dequantizes on the
+host — the engines either fold the scales into the weighted sum
+in-kernel (``repro_torch.kernels.fused_fusion.kernel.weighted_sum_dequant``)
+or dequantize on the device inside the fold step.
+
+FP32-SCALES INVARIANT: whatever the input dtype (fp32, bf16, fp16 — an
+edge client may train in half precision), ``quantize`` returns int8
+codes and FP32 scales. Quantization math runs in fp32 internally; the
+codes/scales contract never silently follows the input dtype, so spool
+sidecars, kernels, and byte accounting all assume exactly
+``int8 codes + fp32 scales``.
+
+Wire containers:
+
+  * :class:`CompressedUpdate` — ONE client's update as stored/spooled:
+    block-padded int8 codes + fp32 per-block scales + the logical dim.
+    ``UpdateStore.write`` accepts it directly (codes blob + ``.scale``
+    / ``.dim`` sidecars on disk).
+  * :class:`CompressedBlock` — a stacked (c, P_padded) batch of
+    compressed rows, what ``UpdateStore.iter_chunks`` /
+    ``iter_arrivals`` yield for compressed entries and what the
+    engines' ``fuse_stream`` folds without host dequantization.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+BLOCK = 2048
+
+
+def _host_f32(vec) -> np.ndarray:
+    """A flat update on the host as fp32 numpy (tensors of any device
+    and float dtype included)."""
+    if isinstance(vec, torch.Tensor):
+        return vec.detach().float().cpu().numpy()
+    return np.asarray(vec, np.float32)
+
+
+def _quantize_np(vec: np.ndarray, block: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side quantization core: fp vec (P,) -> (zero-padded int8
+    codes (B*block,), fp32 scales (B,)). Runs in fp32 regardless of the
+    input dtype (the fp32-scales invariant); the pad region quantizes
+    to exact zeros, so padded codes dequantize to zero contribution."""
+    v = np.asarray(vec, np.float32)
+    P = v.shape[0]
+    pad = (-P) % block
+    if pad:
+        v = np.pad(v, (0, pad))
+    v = v.reshape(-1, block)
+    scale = np.maximum(np.abs(v).max(axis=1) / 127.0, 1e-12)
+    scale = scale.astype(np.float32)
+    q = np.clip(np.rint(v / scale[:, None]), -127, 127).astype(np.int8)
+    return q.reshape(-1), scale
+
+
+def quantize(vec, block: int = BLOCK):
+    """fp vec (P,) any float dtype -> (int8 codes (P,), fp32 scales
+    (ceil(P/block),)). Accepts fp32/bf16/fp16 tensors; math runs in fp32
+    and the scales are ALWAYS fp32 (the module's invariant) — the
+    return contract never follows the input dtype."""
+    P = vec.shape[0]
+    v = torch.nn.functional.pad(torch.as_tensor(vec).float(),
+                                (0, (-P) % block))
+    v = v.reshape(-1, block)
+    scale = v.abs().amax(dim=1) / 127.0
+    scale = torch.clamp(scale, min=1e-12)
+    q = torch.clamp(torch.round(v / scale[:, None]), -127, 127).to(torch.int8)
+    return q.reshape(-1)[:P], scale
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor,
+               block: int = BLOCK) -> torch.Tensor:
+    P = q.shape[0]
+    pad = (-P) % block
+    v = torch.nn.functional.pad(q.float(), (0, pad)).reshape(-1, block)
+    return (v * scale[:, None].float()).reshape(-1)[:P]
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressedUpdate:
+    """One client's int8 block-quantized update, as spooled.
+
+    ``codes`` is zero-padded to a whole number of blocks (codes past
+    ``dim`` are exact zeros), so ``block == codes.size // scales.size``
+    is recoverable from the shapes alone and stacked batches are
+    rectangular without re-padding."""
+
+    codes: np.ndarray    # (n_blocks * block,) int8, zero-padded past dim
+    scales: np.ndarray   # (n_blocks,) fp32 — the fp32-scales invariant
+    dim: int             # logical parameter count P
+
+    @property
+    def block(self) -> int:
+        return self.codes.shape[0] // self.scales.shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        """Real transported/stored payload bytes: codes + scales."""
+        return int(self.codes.nbytes + self.scales.nbytes)
+
+    def dequantize(self) -> np.ndarray:
+        """(dim,) fp32 — host-side reference path (tests / dense
+        fallbacks); the hot path folds scales in-kernel instead."""
+        v = self.codes.astype(np.float32).reshape(self.scales.shape[0], -1)
+        return (v * self.scales[:, None]).reshape(-1)[: self.dim]
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressedBlock:
+    """A stacked batch of compressed rows — the streaming wire format
+    ``UpdateStore.iter_chunks`` / ``iter_arrivals`` yield and the
+    engines' ``fuse_stream`` fold without host-side dequantization."""
+
+    codes: np.ndarray    # (rows, n_blocks * block) int8
+    scales: np.ndarray   # (rows, n_blocks) fp32
+    dim: int             # logical parameter count P
+
+    @property
+    def rows(self) -> int:
+        return int(self.codes.shape[0])
+
+    @property
+    def block(self) -> int:
+        return self.codes.shape[1] // self.scales.shape[1]
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.codes.nbytes + self.scales.nbytes)
+
+    def dequantize(self) -> np.ndarray:
+        """(rows, dim) fp32 — host-side fallback (``read_stacked``)."""
+        c, B = self.scales.shape
+        v = self.codes.astype(np.float32).reshape(c, B, -1)
+        return (v * self.scales[:, :, None]).reshape(c, -1)[:, : self.dim]
+
+
+def compress_update(vec, block: int = BLOCK) -> CompressedUpdate:
+    """Quantize one flat update into its spool container (host-side
+    numpy — this is the client write path, no jit dispatch)."""
+    v = vec if isinstance(vec, np.ndarray) else _host_f32(vec)
+    codes, scales = _quantize_np(v, block)
+    return CompressedUpdate(codes=codes, scales=scales, dim=int(v.shape[0]))
+
+
+@dataclasses.dataclass
+class ErrorFeedbackCompressor:
+    """Per-client stateful compressor: quantizes (update + residual),
+    carries the new residual forward."""
+
+    block: int = BLOCK
+
+    def __post_init__(self):
+        self._residual: Dict = {}
+
+    def compress(self, client_id, update: torch.Tensor):
+        u = torch.as_tensor(update).float()
+        r = self._residual.get(client_id)
+        if r is not None:
+            u = u + torch.as_tensor(r, device=u.device)
+        q, scale = quantize(u, self.block)
+        self._residual[client_id] = u - dequantize(q, scale, self.block)
+        return q, scale
+
+    def compress_update(self, client_id, update) -> CompressedUpdate:
+        """EF-compensated :class:`CompressedUpdate` for the store write
+        path (host numpy; residual carried like ``compress``)."""
+        u = _host_f32(update)
+        r = self._residual.get(client_id)
+        if r is not None:
+            u = u + _host_f32(r)
+        cu = compress_update(u, self.block)
+        self._residual[client_id] = u - cu.dequantize()
+        return cu
+
+    def reset(self):
+        self._residual.clear()
+
+
+def compressed_bytes(n_params: int, block: int = BLOCK) -> int:
+    """Stored payload bytes for one compressed update: block-PADDED
+    int8 codes (the spool stores whole blocks) + the fp32 scale
+    vector. Tiny text sidecars (weight/dim) are excluded, consistent
+    with dense accounting excluding the ``.w`` sidecar."""
+    n_blocks = -(-n_params // block)
+    return n_blocks * block + 4 * n_blocks
+
+
+def compression_ratio(n_params: int, block: int = BLOCK) -> float:
+    return 4.0 * n_params / compressed_bytes(n_params, block)

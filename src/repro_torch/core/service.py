@@ -1,0 +1,444 @@
+"""AggregationService — the paper's Algorithm 1 on one GPU: synchronous
+aggregation rounds, in memory or gated on the UpdateStore.
+
+Round flow (as ``repro.core.service``):
+  1. S = w_s * n  -> classify + plan (the planner's roofline model plus a
+     reuse term: an engine holding a built step for this round's shape
+     is costed below a cold one).
+  2. in-memory rounds: updates arrived with the call (IBMFL-style RPC)
+     and fuse densely on the card.
+  3. store rounds: ``Monitor.wait`` gates on the tenant's partition
+     (threshold or timeout), then a reducible fusion STREAMS (chunk, P)
+     blocks off the store through one cached fold step — the dense
+     (n, P) matrix never exists on the host; each block crosses to the
+     card once.
+  4. The fused flat vector (fp32, on the service's device) is unflattened
+     into the model pytree when a template is given.
+
+Rounds for different tenants may run concurrently on one service; rounds
+for the SAME tenant serialize on a per-tenant lock, and device execution
+is bounded by the ``device_concurrency`` semaphore, which the engine
+holds around each block's copy and fold and waits for under it.
+
+Not yet ported (each raises ``NotImplementedError`` naming its ROADMAP
+item): async and adaptive rounds, the staleness-discounted carry, the
+distributed engines over a mesh and secure aggregation.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.compress import (
+    BLOCK,
+    CompressedUpdate,
+    ErrorFeedbackCompressor,
+    compressed_bytes,
+)
+from repro_torch.core.fusion import FusionAlgorithm, get_fusion
+from repro_torch.core.local import LocalEngine
+from repro_torch.core.monitor import Monitor, MonitorResult
+from repro_torch.core.planner import Plan, Planner
+from repro_torch.core.store import DEFAULT_TENANT, StoreStats, UpdateStore
+from repro_torch.core.workload import Workload, WorkloadClass, classify
+from repro_torch.utils.device import DeviceLike, resolve_device, synchronize
+from repro_torch.utils.dtypes import host_array, host_dtype, updates_to_device
+from repro_torch.utils.mem import HardwareSpec, hardware_spec
+from repro_torch.utils.pytree import flat_vector_to_tree, tree_to_flat_vector
+
+PyTree = Any
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not yet ported to repro_torch (ROADMAP, modules to "
+        f"port, item {item})"
+    )
+
+
+@dataclasses.dataclass
+class RoundReport:
+    plan: Plan
+    n_clients: int
+    update_bytes: int
+    fuse_seconds: float          # wall time of the fusion computation
+    monitor: Optional[MonitorResult] = None
+    route_next_to_store: bool = False
+    streamed: bool = False       # True: chunked store pipeline (no dense n,P)
+    # ingest (store -> host blocks) / compile (step build; 0.0 on warm
+    # rounds) / compute (copy + fold on the device, synced)
+    phase_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    empty: bool = False          # monitor timed out with nothing to fuse
+    tenant: str = DEFAULT_TENANT
+    store_stats: Optional[StoreStats] = None
+    # payload bytes the fusion ingested (pre-padding): int8 codes + fp32
+    # scales on compressed rounds, the dense matrix bytes otherwise
+    bytes_ingested: int = 0
+    notes: Tuple[str, ...] = ()
+
+
+class AggregationService:
+    """Synchronous aggregation rounds on one GPU (or the CPU on request)."""
+
+    def __init__(
+        self,
+        fusion: FusionAlgorithm | str = "fedavg",
+        mesh=None,
+        hw: Optional[HardwareSpec] = None,
+        local_strategy: str = "kernel",
+        store: Optional[UpdateStore] = None,
+        threshold_frac: float = 0.8,
+        monitor_timeout: float = 30.0,
+        memory_cap_bytes: Optional[int] = None,
+        stream_chunk_bytes: int = 64 << 20,
+        staleness_discount: Optional[float] = None,
+        adaptive: bool = False,
+        compress: bool | int = False,
+        device_concurrency: int = 1,
+        secure=None,
+        clock=time.monotonic,
+        sleep=time.sleep,
+        poll_interval: float = 0.01,
+        device: DeviceLike = None,
+    ):
+        """Configure the service. Arguments as in
+        ``repro.core.service.AggregationService``, except:
+
+          local_strategy: ``"kernel"`` (the CUDA kernels, default) or
+            ``"torch"`` (the plain PyTorch baseline).
+          hw: the planner's hardware spec; by default the H100 data sheet
+            with name, memory and SM count read from the card.
+          device: where rounds run — the card by default (raises without
+            one); ``"cpu"`` only when asked for.
+          mesh / adaptive / staleness_discount / secure: not yet ported;
+            each raises ``NotImplementedError``.
+        """
+        if mesh is not None:
+            raise _not_ported("the distributed engine over a mesh", "11")
+        if adaptive:
+            raise _not_ported("adaptive rounds", "8")
+        if staleness_discount is not None:
+            raise _not_ported("the staleness-discounted carry", "8")
+        if secure is not None:
+            raise _not_ported("secure aggregation", "12")
+        self.device = resolve_device(device)
+        self.fusion = (
+            get_fusion(fusion) if isinstance(fusion, str) else fusion
+        )
+        self.hw = hw if hw is not None else hardware_spec(self.device)
+        self.store = store or UpdateStore()
+        self.threshold_frac = threshold_frac
+        self.monitor_timeout = monitor_timeout
+        self.stream_chunk_bytes = stream_chunk_bytes
+        self.memory_cap_bytes = memory_cap_bytes
+        self.clock = clock
+        self.sleep = sleep
+        self.poll_interval = poll_interval
+        if device_concurrency < 1:
+            raise ValueError("device_concurrency must be >= 1")
+        self.device_sem = threading.BoundedSemaphore(device_concurrency)
+        self._state_lock = threading.Lock()
+        self._tenant_locks: Dict[str, threading.Lock] = {}  # guarded-by: _state_lock
+        self.local = LocalEngine(
+            strategy=local_strategy, memory_cap_bytes=memory_cap_bytes,
+            device=self.device,
+        )
+        self.planner = Planner(hw=self.hw)
+        if compress is True:
+            self.compress_block: Optional[int] = BLOCK
+        elif compress:
+            if int(compress) < 1:
+                raise ValueError("compress block size must be >= 1")
+            self.compress_block = int(compress)
+        else:
+            self.compress_block = None
+        self._compressors: Dict[str, ErrorFeedbackCompressor] = {}  # guarded-by: _state_lock
+        if self.compress_block is not None and not self.fusion.streamable:
+            raise ValueError(
+                "compress=True requires a streamable fusion (the dequant "
+                f"fold runs inside the streamed step); {self.fusion.name} "
+                "is not streamable"
+            )
+        self.history: List[RoundReport] = []  # guarded-by: _state_lock
+
+    # -- quantized transport --------------------------------------------------
+    def compress_update(
+        self, client_id: str, update, tenant: str = DEFAULT_TENANT,
+    ) -> CompressedUpdate:
+        """Quantize one client update for spooling: int8 codes + fp32
+        per-block scales, with per-tenant error feedback. Pass the result
+        to ``store.write``; requires ``compress=...``."""
+        if self.compress_block is None:
+            raise ValueError(
+                "compress_update needs a compressing service "
+                "(AggregationService(compress=True) or =block_size)"
+            )
+        if getattr(update, "ndim", None) != 1:
+            update = tree_to_flat_vector(update)
+        with self._state_lock:
+            comp = self._compressors.get(tenant)
+            if comp is None:
+                comp = self._compressors[tenant] = ErrorFeedbackCompressor(
+                    block=self.compress_block
+                )
+        return comp.compress_update(client_id, update)
+
+    # -- streaming knobs ------------------------------------------------------
+    def _row_bytes(self, p: int, dtype) -> int:
+        """Per-client payload bytes in the store: padded codes + fp32
+        scales for int8 quantized updates, dense bytes otherwise."""
+        if np.dtype(dtype) == np.int8:
+            return compressed_bytes(p, self.compress_block or BLOCK)
+        return p * np.dtype(dtype).itemsize
+
+    def _chunk_rows(self, n: int, row_bytes: int) -> int:
+        """Rows per streamed block: half the memory cap (two blocks are
+        resident under double buffering), else the chunk-size default."""
+        budget = (
+            self.memory_cap_bytes // 2
+            if self.memory_cap_bytes is not None
+            else self.stream_chunk_bytes
+        )
+        return max(1, min(n, int(budget // max(row_bytes, 1))))
+
+    def _stream_mode(
+        self, fusion: FusionAlgorithm,
+    ) -> Tuple[bool, Optional[str]]:
+        """Can this round stream, and if not, why not (operator note).
+        Reducible fusions stream (O(P) sum carry); the order-statistic
+        carve is not yet ported, so other streamable fusions read dense."""
+        if not fusion.streamable:
+            return False, None
+        if fusion.reducible:
+            return True, None
+        return False, (f"{fusion.name}: order-statistic streaming is not "
+                       "yet ported — routed to the dense path")
+
+    def _warm_engines(self, n: int, p: int, dtype, chunk_rows=None,
+                      fusion: Optional[FusionAlgorithm] = None,
+                      n_hint: Optional[int] = None):
+        """Engines holding a built step for this round's shape — dense
+        keys, or (with ``chunk_rows``) the streamed step keys."""
+        fusion = fusion if fusion is not None else self.fusion
+        if chunk_rows is not None:
+            warm = self.local.is_warm_stream(
+                fusion, chunk_rows, p, dtype,
+                block=self.compress_block or BLOCK, n_hint=n_hint)
+        else:
+            warm = self.local.is_warm(fusion, n, p, dtype)
+        return {"local"} if warm else set()
+
+    def _round_lock(self, tenant: str) -> threading.Lock:
+        """The tenant's round-serialization lock (created on first use)."""
+        with self._state_lock:
+            lock = self._tenant_locks.get(tenant)
+            if lock is None:
+                lock = self._tenant_locks[tenant] = threading.Lock()
+            return lock
+
+    # -- Algorithm 1 ----------------------------------------------------------
+    def aggregate(
+        self,
+        updates: Optional[Sequence[PyTree]] = None,
+        weights: Optional[Sequence[float]] = None,
+        template: Optional[PyTree] = None,
+        expected_clients: Optional[int] = None,
+        from_store: bool = False,
+        async_round: bool | str = False,
+        tenant: str = DEFAULT_TENANT,
+    ) -> Tuple[PyTree, RoundReport]:
+        """One synchronous aggregation round; returns ``(fused,
+        RoundReport)`` with ``fused`` an fp32 tensor on the service's
+        device (or the ``template`` pytree built from it).
+
+        ``updates`` (+ optional ``weights``): an in-memory round over
+        flat vectors or pytrees (tensors or ndarrays). ``from_store``:
+        clients wrote to ``tenant``'s store partition; the monitor gates
+        on ``expected_clients`` (else the current count). An empty round
+        (timeout, nothing landed) returns ``(None, report)`` with
+        ``report.empty`` set. ``async_round`` is not yet ported."""
+        if async_round:
+            raise _not_ported("async rounds", "8")
+        with self._round_lock(tenant):
+            return self._aggregate_impl(
+                updates, weights, template, expected_clients, from_store,
+                tenant,
+            )
+
+    def _aggregate_impl(
+        self,
+        updates: Optional[Sequence[PyTree]],
+        weights: Optional[Sequence[float]],
+        template: Optional[PyTree],
+        expected_clients: Optional[int],
+        from_store: bool,
+        tenant: str,
+    ) -> Tuple[PyTree, RoundReport]:
+        """``aggregate`` body; caller holds the tenant's round lock."""
+        fusion = self.fusion
+        dev = self.device
+        monitor_result = None
+        phase: Dict[str, float] = {}
+        notes: Tuple[str, ...] = ()
+
+        if from_store:
+            expected = expected_clients or self.store.count(tenant)
+            monitor = Monitor(
+                self.store,
+                threshold=max(int(expected * self.threshold_frac), 1),
+                timeout=self.monitor_timeout,
+                poll_interval=self.poll_interval,
+                clock=self.clock, sleep=self.sleep,
+                tenant=tenant,
+            )
+            monitor_result = monitor.wait()
+            if self.store.count(tenant) == 0:
+                return self._empty_round(monitor_result, tenant=tenant)
+            n, p, dtype = self.store.meta(tenant)
+            row_bytes = self._row_bytes(p, dtype)
+            chunk_rows = self._chunk_rows(n, row_bytes)
+            load = Workload(
+                update_bytes=row_bytes, n_clients=n,
+                dtype_bytes=dtype.itemsize, params=p,
+            )
+            n_hint = max(n, expected or 0, 1)
+            can_stream, stream_note = self._stream_mode(fusion)
+            notes = (stream_note,) if stream_note else ()
+            plan = self.planner.plan(
+                load, fusion,
+                warm_engines=self._warm_engines(
+                    n, p, dtype,
+                    chunk_rows=chunk_rows if can_stream else None,
+                    fusion=fusion,
+                    n_hint=n_hint if can_stream else None,
+                ),
+            )
+            if can_stream:
+                t0 = time.perf_counter()
+                fused, srep = self.local.fuse_stream(
+                    fusion,
+                    self.store.iter_chunks(chunk_rows, tenant=tenant),
+                    chunk_rows=chunk_rows,
+                    device_sem=self.device_sem,
+                    n_hint=n_hint,
+                )
+                dt = time.perf_counter() - t0
+                phase = {
+                    "ingest": srep.ingest_seconds,
+                    "compile": srep.compile_seconds,
+                    "compute": srep.compute_seconds,
+                }
+                return self._finish(
+                    fused, template, plan, n, load, dt, monitor_result,
+                    expected_clients, True, phase, tenant=tenant,
+                    ingest_bytes=srep.ingest_bytes, notes=notes,
+                )
+            t0 = time.perf_counter()
+            raw, w = self.store.read_stacked(tenant)
+        else:
+            if updates is None or len(updates) == 0:
+                raise ValueError("an in-memory round needs updates")
+            t0 = time.perf_counter()
+            flat = [
+                u if getattr(u, "ndim", None) == 1
+                else tree_to_flat_vector(u)
+                for u in updates
+            ]
+            if all(isinstance(f, torch.Tensor) for f in flat):
+                raw = torch.stack([f.to(flat[0].device) for f in flat])
+            else:
+                raw = np.stack([host_array(f) for f in flat])
+            w = (
+                np.asarray(weights, np.float32)
+                if weights is not None
+                else np.ones((len(flat),), np.float32)
+            )
+        stacked = updates_to_device(raw, dev)   # one copy to the device
+        phase["ingest"] = time.perf_counter() - t0
+
+        # dense path (in-memory round, or a store round that can't
+        # stream): one plan against the materialized matrix
+        n, p = raw.shape
+        raw_dtype = host_dtype(raw)
+        load = Workload(update_bytes=p * raw_dtype.itemsize, n_clients=n,
+                        dtype_bytes=raw_dtype.itemsize)
+        plan = self.planner.plan(
+            load, fusion,
+            warm_engines=self._warm_engines(n, p, raw_dtype, fusion=fusion),
+        )
+        t0 = time.perf_counter()
+        # the engine holds the semaphore around execution only, so a cold
+        # build (outside it, single-flight) never stalls other folds
+        fused = self.local.fuse(fusion, stacked, w,
+                                device_sem=self.device_sem)
+        phase["compile"] = self.local.last_compile_seconds
+        synchronize(dev)
+        dt = time.perf_counter() - t0
+        phase["compute"] = dt - phase["compile"]
+        return self._finish(
+            fused, template, plan, n, load, dt, monitor_result,
+            expected_clients, False, phase, tenant=tenant,
+            ingest_bytes=n * p * raw_dtype.itemsize, notes=notes,
+        )
+
+    def _empty_round(
+        self, monitor_result: MonitorResult, tenant: str = DEFAULT_TENANT,
+    ) -> Tuple[None, RoundReport]:
+        """Timed-out round with nothing to fuse: a structured report (the
+        caller keeps the previous model) instead of a LookupError."""
+        plan = Plan(
+            engine="local", workload_class=WorkloadClass.ONCHIP_RESIDENT,
+            est_seconds=0.0, breakdown={}, feasible=True,
+            reason="empty round: monitor timed out with no arrivals",
+        )
+        report = RoundReport(
+            plan=plan, n_clients=0, update_bytes=0, fuse_seconds=0.0,
+            monitor=monitor_result, route_next_to_store=True,
+            streamed=False, phase_seconds={}, empty=True, tenant=tenant,
+            store_stats=self.store.stats_for(tenant),
+        )
+        with self._state_lock:
+            self.history.append(report)
+        return None, report
+
+    # -- round epilogue -------------------------------------------------------
+    def _finish(
+        self, fused, template, plan, n, load, dt, monitor_result,
+        expected_clients, streamed, phase,
+        tenant: str = DEFAULT_TENANT,
+        ingest_bytes: int = 0,
+        notes: Tuple[str, ...] = (),
+    ):
+        # §III-D3 seamless transition: if next round's projected load
+        # would overflow one card, tell clients to write to the store
+        next_load = dataclasses.replace(
+            load, n_clients=max(n, expected_clients or n),
+        )
+        route_next = (
+            classify(next_load, self.hw) is WorkloadClass.DISTRIBUTED
+            or self.planner.plan(next_load, self.fusion).engine != "local"
+        )
+        report = RoundReport(
+            plan=plan,
+            n_clients=n,
+            update_bytes=load.update_bytes,
+            fuse_seconds=dt,
+            monitor=monitor_result,
+            route_next_to_store=route_next,
+            streamed=streamed,
+            phase_seconds=phase,
+            tenant=tenant,
+            store_stats=self.store.stats_for(tenant),
+            bytes_ingested=ingest_bytes,
+            notes=notes,
+        )
+        with self._state_lock:
+            self.history.append(report)
+        if template is not None:
+            return flat_vector_to_tree(fused, template), report
+        return fused, report

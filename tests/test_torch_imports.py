@@ -1,0 +1,103 @@
+"""Package rules of the port: it imports neither JAX nor the JAX package,
+builds nothing at import, and runs on the card unless asked for the CPU."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.utils.device import resolve_device
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+SMOKE = REPO / "chip_smoke.py"
+ENV = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+
+
+def _modules():
+    out = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        out.append(".".join(parts))
+    return out
+
+
+def _run(args, cwd=REPO, env=ENV, timeout=120):
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_importing_the_port_loads_no_jax_and_builds_nothing():
+    mods = _modules()
+    assert "repro_torch.kernels.fused_fusion.kernel" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or\n"
+        "             m.startswith(('jax.', 'repro.')))\n"
+        "from repro_torch.kernels import _build\n"
+        "print('BAD', bad, 'LOADED', sorted(_build._LOADED))\n"
+    )
+    res = _run(["-c", code])
+    assert res.returncode == 0, res.stderr
+    assert "BAD [] LOADED []" in res.stdout, res.stdout
+
+
+def _imported_names(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [SMOKE],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_repro_imports_in_source(path):
+    bad = [name for name in _imported_names(path)
+           if name.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
+    assert not bad, f"{path}: imports {bad}"
+
+
+def test_entry_points_default_to_the_card():
+    from repro_torch.core.local import LocalEngine
+    from repro_torch.core.service import AggregationService
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        assert AggregationService().device.type == "cuda"
+        assert LocalEngine().device.type == "cuda"
+        return
+    for make in (lambda: resolve_device(None), lambda: resolve_device("cuda"),
+                 AggregationService, LocalEngine,
+                 lambda: AggregationService(device="cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    res = _run(["-m", "repro_torch.launch.aggregate", "--model", "CNN4.6",
+                "--clients", "2"])
+    assert res.returncode != 0 and "CUDA" in res.stderr
+
+
+def _assert_no_result(res):
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout and '"kernels"' not in res.stdout
+
+
+def test_chip_smoke_fails_without_a_card_or_a_repo(tmp_path):
+    if not torch.cuda.is_available():
+        _assert_no_result(_run([str(SMOKE)], env=dict(os.environ)))
+    lone = tmp_path / "lone"
+    lone.mkdir()
+    shutil.copy(SMOKE, lone / "chip_smoke.py")
+    _assert_no_result(_run(["chip_smoke.py"], cwd=lone, env=dict(os.environ)))

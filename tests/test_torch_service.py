@@ -1,0 +1,253 @@
+"""The slice as a whole: the port's AggregationService, UpdateStore and
+CLI against the JAX package's, on the same seeded updates (CPU)."""
+import os
+import re
+import subprocess
+import sys
+
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.core.service import AggregationService as JService
+from repro.core.store import UpdateStore as JStore
+from repro_torch.configs.cnn_suite import CNN_SUITE
+from repro_torch.core.compress import compressed_bytes
+from repro_torch.core.service import AggregationService
+from repro_torch.core.store import UpdateStore
+from repro_torch.core.workload import (
+    Workload,
+    WorkloadClass,
+    classify,
+    max_clients_single_node,
+)
+from repro_torch.utils.mem import H100_SXM
+from repro_torch.utils.pytree import flat_vector_to_tree, tree_to_flat_vector
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RTOL, ATOL = 2e-5, 1e-6
+N, P = 12, 3001
+CHUNK_BYTES = 4 * P * 5          # 5-row blocks: 3 blocks, the last ragged
+
+
+def _updates(seed=0, n=N, p=P):
+    rng = np.random.default_rng(seed)
+    return ([rng.normal(size=(p,)).astype(np.float32) for _ in range(n)],
+            [float(rng.integers(1, 100)) for _ in range(n)])
+
+
+def _report_fields(rep):
+    return (rep.n_clients, rep.update_bytes, rep.streamed, rep.bytes_ingested,
+            rep.empty, rep.monitor.ready if rep.monitor else None, rep.notes,
+            rep.tenant)
+
+
+def _pair(strategy=("kernel", "pallas"), **kw):
+    ts, js = UpdateStore(), JStore()
+    return (AggregationService(store=ts, local_strategy=strategy[0],
+                               device="cpu", **kw),
+            JService(store=js, local_strategy=strategy[1], **kw))
+
+
+@pytest.mark.parametrize("strategy", [("kernel", "pallas"), ("torch", "jnp")],
+                         ids=lambda s: s[0])
+@pytest.mark.parametrize("fusion", ["fedavg", "iteravg", "fedadam"])
+def test_store_round_matches(strategy, fusion):
+    ours, theirs = _pair(strategy, fusion=fusion,
+                         stream_chunk_bytes=CHUNK_BYTES)
+    ups, ws = _updates(1)
+    for svc in (ours, theirs):
+        for i, (u, w) in enumerate(zip(ups, ws)):
+            svc.store.write(f"client{i:05d}", u, weight=w)
+    for _ in range(2):   # fedadam's state advances identically
+        got, rep = ours.aggregate(from_store=True, expected_clients=N)
+        want, jrep = theirs.aggregate(from_store=True, expected_clients=N)
+        assert got.dtype == torch.float32 and got.device.type == "cpu"
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=RTOL, atol=ATOL)
+        assert _report_fields(rep) == _report_fields(jrep)
+        assert rep.streamed and rep.plan.engine == "local"
+        assert set(rep.phase_seconds) == {"ingest", "compile", "compute"}
+    assert rep.phase_seconds["compile"] == 0.0   # warm second round
+
+
+def test_compressed_store_round_matches():
+    ours, theirs = _pair(compress=True, stream_chunk_bytes=3 * 4096)
+    ups, ws = _updates(2, p=5003)
+    for svc in (ours, theirs):
+        for i, (u, w) in enumerate(zip(ups, ws)):
+            svc.store.write(f"client{i:05d}",
+                            svc.compress_update(f"client{i:05d}", u), weight=w)
+    got, rep = ours.aggregate(from_store=True)
+    want, jrep = theirs.aggregate(from_store=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+    assert _report_fields(rep) == _report_fields(jrep)
+    assert rep.bytes_ingested == N * compressed_bytes(5003)
+
+
+def test_bf16_store_round_matches():
+    ours, theirs = _pair(stream_chunk_bytes=2 * P * 4)
+    ups, ws = _updates(3)
+    for svc in (ours, theirs):
+        for i, (u, w) in enumerate(zip(ups, ws)):
+            svc.store.write(f"c{i}", u.astype(ml_dtypes.bfloat16), weight=w)
+    got, rep = ours.aggregate(from_store=True)
+    want, jrep = theirs.aggregate(from_store=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+    assert _report_fields(rep) == _report_fields(jrep)
+
+
+def test_empty_round_matches():
+    ours, theirs = _pair(monitor_timeout=0.05)
+    got, rep = ours.aggregate(from_store=True, expected_clients=4)
+    want, jrep = theirs.aggregate(from_store=True, expected_clients=4)
+    assert got is None and want is None
+    assert rep.empty and jrep.empty
+    assert (rep.n_clients, rep.monitor.ready, rep.monitor.count, rep.notes) \
+        == (jrep.n_clients, jrep.monitor.ready, jrep.monitor.count,
+            jrep.notes) == (0, False, 0, ())
+
+
+def test_in_memory_round_with_template_matches():
+    rng = np.random.default_rng(4)
+    template = {"w": np.zeros((3, 5), np.float32),
+                "b": np.zeros((5,), np.float32),
+                "a": [np.zeros((2,), np.float32)]}
+    ups = [{"w": rng.normal(size=(3, 5)).astype(np.float32),
+            "b": rng.normal(size=(5,)).astype(np.float32),
+            "a": [rng.normal(size=(2,)).astype(np.float32)]}
+           for _ in range(7)]
+    ws = rng.uniform(1, 9, size=(7,)).astype(np.float32)
+    ours, theirs = _pair()
+    got, rep = ours.aggregate(updates=ups, weights=ws, template=template)
+    want, jrep = theirs.aggregate(updates=ups, weights=ws, template=template)
+    assert sorted(got) == sorted(want) == ["a", "b", "w"]
+    for key in ("w", "b"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got["a"][0].numpy(), np.asarray(want["a"][0]),
+                               rtol=RTOL, atol=ATOL)
+    assert _report_fields(rep) == _report_fields(jrep)
+    assert not rep.streamed and rep.monitor is None
+    # tensors in, tensors out: the same round from torch pytrees
+    tups = [{k: (torch.from_numpy(v) if k != "a" else [torch.from_numpy(v[0])])
+             for k, v in u.items()} for u in ups]
+    again, _ = ours.aggregate(updates=tups, weights=ws, template=template)
+    np.testing.assert_allclose(again["w"].numpy(), got["w"].numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+def _spool(store, seed):
+    ups, ws = _updates(seed, n=7, p=1025)
+    for i, (u, w) in enumerate(zip(ups, ws)):
+        store.write(f"d{i}", u, weight=w)
+        store.write(f"h{i}", u.astype(ml_dtypes.bfloat16), weight=w,
+                    tenant="half")
+    return ups, ws
+
+
+@pytest.mark.parametrize("writer", ["repro", "repro_torch"])
+def test_disk_spool_cross_read(tmp_path, writer):
+    """A disk spool written by either package's store is read by the
+    other's, and a round over it gives the same fused vector."""
+    spool = str(tmp_path / "spool")
+    first = JStore(backend="disk", spool_dir=spool) if writer == "repro" \
+        else UpdateStore(backend="disk", spool_dir=spool)
+    _spool(first, 5)
+    if writer == "repro":
+        from repro.core.compress import compress_update
+    else:
+        from repro_torch.core.compress import compress_update
+    rng = np.random.default_rng(6)
+    for i in range(5):
+        first.write(f"q{i}", compress_update(
+            rng.normal(size=(1025,)).astype(np.float32), 256),
+            weight=float(i + 1), tenant="q")
+    ts = UpdateStore(backend="disk", spool_dir=spool)
+    js = JStore(backend="disk", spool_dir=spool)
+    assert ts.tenants() == js.tenants() == ["default", "half", "q"]
+    for tenant in ("default", "half", "q"):
+        n, p, dt = ts.meta(tenant)
+        jn, jp, jdt = js.meta(tenant)
+        assert (n, p, dt.itemsize) == (jn, jp, jdt.itemsize)
+        ours = AggregationService(store=ts, device="cpu",
+                                  stream_chunk_bytes=3 * 1025 * 4)
+        theirs = JService(store=js, stream_chunk_bytes=3 * 1025 * 4)
+        got, rep = ours.aggregate(from_store=True, tenant=tenant)
+        want, jrep = theirs.aggregate(from_store=True, tenant=tenant)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=RTOL, atol=ATOL)
+        assert _report_fields(rep) == _report_fields(jrep)
+
+
+def _fused_head(out: str) -> np.ndarray:
+    m = re.search(r"fused\[:5\]=\[([^\]]*)\]", out)
+    assert m, out
+    return np.array([float(x) for x in m.group(1).split()])
+
+
+def test_cli_matches_reference_cli():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu")
+    common = ["--model", "CNN4.6", "--clients", "8"]
+    ours = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.aggregate", "--device",
+         "cpu", "--local-strategy", "kernel", *common],
+        env=env, capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert ours.returncode == 0, ours.stderr
+    theirs = subprocess.run(
+        [sys.executable, "-m", "repro.launch.aggregate", *common],
+        env=env, capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert theirs.returncode == 0, theirs.stderr
+    np.testing.assert_allclose(_fused_head(ours.stdout),
+                               _fused_head(theirs.stdout), rtol=RTOL)
+    assert "streamed=True" in ours.stdout and "device=cpu" in ours.stdout
+
+
+def test_not_yet_ported_options_raise():
+    for kw, item in [({"adaptive": True}, "8"),
+                     ({"staleness_discount": 0.5}, "8"),
+                     ({"mesh": object()}, "11"),
+                     ({"secure": object()}, "12")]:
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            AggregationService(device="cpu", **kw)
+    svc = AggregationService(device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        svc.aggregate(from_store=True, async_round=True)
+
+
+def test_workload_classes_on_the_card():
+    """The three classes against the H100's tiers (on-chip 50 MB, 80 GB
+    device memory with 75% headroom)."""
+    small = Workload.for_params(1_000_000, 10)               # 40 MB
+    mid = Workload.for_params(CNN_SUITE["Resnet50"].num_params, 48)
+    big = Workload.for_params(CNN_SUITE["CNN956"].num_params, 256)
+    assert classify(small) is WorkloadClass.ONCHIP_RESIDENT
+    assert classify(mid) is WorkloadClass.HBM_LOCAL
+    assert classify(big) is WorkloadClass.DISTRIBUTED
+    comp = Workload.for_params(CNN_SUITE["CNN956"].num_params, 200,
+                               compressed=True)
+    assert classify(comp) is WorkloadClass.HBM_LOCAL
+    assert max_clients_single_node(91_000_000) == int(
+        H100_SXM.hbm_bytes * 0.75 // 91_000_000)
+
+
+def test_pytree_order_is_jax_order():
+    from collections import OrderedDict
+
+    from repro.utils.pytree import tree_to_flat_vector as j_flat
+
+    rng = np.random.default_rng(8)
+    tree = {"z": rng.normal(size=(2, 3)).astype(np.float32),
+            "a": [rng.normal(size=(4,)).astype(np.float32), None,
+                  (rng.normal(size=(1,)).astype(np.float32),)],
+            "m": OrderedDict([("y", np.ones(2, np.float32)),
+                              ("b", np.zeros(1, np.float32))])}
+    flat = tree_to_flat_vector(tree)
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(j_flat(tree)))
+    back = flat_vector_to_tree(flat, tree)
+    np.testing.assert_array_equal(back["z"].numpy(), tree["z"])
+    assert list(back["m"]) == ["y", "b"] and back["a"][1] is None

@@ -26,8 +26,12 @@ def _f32(x, device: torch.device) -> torch.Tensor:
 def carry_from_numpy(acc_state, device: DeviceLike = None
                      ) -> Tuple[torch.Tensor, ...]:
     """A ``repro`` ``StreamReport.acc_state`` (a tuple of ndarrays: the
-    (P,) weighted sum and the weight total for the sum family) as this
-    package's carry, for ``LocalEngine.fuse_stream(init=...)``."""
+    (P,) weighted sum and the weight total for the sum family; the sum,
+    count and ascending (K, P) top / bottom buffers, +/-inf sentinels
+    included, for the order-statistic carve) as this package's carry,
+    for ``LocalEngine.fuse_stream(init=...)``. A JAX caller's Zeno
+    validation gradient needs no helper: ``Zeno.with_val_grad`` and
+    ``aggregate(val_grad=)`` take the ndarray."""
     dev = resolve_device(device)
     return tuple(_f32(leaf, dev) for leaf in acc_state)
 

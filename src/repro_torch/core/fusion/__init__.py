@@ -1,8 +1,14 @@
-"""Fusion algorithms: the reducer protocol and the sum family. The
-order-statistic and Byzantine-robust fusions of ``repro`` are not yet
-ported (ROADMAP, modules item 10)."""
+"""Fusion algorithm library (IBMFL-compatible set + robust extensions),
+the registry of ``repro.core.fusion``."""
 from repro_torch.core.fusion.averaging import ClippedAvg, FedAvg, GradAvg, IterAvg
 from repro_torch.core.fusion.base import EPS, FusionAlgorithm
+from repro_torch.core.fusion.robust import (
+    CoordMedian,
+    GeometricMedian,
+    Krum,
+    TrimmedMean,
+    Zeno,
+)
 from repro_torch.core.fusion.serveropt import FedAdam, FedAvgM
 
 REGISTRY = {
@@ -10,18 +16,17 @@ REGISTRY = {
     "iteravg": IterAvg,
     "gradavg": GradAvg,
     "clippedavg": ClippedAvg,
+    "coordmedian": CoordMedian,
+    "trimmedmean": TrimmedMean,
+    "krum": Krum,
+    "zeno": Zeno,
+    "geomedian": GeometricMedian,
     "fedavgm": FedAvgM,
     "fedadam": FedAdam,
 }
 
-# fusions of repro.core.fusion.REGISTRY that wait for a later port
-_NOT_YET_PORTED = ("coordmedian", "trimmedmean", "krum", "zeno", "geomedian")
-
 
 def get_fusion(name: str, **kw) -> FusionAlgorithm:
-    if name in _NOT_YET_PORTED:
-        raise ValueError(f"fusion {name!r} is not yet ported to repro_torch "
-                         "(ROADMAP: robust fusions)")
     return REGISTRY[name](**kw)
 
 
@@ -32,6 +37,11 @@ __all__ = [
     "IterAvg",
     "GradAvg",
     "ClippedAvg",
+    "CoordMedian",
+    "TrimmedMean",
+    "Krum",
+    "Zeno",
+    "GeometricMedian",
     "FedAvgM",
     "FedAdam",
     "REGISTRY",

@@ -6,19 +6,25 @@ layout of ``utils.pytree.tree_to_flat_vector``) with per-client weights
 
 ``reducible`` fusions are a weighted sum over clients, so an engine can
 fold (chunk, P) blocks into a (P,) fp32 carry instead of holding the
-matrix. The reducer protocol, as in ``repro.core.fusion.base``:
+matrix. ``coordinatewise`` fusions (median, trimmed mean) act on each
+coordinate given all client values for it. The reducer protocol, as in
+``repro.core.fusion.base``:
 
 * ``streamable``  — the fusion folds blocks into a bounded carry.
+* ``weighted``    — the fold consumes client weights and staleness
+  scales; order-statistic reducers set it False, and the engine then
+  passes a 0/1 validity row and refuses per-row scales.
 * ``init_state(dim, n_hint, device)``  -> tuple of tensors.
 * ``fold_block(state, payload, weights, scale, partial=, carve=)``
-  -> state; ``partial`` lets an engine inject its kernel.
+  -> state; ``partial`` / ``carve`` let an engine inject its kernels.
 * ``finalize(state)``  -> (P,); server-optimizer state advances here.
 * ``state_signature(dim, n_hint)`` — hashable, mixed into step keys.
 * ``state_nbytes(dim, n_hint)`` — carry footprint.
 * ``discount_state(state, gamma)`` — staleness discount of a carry.
 
 For the reducible family the state is the ``(weighted_sum, weight_sum)``
-pair and finalize is ``combine``.
+pair and finalize is ``combine``; the order-statistic carve's is in
+``robust.py``.
 """
 from __future__ import annotations
 
@@ -47,6 +53,8 @@ class FusionAlgorithm(abc.ABC):
 
     name: str = "base"
     reducible: bool = False
+    coordinatewise: bool = False
+    weighted: bool = True
 
     @abc.abstractmethod
     def fuse(self, updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,18 @@
 """Single-card aggregation engine (paper §III-D1).
 
-``kernel`` strategy — the default: the hand-written CUDA weighted-sum
-                      kernels (one device-memory pass over each block),
-                      the twin of ``repro``'s ``pallas`` strategy.
+``kernel`` strategy — the default: the hand-written CUDA kernels (the
+                      weighted sums, the top-k carve, the dense trimmed
+                      mean and median), the twin of ``repro``'s
+                      ``pallas`` strategy.
 ``torch`` strategy  — the paper's baseline engine: plain dense PyTorch
                       ops on one device, the twin of ``jnp``; taken only
                       when asked for.
 
-Both fold reducible fusions from (chunk, P) blocks into a (P,) fp32
-carry, so a memory-capped node can aggregate more clients than fit at
-once, and ``fuse_stream`` consumes blocks straight off
-``UpdateStore.iter_chunks`` — the dense (n, P) matrix never exists on
+Both fold streamable fusions from (chunk, P) blocks into the fusion's
+carry — a (P,) fp32 weighted sum, or the O(K*P) top-k carve of
+TrimmedMean / CoordMedian — so a memory-capped node can aggregate more
+clients than fit at once, and ``fuse_stream`` consumes blocks straight
+off ``UpdateStore.iter_chunks``: the dense (n, P) matrix never exists on
 the host. Each block is copied to the device once, before its fold.
 
 Fold steps are built once per shape key (``utils.jitcache``) and reused
@@ -20,8 +22,7 @@ Where the JAX engine scans a compiled executable, this one loops in
 Python over kernel launches.
 
 ``combine`` runs outside the steps because FedAvgM / FedAdam carry
-server state that must advance every round. The order-statistic carve
-(TrimmedMean / CoordMedian streams) is not yet ported.
+server state that must advance every round.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ import torch
 from repro_torch.core.compress import BLOCK, CompressedBlock
 from repro_torch.core.fusion.base import FusionAlgorithm
 from repro_torch.kernels.fused_fusion import kernel
+from repro_torch.kernels.robust_fusion import kernel as robust_kernel
 from repro_torch.utils.device import DeviceLike, resolve_device, synchronize
 from repro_torch.utils.dtypes import (
     fold_dtype,
@@ -50,9 +52,6 @@ from repro_torch.utils.jitcache import CompiledCache, bucket_rows, fusion_cache_
 # fusions whose weighted-sum partial routes through the CUDA kernels
 _KERNEL_WSUM = ("fedavg", "gradavg", "iteravg", "fedavgm", "fedadam")
 STRATEGIES = ("kernel", "torch")
-
-_CARVE_MSG = ("order-statistic streaming (the top-k carve of TrimmedMean / "
-              "CoordMedian) is not yet ported to repro_torch")
 
 
 def _check_scale(scale) -> np.ndarray:
@@ -101,7 +100,8 @@ class StreamReport:
     # blocks) — what RoundReport.bytes_ingested reports
     ingest_bytes: int = 0
     # pre-finalize carry (tuple of device tensors, the fusion's reducer
-    # state) so a later round can continue it
+    # state) so a later round can continue it; acc_wsum / acc_tot are
+    # its sum-family view, set for reducible fusions only
     acc_state: Optional[tuple] = None
     acc_wsum: Optional[torch.Tensor] = None
     acc_tot: float = 0.0
@@ -139,7 +139,9 @@ class LocalEngine:
              device_sem=None) -> torch.Tensor:
         """Dense fuse of a (n, P) array or tensor. ``device_sem``
         (optional semaphore) is held around device execution only, and
-        the fold is waited for under it."""
+        the fold is waited for under it. Over ``memory_cap_bytes`` a
+        streamable fusion folds capped chunks one at a time (the carve
+        through ``fuse_stream``)."""
         n, P = updates.shape
         dev = self.device
         w = torch.ones((n,), dtype=torch.float32) if weights is None \
@@ -161,7 +163,15 @@ class LocalEngine:
                         "fusion is not streamable — classify as DISTRIBUTED"
                     )
                 if not fusion.reducible:
-                    raise NotImplementedError(_CARVE_MSG)
+                    # order-statistic reducer: chunk the dense input
+                    # through the streamed carve fold (bounded carry)
+                    chunks = ((updates[i: i + max_rows], w[i: i + max_rows])
+                              for i in range(0, n, max_rows))
+                    fused, _ = self.fuse_stream(
+                        fusion, chunks, chunk_rows=max_rows,
+                        device_sem=device_sem, n_hint=n,
+                    )
+                    return fused
                 return self._streamed(fusion, updates, w, max_rows, dtype,
                                       device_sem)
 
@@ -169,7 +179,13 @@ class LocalEngine:
         if fusion.reducible:
             return self._fuse_reducible_dense(fusion, u, w, dtype, device_sem)
         with sem:
-            return self._bounded(fusion.fuse(u, w), device_sem)
+            if self.strategy == "kernel" and fusion.name == "coordmedian":
+                out = robust_kernel.coord_median(u)
+            elif self.strategy == "kernel" and fusion.name == "trimmedmean":
+                out = robust_kernel.trimmed_mean(u, fusion.trim_count(n))
+            else:
+                out = fusion.fuse(u, w)
+            return self._bounded(out, device_sem)
 
     def _bounded(self, out, device_sem):
         """Wait for ``out`` while a device semaphore is installed —
@@ -187,26 +203,33 @@ class LocalEngine:
         device_sem=None,
         n_hint: Optional[int] = None,
     ) -> Tuple[torch.Tensor, StreamReport]:
-        """Fuse a reducible fusion from an iterator of (chunk, P) blocks
+        """Fuse a streamable fusion from an iterator of (chunk, P) blocks
         (e.g. ``UpdateStore.iter_chunks``) without ever holding the dense
         matrix: each block is copied to the device and folded into the
-        fusion's (P,) fp32 carry by one cached step.
+        fusion's carry by one cached step — the (P,) fp32 weighted-sum
+        pair for the reducible family, the (sum, count, topk, botk) top-k
+        carve for order-statistic fusions, whose K is sized from
+        ``n_hint`` (the expected client count; required for them).
 
         Blocks are ``(updates, weights)`` or ``(updates, weights,
         scale)``; the optional numeric (c,) ``scale`` multiplies the
-        EFFECTIVE weights. ``updates`` is a dense (c, P) array or tensor,
-        or a :class:`~repro_torch.core.compress.CompressedBlock` (int8
-        codes + fp32 per-block scales) folded without dequantizing on the
-        host; a round may mix both, each payload kind with its own step,
-        all into one carry. ``chunk_rows`` pins the step key (the first
-        block's size if unset); only the final block may be smaller. The
-        kernel strategy folds a ragged block as it is, the torch strategy
-        pads it to ``chunk_rows`` zero-weight rows. ``init`` seeds the
-        carry with an earlier ``acc_state`` (tensors or ndarrays).
-        ``device_sem`` is held around each block's copy and fold and the
-        final combine, and each is waited for under it, so it bounds
-        device execution while ingest stalls stay outside. ``n_hint`` is
-        passed to the fusion's state hooks. Returns (fused, StreamReport).
+        EFFECTIVE weights. Order-statistic (``fusion.weighted == False``)
+        streams ignore client weights — the engine passes a 0/1 validity
+        row — and refuse per-row scales with a ValueError. ``updates``
+        is a dense (c, P) array or tensor, or a
+        :class:`~repro_torch.core.compress.CompressedBlock` (int8 codes +
+        fp32 per-block scales) folded without dequantizing on the host; a
+        round may mix both, each payload kind with its own step, all into
+        one carry. ``chunk_rows`` pins the step key (the first block's
+        size if unset); only the final block may be smaller. The kernel
+        strategy folds a ragged block as it is, the torch strategy pads
+        it to ``chunk_rows`` zero-weight (invalid) rows. ``init`` seeds
+        the carry with an earlier ``acc_state`` (tensors or ndarrays),
+        which is copied first: the carve kernel updates the carry in
+        place and never writes into the caller's tensors. ``device_sem``
+        is held around each block's copy and fold and the final combine,
+        and each is waited for under it, so it bounds device execution
+        while ingest stalls stay outside. Returns (fused, StreamReport).
         """
         if not fusion.streamable:
             raise ValueError(
@@ -214,8 +237,6 @@ class LocalEngine:
                 "needs a reducer decomposition (weighted sum or "
                 "order-statistic carve)"
             )
-        if not fusion.reducible:
-            raise NotImplementedError(_CARVE_MSG)
         dev = self.device
         rep = StreamReport()
         sem = device_sem if device_sem is not None \
@@ -235,6 +256,11 @@ class LocalEngine:
             rep.ingest_seconds += time.perf_counter() - t0
             block, w = item[0], item[1]
             scale = _check_scale(item[2]) if len(item) > 2 else None
+            if scale is not None and not fusion.weighted:
+                raise ValueError(
+                    f"{fusion.name}: per-row staleness scales are "
+                    "unsupported — order statistics cannot discount rows"
+                )
             compressed = isinstance(block, CompressedBlock)
             rows = block.rows if compressed else block.shape[0]
             bdim = block.dim if compressed else block.shape[1]
@@ -297,11 +323,12 @@ class LocalEngine:
             if init is None:
                 raise ValueError("fuse_stream: empty block iterator")
             # carry-only round: nothing arrived, finalize the carried state
-            state = self._stream_state(fusion, init[0].shape[0], n_hint, init)
+            state = tuple(self._carried(x, torch.float32) for x in init)
         t0 = time.perf_counter()
         rep.acc_state = tuple(state)
-        rep.acc_wsum = state[0]
-        rep.acc_tot = float(state[1])
+        if fusion.reducible:
+            rep.acc_wsum = state[0]
+            rep.acc_tot = float(state[1])
         with sem:
             fused = fusion.finalize(state)
             synchronize(dev)
@@ -311,8 +338,12 @@ class LocalEngine:
     @staticmethod
     def _block_weights(fusion, w, scale, rows: int, width: int) -> torch.Tensor:
         """The block's (width,) fp32 fold weights on the host: effective
-        weights, times the per-row scale, and zero on padded rows."""
+        weights, times the per-row scale, and zero on padded rows; for
+        an order-statistic fold, 1 on each real row (validity only)."""
         wt = torch.zeros((width,), dtype=torch.float32)
+        if not fusion.weighted:
+            wt[:rows] = 1.0
+            return wt
         wt[:rows] = _host_weights(w)[:rows]
         wt = fusion.effective_weights(wt).clone()
         if scale is not None:
@@ -331,11 +362,7 @@ class LocalEngine:
                 f"fuse_stream: carried state has {len(init)} leaves, "
                 f"{fusion.name} expects {len(proto)}"
             )
-        state = tuple(
-            to_device(x if isinstance(x, torch.Tensor) else np.asarray(x),
-                      self.device).to(p.dtype)
-            for x, p in zip(init, proto)
-        )
+        state = tuple(self._carried(x, p.dtype) for x, p in zip(init, proto))
         for got, want in zip(state, proto):
             if got.shape != want.shape:
                 raise ValueError(
@@ -343,6 +370,12 @@ class LocalEngine:
                     f"{tuple(got.shape)}, stream blocks have dim {dim}"
                 )
         return state
+
+    def _carried(self, x, dtype) -> torch.Tensor:
+        """A carried leaf as a fresh contiguous device tensor: a copy, so
+        an in-place fold never writes into the caller's ``init``."""
+        x = x if isinstance(x, torch.Tensor) else np.asarray(x)
+        return to_device(x, self.device).to(dtype).clone()
 
     # -- cache introspection (planner reuse term) -----------------------------
     def is_warm(self, fusion, n: int, P: int, dtype) -> bool:
@@ -361,10 +394,15 @@ class LocalEngine:
                        n_hint: Optional[int] = None) -> bool:
         """Warm-path probe for the streamed step. ``dtype`` int8 probes
         the COMPRESSED step at quantization block ``block`` (default
-        ``compress.BLOCK``)."""
-        if not fusion.streamable or not fusion.reducible:
+        ``compress.BLOCK``). ``n_hint`` sizes an order-statistic carve's
+        state (and so its step key); without it such a fusion cannot
+        stream and is never warm."""
+        if not fusion.streamable:
             return False
-        sig = fusion.state_signature(P, n_hint)
+        try:
+            sig = fusion.state_signature(P, n_hint)
+        except ValueError:   # carve fusion with no n_hint: can't stream
+            return False
         if np.dtype(dtype) == np.int8:
             blk = int(block) if block else BLOCK
             Pq = -(-P // blk) * blk
@@ -391,12 +429,13 @@ class LocalEngine:
         return ("streamscan", fusion_cache_key(fusion), self.strategy,
                 k, max_rows, P, np.dtype(dtype).str)
 
-    def _make_build(self, step):
-        """The build function of a cached step: the first kernel step of a process
-        on the card also builds and loads the CUDA library."""
+    def _make_build(self, step, lib=kernel):
+        """The build function of a cached step: the first kernel step of a
+        process on the card also builds and loads the CUDA library
+        ``lib`` (a kernel module) that the step launches."""
         def build():
             if self.strategy == "kernel" and self.device.type == "cuda":
-                kernel.build()
+                lib.build()
             return step
 
         return build
@@ -426,16 +465,40 @@ class LocalEngine:
             wsum, tot = fn(u, w)
             return self._bounded(fusion.combine(wsum, tot), device_sem)
 
+    def _carve_fn(self):
+        """The carve injected into an order-statistic fold: the CUDA
+        kernel under the kernel strategy (on a CPU tensor its plain
+        version), None (the fusion's plain merge) under torch."""
+        if self.strategy != "kernel":
+            return None
+
+        def carve(u, valid, ssum, topk, botk):
+            # a dequantized compressed block is a column slice
+            return robust_kernel.topk_carve(u.contiguous(), valid, ssum,
+                                            topk, botk)
+
+        return carve
+
+    def _fold_fn(self, fusion, partial):
+        """The per-block fold: fusion-owned semantics with this engine's
+        kernels injected, and the library the fold launches."""
+        if fusion.reducible:
+            return (lambda st, payload, w: tuple(
+                fusion.fold_block(st, payload, w, partial=partial))), kernel
+        carve = self._carve_fn()
+        return (lambda st, payload, w: tuple(
+            fusion.fold_block(st, payload, w, carve=carve))), robust_kernel
+
     def _stream_step(self, fusion, chunk, P, dtype, sig):
-        """One fold step: (block, w, *state) -> updated (wsum, tot)."""
+        """One fold step: (block, w, *state) -> updated state
+        (reducible: (wsum, tot); carve: (sum, count, topk, botk))."""
         key = self._step_key(fusion, chunk, P, dtype, sig)
-        partial = self._partial_fn(fusion)
+        fold, lib = self._fold_fn(fusion, self._partial_fn(fusion))
 
         def step(u, w, *state):
-            return tuple(fusion.fold_block(tuple(state), u, w,
-                                           partial=partial))
+            return fold(tuple(state), u, w)
 
-        return self.cache.get(key, self._make_build(step))
+        return self.cache.get(key, self._make_build(step, lib))
 
     def _partial_q_fn(self, fusion, dim, blk):
         """The 'map' stage for COMPRESSED blocks: (codes (c, Pq) int8,
@@ -471,18 +534,21 @@ class LocalEngine:
     def _stream_step_q(self, fusion, chunk, P, Pq, blk, sig):
         """The compressed twin of ``_stream_step``: (codes, scales, w,
         *state) -> the same carry as the dense step, which is what lets
-        mixed dense/compressed rounds share one accumulator."""
+        mixed dense/compressed rounds share one accumulator. A carve fold
+        dequantizes the block on the device first (``dequant_payload``,
+        bit-identical to the host dequant), then runs the carve."""
         key = self._step_key_q(fusion, chunk, P, Pq, blk, sig)
         partial_q = self._partial_q_fn(fusion, P, blk)
 
         def partial(payload, w):
             return partial_q(payload[0], payload[1], w)
 
-        def step(q, s, w, *state):
-            return tuple(fusion.fold_block(tuple(state), (q, s), w,
-                                           partial=partial))
+        fold, lib = self._fold_fn(fusion, partial)
 
-        return self.cache.get(key, self._make_build(step))
+        def step(q, s, w, *state):
+            return fold(tuple(state), (q, s), w)
+
+        return self.cache.get(key, self._make_build(step, lib))
 
     def _streamed(self, fusion, updates, w, max_rows, dtype,
                   device_sem=None) -> torch.Tensor:

@@ -8,10 +8,12 @@ Round flow (as ``repro.core.service``):
   2. in-memory rounds: updates arrived with the call (IBMFL-style RPC)
      and fuse densely on the card.
   3. store rounds: ``Monitor.wait`` gates on the tenant's partition
-     (threshold or timeout), then a reducible fusion STREAMS (chunk, P)
+     (threshold or timeout), then a streamable fusion STREAMS (chunk, P)
      blocks off the store through one cached fold step — the dense
      (n, P) matrix never exists on the host; each block crosses to the
-     card once.
+     card once. An order-statistic fusion streams through the top-k
+     carve while its O(K*P) carry fits ``robust_state_budget``, and
+     reads dense otherwise, with a ``RoundReport.notes`` entry.
   4. The fused flat vector (fp32, on the service's device) is unflattened
      into the model pytree when a template is given.
 
@@ -101,6 +103,7 @@ class AggregationService:
         compress: bool | int = False,
         device_concurrency: int = 1,
         secure=None,
+        robust_state_budget: int = 64 << 20,
         clock=time.monotonic,
         sleep=time.sleep,
         poll_interval: float = 0.01,
@@ -115,6 +118,9 @@ class AggregationService:
             with name, memory and SM count read from the card.
           device: where rounds run — the card by default (raises without
             one); ``"cpu"`` only when asked for.
+          robust_state_budget: byte cap on an order-statistic fusion's
+            streamed carry (the O(K*P) top-k carve buffers); rounds over
+            it read dense, with a ``RoundReport.notes`` entry.
           mesh / adaptive / staleness_discount / secure: not yet ported;
             each raises ``NotImplementedError``.
         """
@@ -164,6 +170,9 @@ class AggregationService:
                 f"fold runs inside the streamed step); {self.fusion.name} "
                 "is not streamable"
             )
+        if int(robust_state_budget) < 1:
+            raise ValueError("robust_state_budget must be >= 1 byte")
+        self.robust_state_budget = int(robust_state_budget)
         self.history: List[RoundReport] = []  # guarded-by: _state_lock
 
     # -- quantized transport --------------------------------------------------
@@ -207,17 +216,26 @@ class AggregationService:
         return max(1, min(n, int(budget // max(row_bytes, 1))))
 
     def _stream_mode(
-        self, fusion: FusionAlgorithm,
+        self, fusion: FusionAlgorithm, p: int, n_hint: int,
     ) -> Tuple[bool, Optional[str]]:
         """Can this round stream, and if not, why not (operator note).
-        Reducible fusions stream (O(P) sum carry); the order-statistic
-        carve is not yet ported, so other streamable fusions read dense."""
+        Reducible fusions always stream (O(P) sum carry). Order-statistic
+        fusions stream through the top-k carve iff their projected carry
+        — O(K*P) bytes, K from ``n_hint`` — fits ``robust_state_budget``;
+        over-budget rounds read dense with a note instead of raising."""
         if not fusion.streamable:
             return False, None
         if fusion.reducible:
             return True, None
-        return False, (f"{fusion.name}: order-statistic streaming is not "
-                       "yet ported — routed to the dense path")
+        need = fusion.state_nbytes(p, max(int(n_hint), 1))
+        if need > self.robust_state_budget:
+            return False, (
+                f"robust stream fallback: {fusion.name} carve state needs "
+                f"{need / (1 << 20):.1f} MiB for n={int(n_hint)}, P={p} "
+                f"(budget {self.robust_state_budget / (1 << 20):.1f} MiB) "
+                "— routed to the dense path"
+            )
+        return True, None
 
     def _warm_engines(self, n: int, p: int, dtype, chunk_rows=None,
                       fusion: Optional[FusionAlgorithm] = None,
@@ -251,6 +269,7 @@ class AggregationService:
         from_store: bool = False,
         async_round: bool | str = False,
         tenant: str = DEFAULT_TENANT,
+        val_grad=None,
     ) -> Tuple[PyTree, RoundReport]:
         """One synchronous aggregation round; returns ``(fused,
         RoundReport)`` with ``fused`` an fp32 tensor on the service's
@@ -261,13 +280,17 @@ class AggregationService:
         clients wrote to ``tenant``'s store partition; the monitor gates
         on ``expected_clients`` (else the current count). An empty round
         (timeout, nothing landed) returns ``(None, report)`` with
-        ``report.empty`` set. ``async_round`` is not yet ported."""
+        ``report.empty`` set. ``val_grad`` binds a per-round validation
+        gradient (tensor or ndarray) for fusions that score against one
+        (Zeno): the round runs on a per-call clone, so concurrent tenants
+        never race one fusion's state. ``async_round`` is not yet
+        ported."""
         if async_round:
             raise _not_ported("async rounds", "8")
         with self._round_lock(tenant):
             return self._aggregate_impl(
                 updates, weights, template, expected_clients, from_store,
-                tenant,
+                tenant, val_grad,
             )
 
     def _aggregate_impl(
@@ -278,9 +301,18 @@ class AggregationService:
         expected_clients: Optional[int],
         from_store: bool,
         tenant: str,
+        val_grad=None,
     ) -> Tuple[PyTree, RoundReport]:
         """``aggregate`` body; caller holds the tenant's round lock."""
         fusion = self.fusion
+        if val_grad is not None:
+            if not hasattr(fusion, "with_val_grad"):
+                raise ValueError(
+                    f"{fusion.name} does not score against a validation "
+                    "gradient — val_grad only applies to Zeno-style "
+                    "fusions"
+                )
+            fusion = fusion.with_val_grad(val_grad)
         dev = self.device
         monitor_result = None
         phase: Dict[str, float] = {}
@@ -307,7 +339,7 @@ class AggregationService:
                 dtype_bytes=dtype.itemsize, params=p,
             )
             n_hint = max(n, expected or 0, 1)
-            can_stream, stream_note = self._stream_mode(fusion)
+            can_stream, stream_note = self._stream_mode(fusion, p, n_hint)
             notes = (stream_note,) if stream_note else ()
             plan = self.planner.plan(
                 load, fusion,

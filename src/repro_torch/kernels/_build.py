@@ -4,8 +4,9 @@ Each library is one ``csrc/<name>.cu`` with a plain C interface,
 compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``build/repro_torch/<hash of the sources>/lib<name>.so`` at the root of
 the checkout and loaded with ``ctypes``. Nothing is compiled or loaded
-at import: the first caller builds, and a lock makes concurrent first
-callers build once. A changed source hashes to a new directory, so a
+at import: the first caller builds, and a lock per library makes
+concurrent first callers build it once, while two libraries build side
+by side. A changed source hashes to a new directory, so a
 stale library is never loaded.
 """
 from __future__ import annotations
@@ -27,6 +28,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}   # guarded-by: _LOCK
+_BUILDING: Dict[str, threading.Lock] = {}   # guarded-by: _LOCK
 
 
 def _nvcc() -> str:
@@ -65,6 +67,12 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = _LOADED.get(name)
         if lib is not None:
             return lib
+        build_lock = _BUILDING.setdefault(name, threading.Lock())
+    with build_lock:
+        with _LOCK:
+            lib = _LOADED.get(name)
+        if lib is not None:
+            return lib
         out = library_path(name)
         if not out.exists():
             out.parent.mkdir(parents=True, exist_ok=True)
@@ -77,5 +85,6 @@ def load_library(name: str) -> ctypes.CDLL:
                 )
             os.replace(tmp, out)   # another process may build the same file
         lib = ctypes.CDLL(str(out))
-        _LOADED[name] = lib
+        with _LOCK:
+            _LOADED[name] = lib
         return lib

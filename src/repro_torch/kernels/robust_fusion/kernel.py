@@ -1,0 +1,199 @@
+"""Hopper kernels for the order-statistic fusions.
+
+``topk_carve`` replaces ``repro/kernels/robust_fusion/kernel.py``
+``topk_carve_pallas``, ``trimmed_mean`` replaces ``trimmedmean_pallas``
+and ``coord_median`` replaces ``coordmedian_pallas``. All three are CUDA
+C++ in ``csrc/robust_fusion.cu`` (its header says what bounds them and
+what the design does about it), built by ``kernels/_build.py`` at first
+use.
+
+On a CPU tensor a wrapper returns its plain version from ``ref.py``; on a
+CUDA tensor it launches the kernel on the current stream or raises. Each
+checks device, dtype, shape and contiguity first, on either device.
+``LAUNCHES`` counts kernel launches, one per wrapper call that reached
+the card.
+
+``topk_carve`` updates the carry IN PLACE on the card (and returns the
+same three tensors), which saves writing a second 2*K*P fp32 carry per
+block; on the CPU it returns fresh tensors, as the reference does.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels._build import load_library
+from repro_torch.kernels.robust_fusion.ref import (
+    coordmedian_ref,
+    topk_carve_ref,
+    trimmedmean_ref,
+)
+
+LAUNCHES: Dict[str, int] = {"topk_carve": 0, "trimmed_mean": 0,
+                            "coord_median": 0}
+_COUNT_LOCK = threading.Lock()
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def reset_launches() -> None:
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+
+
+def _library() -> ctypes.CDLL:
+    lib = load_library("robust_fusion")
+    if lib.robust_dense_tile.argtypes is None:
+        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.robust_topk_carve.argtypes = [ptr] * 5 + [i64] * 4 + [ptr]
+        lib.robust_topk_carve.restype = ctypes.c_int
+        lib.robust_trimmed_mean.argtypes = [ptr] * 2 + [i64] * 4 + [ptr]
+        lib.robust_trimmed_mean.restype = ctypes.c_int
+        lib.robust_coord_median.argtypes = [ptr] * 2 + [i64] * 3 + [ptr]
+        lib.robust_coord_median.restype = ctypes.c_int
+        lib.robust_dense_tile.argtypes = [i64]
+        lib.robust_dense_tile.restype = ctypes.c_int64
+    return lib
+
+
+def build() -> None:
+    """Build and load the kernel library now instead of at first launch."""
+    _library()
+
+
+def dense_tile(n: int, device=None) -> int:
+    """Columns per block of the dense kernels' shared-memory path for n
+    rows on ``device`` (the current card by default); 0 means the
+    radix-select path."""
+    with torch.cuda.device(device):
+        return int(_library().robust_dense_tile(int(n)))
+
+
+def _device_of(*tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"robust_fusion kernels take CPU or CUDA tensors, "
+                         f"got {dev}")
+    return dev
+
+
+def _check_updates(updates: torch.Tensor, what: str) -> None:
+    if updates.dim() != 2:
+        raise ValueError(f"{what} must be (rows, P), got "
+                         f"{tuple(updates.shape)}")
+    if updates.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} dtype {updates.dtype} not in fp32/bf16/fp16")
+    if not updates.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def _check(err: int, entry: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+
+
+def topk_carve(block: torch.Tensor, valid: torch.Tensor, ssum: torch.Tensor,
+               topk: torch.Tensor, botk: torch.Tensor):
+    """Merge a (c, P) block (fp32, bf16 or fp16) into the carry: ssum
+    (P,), ascending topk and botk (K, P), all fp32 and contiguous; valid
+    (c,) fp32, rows with ``valid <= 0`` left out. Returns (ssum, topk,
+    botk): the carry itself, updated in place, on the card."""
+    _check_updates(block, "block")
+    c, P = block.shape
+    if topk.dim() != 2 or topk.shape[0] < 1 or topk.shape[1] != P:
+        raise ValueError(f"topk must be (K >= 1, {P}), got "
+                         f"{tuple(topk.shape)}")
+    K = topk.shape[0]
+    if tuple(botk.shape) != (K, P) or tuple(ssum.shape) != (P,):
+        raise ValueError(f"carry shapes ssum {tuple(ssum.shape)}, botk "
+                         f"{tuple(botk.shape)} do not match topk ({K}, {P})")
+    if tuple(valid.shape) != (c,):
+        raise ValueError(f"valid must be ({c},), got {tuple(valid.shape)}")
+    for name, t in (("valid", valid), ("ssum", ssum), ("topk", topk),
+                    ("botk", botk)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be fp32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    dev = _device_of(block, valid, ssum, topk, botk)
+    if dev.type == "cpu":
+        return topk_carve_ref(block, valid, ssum, topk, botk)
+    lib = _library()
+    if P == 0:
+        return ssum, topk, botk
+    with torch.cuda.device(dev):
+        err = lib.robust_topk_carve(
+            block.data_ptr(), valid.data_ptr(), ssum.data_ptr(),
+            topk.data_ptr(), botk.data_ptr(), c, P, K,
+            _DTYPE_CODES[block.dtype],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check(err, "robust_topk_carve")
+    _count("topk_carve")
+    return ssum, topk, botk
+
+
+def trimmed_mean(updates: torch.Tensor, trim: int) -> torch.Tensor:
+    """(n, P) fp32 / bf16 / fp16, contiguous -> (P,) fp32: per column,
+    the mean of the values left after dropping the ``trim`` smallest and
+    ``trim`` largest (0 <= trim, 2 * trim < n)."""
+    _check_updates(updates, "updates")
+    n, P = updates.shape
+    trim = int(trim)
+    if trim < 0 or 2 * trim >= n:
+        raise ValueError(f"trim {trim} must satisfy 0 <= trim and "
+                         f"2 * trim < n = {n}")
+    dev = _device_of(updates)
+    if dev.type == "cpu":
+        return trimmedmean_ref(updates, trim)
+    lib = _library()
+    out = torch.empty((P,), dtype=torch.float32, device=dev)
+    if P == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = lib.robust_trimmed_mean(
+            updates.data_ptr(), out.data_ptr(), n, P, trim,
+            _DTYPE_CODES[updates.dtype],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check(err, "robust_trimmed_mean")
+    _count("trimmed_mean")
+    return out
+
+
+def coord_median(updates: torch.Tensor) -> torch.Tensor:
+    """(n >= 1, P) fp32 / bf16 / fp16, contiguous -> (P,) fp32
+    per-column median; even n gives (a + b) * 0.5 of the two middle
+    values, and a column holding a NaN gives NaN."""
+    _check_updates(updates, "updates")
+    n, P = updates.shape
+    if n < 1:
+        raise ValueError("coord_median needs at least one row")
+    dev = _device_of(updates)
+    if dev.type == "cpu":
+        return coordmedian_ref(updates)
+    lib = _library()
+    out = torch.empty((P,), dtype=torch.float32, device=dev)
+    if P == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = lib.robust_coord_median(
+            updates.data_ptr(), out.data_ptr(), n, P,
+            _DTYPE_CODES[updates.dtype],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check(err, "robust_coord_median")
+    _count("coord_median")
+    return out

@@ -1,7 +1,8 @@
 """The port's LocalEngine against the JAX package's, for every fusion the
 port has: strategy ``kernel`` against ``pallas`` and ``torch`` against
 ``jnp``, on the same seeded numpy inputs (CPU; the kernel strategy runs
-the kernels' plain versions here)."""
+the kernels' plain versions here). The order-statistic streams have
+their own file, ``test_torch_robust_stream.py``."""
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -9,6 +10,7 @@ import pytest
 import torch
 
 from repro.core.compress import compress_update as j_compress_update
+from repro.core.fusion import REGISTRY as J_REGISTRY
 from repro.core.fusion import get_fusion as j_get_fusion
 from repro.core.local import LocalEngine as JLocalEngine
 from repro_torch.core.compress import CompressedBlock, compress_update
@@ -18,6 +20,7 @@ from repro_torch.kernels.fused_fusion import kernel
 from repro_torch.utils import jitcache
 
 FUSIONS = sorted(REGISTRY)
+SUM_FAMILY = [name for name in FUSIONS if REGISTRY[name].reducible]
 PAIRS = [("kernel", "pallas"), ("torch", "jnp")]
 RTOL, ATOL = 2e-5, 1e-6
 
@@ -49,11 +52,17 @@ def _close(got, want):
 
 
 def test_fusion_registry_is_the_sum_family():
-    assert FUSIONS == ["clippedavg", "fedadam", "fedavg", "fedavgm",
-                       "gradavg", "iteravg"]
-    for name in ("trimmedmean", "coordmedian", "krum", "zeno", "geomedian"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            get_fusion(name)
+    """The registry is the JAX package's, name for name, and the sum
+    family within it is the same set with the same capability flags."""
+    assert FUSIONS == sorted(J_REGISTRY)
+    assert SUM_FAMILY == ["clippedavg", "fedadam", "fedavg", "fedavgm",
+                          "gradavg", "iteravg"]
+    for name in FUSIONS:
+        ours, theirs = get_fusion(name), j_get_fusion(name)
+        assert type(ours).__name__ == type(theirs).__name__
+        for flag in ("reducible", "coordinatewise", "weighted",
+                     "streamable"):
+            assert getattr(ours, flag) == getattr(theirs, flag), (name, flag)
 
 
 @pytest.mark.parametrize("pair", PAIRS, ids=lambda p: p[0])
@@ -82,7 +91,7 @@ def test_memory_capped_fuse(name, pair):
 
 
 @pytest.mark.parametrize("pair", PAIRS, ids=lambda p: p[0])
-@pytest.mark.parametrize("name", FUSIONS)
+@pytest.mark.parametrize("name", SUM_FAMILY)
 def test_stream_ragged_final_block(name, pair):
     u, w = _data(13, 301, 4)
     ours, theirs = _engines(pair)

@@ -18,7 +18,15 @@ top-k carve or dense through the trimmed-mean and median kernels as
 ``robust_state_budget`` routes them, compressed, through the CLI and
 the torch strategy. Phases 2 and 3 check every fused vector against a
 float64 numpy reference and count kernel launches, each with the counts
-set to 0 just before it. The second-to-last line is ``{"kernels":
+set to 0 just before it. Phase 1 also holds the flash-attention and
+flash-decode kernels against their plain versions (with
+``scaled_dot_product_attention`` timed as a yardstick), and phase 4
+drives the serving path through ``build_model`` and
+``repro_torch.launch.generate``: a FedAvg fusion of 4 full-width
+Qwen2-0.5B bf16 clients, a 4 x 1024 prefill and cached decoding; fp32
+Qwen2-0.5B and Gemma3-1B (6 of its 26 layers) prefills checked against
+the same prompts teacher-forced through the decode step and against the
+plain attention path. The second-to-last line is ``{"kernels":
 [...]}`` and the last ``{"ok": true, "device": {...}}``. Any failed
 check raises, and the script then exits non-zero without printing a
 result; so does a machine without a card, or a directory that holds this
@@ -39,6 +47,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 SEED = 0
 FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores (data sheet)
+HALF_FLOPS = 989e12     # H100 SXM bf16 / fp16 tensor cores, dense (data sheet)
 TIMING_REPS = 25
 SPIN_CYCLES = 2_000_000   # about 1 ms of SM clock: covers the host launch path
 TOL = {"fp32": 2e-5, "half": 2e-2}   # rtol of the reference's kernel tests
@@ -68,10 +77,11 @@ def _ms_median(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _bound(nbytes: float, flops: float, hbm_bw: float):
+def _bound(nbytes: float, flops: float, hbm_bw: float,
+           peak_flops: float = FP32_FLOPS):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the fp32 rate."""
-    t_bytes, t_ops = nbytes / hbm_bw, flops / FP32_FLOPS
+    operations over the type's peak rate (fp32 unless given)."""
+    t_bytes, t_ops = nbytes / hbm_bw, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -353,19 +363,25 @@ def phase_robust_kernels(dev, hbm_bw, resnet_p, cnn_p):
     return cases
 
 
-def _all_launches():
+def _kernel_modules():
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.fused_fusion import kernel
     from repro_torch.kernels.robust_fusion import kernel as rk
 
-    return {**kernel.LAUNCHES, **rk.LAUNCHES}
+    return kernel, rk, fa, fd
+
+
+def _all_launches():
+    out = {}
+    for mod in _kernel_modules():
+        out.update(mod.LAUNCHES)
+    return out
 
 
 def _reset_launches():
-    from repro_torch.kernels.fused_fusion import kernel
-    from repro_torch.kernels.robust_fusion import kernel as rk
-
-    kernel.reset_launches()
-    rk.reset_launches()
+    for mod in _kernel_modules():
+        mod.reset_launches()
 
 
 def _launch_delta(before):
@@ -655,6 +671,381 @@ def phase_robust_path(dev, U, Uc, cu_rows):
     if delta["topk_carve"] < 1:
         raise AssertionError(f"CLI robust round launched no carve: {delta}")
 
+# rtol, atol. Kernel 6 and its plain version both compute in fp32 and
+# round the output once, so at bf16 / fp16 they differ by about one ulp
+# of the output (2**-8 relative at bf16): rtol 1e-2 holds that, atol 2e-3
+# the values near zero. Kernel 7's plain version, the model's
+# decode_attention, rounds the probabilities to the cache dtype before
+# PV, which moves an output by up to 2**-9 * sum(p * |v|) (2.3e-3 seen
+# near zero at pos 5): atol 1e-2 there. So kernel 7 at half precision is
+# also held, at the tight limits, against the plain version run in fp32
+# on the same (upcast) inputs, where only the output's rounding differs.
+ATTN_TOL = {"fp32": (2e-4, 3e-5), "half": (1e-2, 2e-3)}
+DECODE_TOL = {"fp32": (2e-4, 2e-5), "half": (1e-2, 1e-2)}
+HALF_OUT_TOL = (1e-2, 2e-3)
+
+
+def _live_scores(T: int, S: int, window: int) -> int:
+    """(query, key) pairs a causal, optionally windowed, attention keeps:
+    query t sees keys max(0, t - window + 1) .. min(t, S - 1)."""
+    import numpy as np
+
+    t = np.arange(T, dtype=np.int64)
+    hi = np.minimum(t, S - 1)
+    lo = np.maximum(0, t - window + 1) if window > 0 else np.zeros_like(t)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _sdpa(q, k, v, mask=None, causal=False):
+    """``scaled_dot_product_attention`` on the same inputs, in its
+    (B, heads, T, hd) layout with GQA, as one call (the yardstick)."""
+    from torch.nn import functional as F
+
+    gqa = q.shape[2] != k.shape[2]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal, enable_gqa=gqa)
+
+
+def phase_attention_kernels(dev, hbm_bw):
+    """The flash-attention and flash-decode kernels against their plain
+    versions at the serving path's shapes and at edge shapes; times
+    kernel, plain version and SDPA."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ref as faref
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode import ref as fdref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    names = {torch.float32: "fp32", torch.bfloat16: "bf16",
+             torch.float16: "fp16"}
+    bf16, fp32, fp16 = torch.bfloat16, torch.float32, torch.float16
+    cases = {"flash_attention": [], "flash_decode": []}
+    for B, T, nq, nkv, hd, win, dt, label in [
+        (4, 1024, 14, 2, 64, 0, bf16, "Qwen2-0.5B prefill layer"),
+        (4, 1024, 14, 2, 64, 0, fp32, "Qwen2-0.5B prefill layer"),
+        (1, 1280, 4, 1, 256, 1024, fp32, "Gemma3-1B local layer (MQA)"),
+        (1, 1280, 4, 1, 256, 1024, bf16, "Gemma3-1B local layer (MQA)"),
+        (1, 1280, 4, 1, 256, 0, fp32, "Gemma3-1B global layer (MQA)"),
+        (2, 1000, 14, 2, 64, 0, fp32, "ragged T = 1000"),
+        (2, 512, 8, 8, 128, 200, bf16, "MHA, hd 128, window 200"),
+        (2, 512, 8, 1, 64, 0, fp32, "MQA"),
+        (2, 777, 14, 2, 64, 300, fp16, "fp16, ragged, window 300"),
+        (2, 100, 4, 2, 32, 0, fp32, "hd 32 (smoke configs)"),
+    ]:
+        q = torch.randn((B, T, nq, hd), generator=g, device=dev).to(dt)
+        k = torch.randn((B, T, nkv, hd), generator=g, device=dev).to(dt)
+        v = torch.randn((B, T, nkv, hd), generator=g, device=dev).to(dt)
+        got = fa.flash_attention(q, k, v, window=win)
+        want = faref.attention_ref(q, k, v, window=win)
+        torch.cuda.synchronize()
+        key = "fp32" if dt == fp32 else "half"
+        rtol, atol = ATTN_TOL[key]
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+        err = (got.float() - want.float()).abs().max().item()
+        del got, want
+        live = _live_scores(T, T, win)
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        bound_ms, bound_by = _bound(nbytes, 4.0 * B * nq * hd * live, hbm_bw,
+                                    FP32_FLOPS if dt == fp32 else HALF_FLOPS)
+        mask = None
+        if win:
+            mask = faref.attention_mask(T, T, win, device=dev)
+        library = _sdpa(q, k, v, mask=mask, causal=not win)
+        cases["flash_attention"].append({
+            "shape": [B, T, nq, nkv, hd], "window": win,
+            "dtype": names[dt], "what": label,
+            "max_abs_err": err, "rtol": rtol, "atol": atol,
+            "live_scores": live,
+            "ms": _ms_median(lambda: fa.flash_attention(q, k, v, window=win)),
+            "plain_ms": _ms_median(
+                lambda: faref.attention_ref(q, k, v, window=win), reps=5),
+            "library_ms": _ms_median(library),
+            "library": "scaled_dot_product_attention(enable_gqa)",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+        print(f"[phase1] flash_attention "
+              f"{json.dumps(cases['flash_attention'][-1])}", flush=True)
+        del q, k, v, library, mask
+    for B, S, nq, nkv, hd, pos, dt, label in [
+        (4, 2048, 14, 2, 64, 1500, bf16, "Qwen2-0.5B decode step"),
+        (4, 2048, 14, 2, 64, 5, bf16, "Qwen2-0.5B decode step, pos 5"),
+        (4, 2048, 14, 2, 64, 80, bf16, "Qwen2-0.5B decode step, pos 80"),
+        (4, 2048, 14, 2, 64, 5000, bf16, "Qwen2-0.5B, ring wrapped"),
+        (4, 2048, 14, 2, 64, 1500, fp32, "Qwen2-0.5B decode step"),
+        (1, 1024, 4, 1, 256, 1279, fp32, "Gemma3-1B local ring, wrapped"),
+        (1, 1024, 4, 1, 256, 1279, bf16, "Gemma3-1B local ring, wrapped"),
+        (2, 600, 8, 2, 128, 599, fp32, "ragged S = 600, full"),
+        (2, 600, 8, 2, 128, 300, fp32, "ragged S = 600, half live"),
+        (2, 300, 4, 4, 64, 150, fp16, "MHA fp16"),
+    ]:
+        q = torch.randn((B, 1, nq, hd), generator=g, device=dev).to(dt)
+        kc = torch.randn((B, S, nkv, hd), generator=g, device=dev).to(dt)
+        vc = torch.randn((B, S, nkv, hd), generator=g, device=dev).to(dt)
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        got = fd.flash_decode(q, kc, vc, p)
+        want = fdref.flash_decode_ref(q, kc, vc, p)
+        torch.cuda.synchronize()
+        key = "fp32" if dt == fp32 else "half"
+        rtol, atol = DECODE_TOL[key]
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+        err = (got.float() - want.float()).abs().max().item()
+        err32 = err
+        if dt != fp32:
+            want = fdref.flash_decode_ref(q.float(), kc.float(), vc.float(),
+                                          p)
+            torch.testing.assert_close(got.float(), want,
+                                       rtol=HALF_OUT_TOL[0],
+                                       atol=HALF_OUT_TOL[1])
+            err32 = (got.float() - want).abs().max().item()
+        del got, want
+        live = S if pos >= S else pos + 1
+        nbytes = (2 * q.numel() + 2 * B * live * nkv * hd) * q.element_size()
+        bound_ms, bound_by = _bound(nbytes, 4.0 * B * nq * hd * live, hbm_bw,
+                                    FP32_FLOPS if dt == fp32 else HALF_FLOPS)
+        mask = fdref.ring_live(S, p)[None, None, None, :]
+        library = _sdpa(q, kc, vc, mask=mask)
+        cases["flash_decode"].append({
+            "shape": [B, S, nq, nkv, hd], "pos": pos, "dtype": names[dt],
+            "what": label, "max_abs_err": err, "rtol": rtol, "atol": atol,
+            "max_abs_err_vs_fp32_plain": err32, "live_slots": live,
+            "ms": _ms_median(lambda: fd.flash_decode(q, kc, vc, p)),
+            "plain_ms": _ms_median(
+                lambda: fdref.flash_decode_ref(q, kc, vc, p)),
+            "library_ms": _ms_median(library),
+            "library": "scaled_dot_product_attention(enable_gqa)",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+        print(f"[phase1] flash_decode {json.dumps(cases['flash_decode'][-1])}",
+              flush=True)
+        del q, kc, vc, library, mask
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _profile(fn, what, top=6):
+    """Device busy time and the kernels and host ops that take the most
+    time in one run of ``fn``, under ``torch.profiler`` (CPU + CUDA).
+    Returns (wall ms under the profiler, device busy ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    by_device = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    by_host = sorted((e for e in events if e not in kernels),
+                     key=lambda e: -e.self_cpu_time_total)
+    print(f"[phase4] profile {what}: wall {wall_ms:.3f} ms under the "
+          f"profiler, device busy {busy_ms:.3f} ms "
+          f"({busy_ms / wall_ms:.1%}); top kernels (ms, calls): "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} "
+                      f"x{e.count}" for e in by_device[:top])
+          + "; top host ops (self ms, calls): "
+          + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.3f} "
+                      f"x{e.count}" for e in by_host[:top]), flush=True)
+    return wall_ms, busy_ms
+
+
+def _serving_launches(delta, what, layers, prefills, steps, fusion=False):
+    """The serving run launched the flash-attention kernel once per layer
+    of each prefill, the flash-decode kernel once per layer of each
+    decode step, and, with ``fusion``, the weighted-sum kernel."""
+    want = {"flash_attention": layers * prefills,
+            "flash_decode": layers * steps}
+    got = {k: delta.get(k, 0) for k in want}
+    if got != want or (fusion and delta.get("weighted_sum", 0) < 1):
+        raise AssertionError(f"{what}: launches {delta}, want {want}"
+                             + (" and weighted_sum >= 1" if fusion else ""))
+
+
+def _prefill_vs_decode(model, tokens, what, rtol, atol):
+    """Prefill's last-position logits (flash-attention kernel) against the
+    same tokens teacher-forced through ``decode_step`` (flash-decode
+    kernel) and against prefill through the plain attention."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch.generate import generate
+
+    B, T = tokens.shape
+    before = _all_launches()
+    t0 = time.perf_counter()
+    pre = model.prefill({"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, logits = generate(model, tokens, 1, cache_len=T, return_logits=True)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    delta = _launch_delta(before)
+    plain = model.prefill({"tokens": tokens}, attention=attention_ref)
+    tf = logits[:, 0]
+    err_tf = _check_close(tf.cpu().numpy(), pre.double().cpu().numpy(),
+                          rtol, atol, f"{what}: teacher-forced vs prefill")
+    err_plain = _check_close(plain.cpu().numpy(), pre.double().cpu().numpy(),
+                             rtol, atol, f"{what}: plain vs kernel prefill")
+    print(f"[phase4] {what}: prefill {B}x{T} {prefill_s * 1e3:.3f} ms, "
+          f"{T} teacher-forced steps {decode_s:.3f} s; max_abs_err "
+          f"teacher-forced={err_tf} plain={err_plain} (rtol={rtol}, "
+          f"atol={atol}) launches={delta}", flush=True)
+    _serving_launches(delta, what, len(model.layers), 1, T)
+    return delta
+
+
+def phase_serving(dev, attn_cases):
+    """The serving path through ``build_model`` and ``launch.generate``:
+    FedAvg-fused Qwen2-0.5B served by prefill and cached decoding at full
+    width, then fp32 prefill-vs-decode checks of Qwen2-0.5B and of
+    Gemma3-1B cut to 6 layers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import generate as gen
+    from repro_torch.models import build_model
+    from repro_torch.utils.pytree import tree_to_flat_vector
+
+    rng = np.random.default_rng(SEED)
+    out = {}
+
+    # (a) Qwen2-0.5B bf16, 24 layers: fuse 4 clients, prefill 4 x 1024,
+    # decode 32 tokens after a 64-token prompt with a 2048-slot cache
+    cfg = get_config("qwen2-0.5b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=SEED)
+    clients = gen.perturbed_clients(model, 4, seed=SEED + 1)
+    weights = rng.integers(1, 100, size=4).astype(np.float32)
+    torch.cuda.synchronize()
+    print(f"[phase4] qwen2-0.5b bf16: {cfg.num_params()} params, 4 clients "
+          f"made in {time.perf_counter() - t0:.3f} s", flush=True)
+    before = _all_launches()
+    t0 = time.perf_counter()
+    fused, report = gen.fuse_clients(model, clients, weights)
+    torch.cuda.synchronize()
+    fuse_s = time.perf_counter() - t0
+    want = None
+    for c, w in zip(clients, weights):
+        term = tree_to_flat_vector(c).double() * float(w)
+        want = term if want is None else want.add_(term)
+        del term
+    want /= float(np.sum(weights.astype(np.float64))) + 1e-6
+    err = (fused.double() - want).abs()
+    bad = int((err > 1e-6 + 2e-5 * want.abs()).sum().item())
+    max_err = err.max().item()
+    if fused.shape != want.shape or bad or not torch.isfinite(fused).all():
+        raise AssertionError(f"qwen2 fusion vs float64 Eq. 1: {bad} values "
+                             f"outside rtol 2e-5, max_abs_err {max_err}")
+    del clients, want, err, fused
+    torch.cuda.empty_cache()
+    print(f"[phase4] qwen2-0.5b bf16 FedAvg of 4 clients: wall={fuse_s:.3f}s "
+          f"fuse={report.fuse_seconds:.3f}s phases={report.phase_seconds} "
+          f"max_abs_err={max_err} (float64 Eq. 1, rtol 2e-5)", flush=True)
+
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           size=(4, 1024))).to(dev)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        last = model.prefill({"tokens": prompt})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if tuple(last.shape) != (4, cfg.vocab) or not torch.isfinite(last).all():
+        raise AssertionError(f"qwen2 prefill logits {tuple(last.shape)}")
+    prefill_ms = statistics.median(times[1:]) * 1e3
+    fa_ms = attn_cases["flash_attention"][0]["ms"]     # this layer, bf16
+    out["qwen2_prefill_ms"] = prefill_ms
+    out["qwen2_prefill_kernel_share"] = cfg.n_layers * fa_ms / prefill_ms
+    print(f"[phase4] qwen2-0.5b bf16 prefill 4x1024: {prefill_ms:.3f} ms "
+          f"(first call {times[0] * 1e3:.3f} ms); flash_attention "
+          f"{cfg.n_layers} x {fa_ms:.4f} ms = "
+          f"{out['qwen2_prefill_kernel_share']:.1%}", flush=True)
+
+    _, out["qwen2_prefill_device_busy_ms"] = _profile(
+        lambda: model.prefill({"tokens": prompt}), "qwen2 bf16 prefill 4x1024")
+    prompt = prompt[:, :64].contiguous()
+    n_new = 32
+    gen.generate(model, prompt, 2, cache_len=2048)    # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens, logits = gen.generate(model, prompt, n_new, cache_len=2048,
+                                  return_logits=True)
+    torch.cuda.synchronize()
+    steps = prompt.shape[1] + n_new - 1
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    if tuple(tokens.shape) != (4, 64 + n_new) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"qwen2 generate {tuple(tokens.shape)}")
+    wall, busy = _profile(
+        lambda: gen.generate(model, prompt[:, :4], 4, cache_len=2048),
+        "qwen2 bf16 decode, 7 steps")
+    out["qwen2_decode_device_busy_share"] = busy / wall
+    delta = _launch_delta(before)
+    print(f"[phase4] qwen2-0.5b bf16 launches={delta}", flush=True)
+    # 4 prefills; 65 warm-up, 95 timed and 7 profiled decode steps
+    _serving_launches(delta, "qwen2-0.5b bf16 serving", cfg.n_layers, 4,
+                      65 + steps + 7, fusion=True)
+    # the kernel at this step's shape mid-run (pos 80 of 2048), as
+    # phase 1 timed it
+    fd_ms = next(c["ms"] for c in attn_cases["flash_decode"]
+                 if c["dtype"] == "bf16" and c["pos"] == 80)
+    out["qwen2_decode_ms_per_step"] = step_ms
+    out["qwen2_decode_kernel_share"] = cfg.n_layers * fd_ms / step_ms
+    print(f"[phase4] qwen2-0.5b bf16 generate: {steps} steps (64 "
+          f"teacher-forced + {n_new - 1} greedy, B=4, 2048-slot cache): "
+          f"{step_ms:.3f} ms/step; flash_decode {cfg.n_layers} x "
+          f"{fd_ms:.4f} ms (pos 80) = {out['qwen2_decode_kernel_share']:.1%}",
+          flush=True)
+    del model, prompt, tokens, logits
+    torch.cuda.empty_cache()
+
+    # (b) Qwen2-0.5B fp32, B = 2, a 512-token prompt
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = build_model(cfg32, device=dev, seed=SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           size=(2, 512))).to(dev)
+    _prefill_vs_decode(model, tokens, "qwen2-0.5b fp32", 2e-3, 2e-3)
+    del model
+    torch.cuda.empty_cache()
+
+    # (c) Gemma3-1B fp32 at full width, 6 layers (5 local + 1 global),
+    # B = 1, T = 1280: window tiles skipped, the 1024 ring wrapped
+    gcfg = dataclasses.replace(get_config("gemma3-1b"), n_layers=6,
+                               dtype="float32")
+    model = build_model(gcfg, device=dev, seed=SEED)
+    tokens = torch.from_numpy(rng.integers(0, gcfg.vocab,
+                                           size=(1, 1280))).to(dev)
+    _prefill_vs_decode(model, tokens, "gemma3-1b fp32, 6 layers", 2e-3, 2e-3)
+    del model
+    torch.cuda.empty_cache()
+
+    # the CLI, as a user runs it
+    before = _all_launches()
+    t0 = time.perf_counter()
+    gen.main(["--arch", "qwen2-0.5b", "--clients", "2", "--batch", "2",
+              "--prompt-len", "16", "--new-tokens", "8",
+              "--seed", str(SEED)])
+    delta = _launch_delta(before)
+    print(f"[phase4] CLI generate qwen2-0.5b: "
+          f"wall={time.perf_counter() - t0:.3f}s launches={delta}",
+          flush=True)
+    _serving_launches(delta, "CLI generate", cfg.n_layers, 1, 16 + 8 - 1,
+                      fusion=True)
+    return out
+
 
 def main() -> int:
     import numpy as np
@@ -667,9 +1058,9 @@ def main() -> int:
     from repro_torch.core.compress import CompressedUpdate, quantize
     from concurrent.futures import ThreadPoolExecutor
 
-    from repro_torch.kernels.fused_fusion import kernel
-    from repro_torch.kernels.robust_fusion import kernel as rk
     from repro_torch.utils.mem import hardware_spec
+
+    kernel, rk, fa, fd = _kernel_modules()
 
     # float32 products in full precision: the torch-strategy einsums and
     # the torch.mv yardstick are compared and timed without TF32
@@ -690,8 +1081,8 @@ def main() -> int:
           f"device={torch.cuda.get_device_name(0)} sms={hw.sm_count} "
           f"hbm_bytes={hw.hbm_bytes}", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:   # one nvcc per source, together
-        for done in [pool.submit(kernel.build), pool.submit(rk.build)]:
+    with ThreadPoolExecutor(4) as pool:   # one nvcc per source, together
+        for done in [pool.submit(m.build) for m in (kernel, rk, fa, fd)]:
             done.result()
     print(f"[phase0] kernel build seconds={time.perf_counter() - t0:.3f}",
           flush=True)
@@ -722,6 +1113,7 @@ def main() -> int:
     t0 = time.perf_counter()
     cases = phase_kernels(dev, hw.hbm_bw, resnet_p, cnn_p, U[0])
     cases.update(phase_robust_kernels(dev, hw.hbm_bw, resnet_p, cnn_p))
+    cases.update(phase_attention_kernels(dev, hw.hbm_bw))
     print(f"[phase1] seconds={time.perf_counter() - t0:.3f}", flush=True)
 
     # -- phase 2: the FedAvg rounds ---------------------------------------
@@ -741,8 +1133,19 @@ def main() -> int:
     print(f"[phase3] seconds={time.perf_counter() - t0:.3f} "
           f"launches={robust}", flush=True)
     launches.update(robust)
+    del U, Uc, cu_rows
+
+    # -- phase 4: serving a fused model ----------------------------------
+    _reset_launches()
+    t0 = time.perf_counter()
+    serving = phase_serving(dev, cases)
+    served = {k: v for k, v in _all_launches().items()
+              if k in fa.LAUNCHES or k in fd.LAUNCHES}
+    print(f"[phase4] seconds={time.perf_counter() - t0:.3f} "
+          f"launches={served} {json.dumps(serving)}", flush=True)
+    launches.update(served)
     missing = [k for k, v in launches.items() if v == 0]
-    if missing or robust["topk_carve"] < U.shape[0]:
+    if missing or robust["topk_carve"] < 48:
         raise AssertionError(f"main path never launched {missing}: "
                              f"{launches}")
 
@@ -752,11 +1155,17 @@ def main() -> int:
         "topk_carve": "src/repro/kernels/robust_fusion/kernel.py:84",
         "trimmed_mean": "src/repro/kernels/robust_fusion/kernel.py:132",
         "coord_median": "src/repro/kernels/robust_fusion/kernel.py:43",
+        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:83",
+        "flash_decode": "src/repro/kernels/flash_decode/kernel.py:65",
     }
+    sources = {name: src for mod, src in (
+        (kernel, "fused_fusion"), (rk, "robust_fusion"),
+        (fa, "flash_attention"), (fd, "flash_decode"))
+        for name in mod.LAUNCHES}
     kernels = []
     for name, runs in cases.items():
-        main_case = runs[0]   # the main path's block shape
-        source = "robust_fusion" if name in rk.LAUNCHES else "fused_fusion"
+        main_case = runs[0]   # the main path's shape
+        source = sources[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}.cu",

@@ -1,1 +1,31 @@
-"""Update-size configurations (the paper's Table I)."""
+"""Configurations: the paper's Table-I update sizes (``cnn_suite``) and
+the model architectures the port serves, resolved by ``get_config``.
+
+The architectures arrive with their families: this package holds the
+dense decoders (Qwen2-0.5B, Gemma3-1B) so far.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.gemma3_1b import CONFIG as GEMMA3_1B
+from repro_torch.configs.qwen2_0_5b import CONFIG as QWEN2_0_5B
+
+ARCHITECTURES: Dict[str, ModelConfig] = {
+    c.arch_id: c for c in (QWEN2_0_5B, GEMMA3_1B)
+}
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    """A registered architecture by id; ``<id>-smoke`` gives its
+    ``reduced()`` variant."""
+    base = arch_id[: -len("-smoke")] if arch_id.endswith("-smoke") else arch_id
+    if base not in ARCHITECTURES:
+        raise KeyError(f"unknown architecture {arch_id!r}; the port has "
+                       f"{sorted(ARCHITECTURES)} (and their -smoke forms)")
+    cfg = ARCHITECTURES[base]
+    return cfg.reduced() if base != arch_id else cfg
+
+
+__all__ = ["ARCHITECTURES", "ModelConfig", "get_config"]

@@ -1,18 +1,21 @@
 """Carry state of the JAX package (``repro``) into this one.
 
-The system runs no model: what crosses between the two packages is data
-— a streamed round's reducer carry, a server optimizer's state, and the
-pytree an update is shaped like. Each comes over as numpy arrays, which
-is how a ``repro`` caller holds them (``np.asarray`` of its leaves), so
-nothing here imports JAX.
+What crosses between the two packages is data — a streamed round's
+reducer carry, a server optimizer's state, the pytree an update is
+shaped like, and a decoder's parameters. Each comes over as numpy
+arrays, which is how a ``repro`` caller holds them (``np.asarray`` of
+its leaves; bf16 leaves as ``ml_dtypes.bfloat16`` arrays, read as raw
+16-bit words), so nothing here imports JAX.
 """
 from __future__ import annotations
 
+import collections
 from typing import Mapping, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fusion.serveropt import FedAdam, FedAvgM
 from repro_torch.utils.device import DeviceLike, resolve_device
 from repro_torch.utils.dtypes import to_device
@@ -59,3 +62,51 @@ def tree_from_numpy(tree: PyTree, device: DeviceLike = None) -> PyTree:
     dev = resolve_device(device)
     leaves = [to_device(np.asarray(leaf), dev) for leaf in tree_leaves(tree)]
     return tree_unflatten(tree, iter(leaves))
+
+
+def _field(node, name: str):
+    """``node.name`` for ``repro``'s NamedTuples, ``node[name]`` for dicts."""
+    return node[name] if isinstance(node, Mapping) else getattr(node, name)
+
+
+def decoder_state_from_numpy(params, cfg: ModelConfig,
+                             device: DeviceLike = None
+                             ) -> "collections.OrderedDict[str, torch.Tensor]":
+    """``repro``'s ``init_decoder`` tree (numpy leaves) as the
+    ``state_dict`` of this package's dense ``Model``, on ``device``.
+
+    The JAX layer stack is stacked on axis 0 (``jax.vmap`` init); each
+    layer's slice becomes ``layers.<i>``. ``AttnParams`` /
+    ``MLPParams`` arrive as NamedTuples (or dicts) whose biases are
+    ``None`` without ``qkv_bias``."""
+    dev = resolve_device(device)
+    dt = lambda x: to_device(np.asarray(x), dev)   # noqa: E731
+    state = collections.OrderedDict()   # in Model.state_dict()'s order
+    state["embed"] = dt(params["embed"])
+    state["final_norm"] = dt(params["final_norm"])
+    if not cfg.tie_embeddings:
+        state["head"] = dt(params["head"])
+    layers = params["layers"]
+    attn, mlp = layers["attn"], layers["mlp"]
+    names = ["wq", "wk", "wv", "wo"]
+    if cfg.qkv_bias:
+        names += ["bq", "bk", "bv"]
+    for i in range(cfg.n_layers):
+        pre = f"layers.{i}."
+        state[pre + "ln1"] = dt(np.asarray(layers["ln1"])[i])
+        state[pre + "ln2"] = dt(np.asarray(layers["ln2"])[i])
+        for name in names:
+            state[pre + "attn." + name] = dt(np.asarray(_field(attn, name))[i])
+        for name in ("w_gate", "w_up", "w_down"):
+            state[pre + "mlp." + name] = dt(np.asarray(_field(mlp, name))[i])
+    return state
+
+
+def decoder_from_numpy(params, cfg: ModelConfig, device: DeviceLike = None):
+    """A dense ``Model`` holding ``repro``'s decoder parameters."""
+    from repro_torch.models.registry import build_model
+
+    state = decoder_state_from_numpy(params, cfg, device)
+    model = build_model(cfg, device=device)
+    model.load_state_dict(state, strict=True)
+    return model

@@ -34,7 +34,11 @@ def _run(args, cwd=REPO, env=ENV, timeout=120):
 
 def test_importing_the_port_loads_no_jax_and_builds_nothing():
     mods = _modules()
-    assert "repro_torch.kernels.fused_fusion.kernel" in mods
+    assert {"repro_torch.kernels.fused_fusion.kernel",
+            "repro_torch.kernels.flash_attention.kernel",
+            "repro_torch.kernels.flash_decode.kernel",
+            "repro_torch.models.decoder",
+            "repro_torch.launch.generate"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -86,6 +90,26 @@ def test_entry_points_default_to_the_card():
             make()
     res = _run(["-m", "repro_torch.launch.aggregate", "--model", "CNN4.6",
                 "--clients", "2"])
+    assert res.returncode != 0 and "CUDA" in res.stderr
+
+
+def test_serving_entry_points_default_to_the_card():
+    from repro_torch.configs import get_config
+    from repro_torch.launch import generate
+    from repro_torch.models import build_model
+
+    cfg = get_config("qwen2-0.5b-smoke")
+    assert build_model(cfg, device="cpu").device == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert build_model(cfg).device.type == "cuda"
+        return
+    for make in (lambda: build_model(cfg),
+                 lambda: build_model(cfg, device="cuda"),
+                 lambda: generate.main(["--arch", "qwen2-0.5b-smoke"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    res = _run(["-m", "repro_torch.launch.generate", "--arch",
+                "qwen2-0.5b-smoke"])
     assert res.returncode != 0 and "CUDA" in res.stderr
 
 

@@ -26,11 +26,20 @@ drives the serving path through ``build_model`` and
 Qwen2-0.5B bf16 clients, a 4 x 1024 prefill and cached decoding; fp32
 Qwen2-0.5B and Gemma3-1B (6 of its 26 layers) prefills checked against
 the same prompts teacher-forced through the decode step and against the
-plain attention path. The second-to-last line is ``{"kernels":
-[...]}`` and the last ``{"ok": true, "device": {...}}``. Any failed
-check raises, and the script then exits non-zero without printing a
-result; so does a machine without a card, or a directory that holds this
-file alone.
+plain attention path. Phase 1 also holds the SSD chunked-scan kernel
+against its plain version, and phase 5 serves the hybrid the same way:
+a FedAvg fusion of 2 full-width, full-depth Zamba2-1.2B bf16 clients
+checked against float64 Eq. 1 a parameter at a time, a 4 x 1024 prefill
+(38 SSD-scan and 6 flash-attention launches) and cached decoding (6
+flash-decode launches a step); fp32 Zamba2-1.2B (12 of its 38 layers)
+prefills of 2 x 512 and 1 x 300 checked against teacher-forced decoding
+and the plain SSD and attention; and the generate CLI. Phases 2-5 each
+start with the launch counts at 0, and every serving run must launch
+exactly what its prefills, decode steps and fusions take. The
+second-to-last line is ``{"kernels": [...]}`` and the last
+``{"ok": true, "device": {...}}``. Any failed check raises, and the
+script then exits non-zero without printing a result; so does a
+machine without a card, or a directory that holds this file alone.
 """
 from __future__ import annotations
 
@@ -368,8 +377,9 @@ def _kernel_modules():
     from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.fused_fusion import kernel
     from repro_torch.kernels.robust_fusion import kernel as rk
+    from repro_torch.kernels.ssd_chunk import kernel as sk
 
-    return kernel, rk, fa, fd
+    return kernel, rk, fa, fd, sk
 
 
 def _all_launches():
@@ -734,6 +744,10 @@ def phase_attention_kernels(dev, hbm_bw):
         (2, 512, 8, 1, 64, 0, fp32, "MQA"),
         (2, 777, 14, 2, 64, 300, fp16, "fp16, ragged, window 300"),
         (2, 100, 4, 2, 32, 0, fp32, "hd 32 (smoke configs)"),
+        (4, 1024, 32, 32, 64, 2048, bf16,
+         "Zamba2-1.2B shared block (MHA, window 2048)"),
+        (2, 512, 32, 32, 64, 2048, fp32,
+         "Zamba2-1.2B shared block (MHA, window 2048)"),
     ]:
         q = torch.randn((B, T, nq, hd), generator=g, device=dev).to(dt)
         k = torch.randn((B, T, nkv, hd), generator=g, device=dev).to(dt)
@@ -781,6 +795,8 @@ def phase_attention_kernels(dev, hbm_bw):
         (2, 600, 8, 2, 128, 599, fp32, "ragged S = 600, full"),
         (2, 600, 8, 2, 128, 300, fp32, "ragged S = 600, half live"),
         (2, 300, 4, 4, 64, 150, fp16, "MHA fp16"),
+        (4, 2048, 32, 32, 64, 80, bf16,
+         "Zamba2-1.2B shared block step, pos 80"),
     ]:
         q = torch.randn((B, 1, nq, hd), generator=g, device=dev).to(dt)
         kc = torch.randn((B, S, nkv, hd), generator=g, device=dev).to(dt)
@@ -827,7 +843,91 @@ def phase_attention_kernels(dev, hbm_bw):
     return cases
 
 
-def _profile(fn, what, top=6):
+# rtol = atol of the reference's SSD tests (tests/test_kernels_extra.py:
+# 47-48 for fp32 inputs, :76 for bf16 inputs)
+SSD_TOL = {"fp32": 1e-4, "half": 5e-2}
+
+
+def _ssd_work(B, T, H, N, P, L, elem):
+    """(bytes, FLOPs) of one SSD scan: lam read in fp32, B, C and x in
+    their dtype, y written in fp32; per lane and chunk the causal C B^T
+    and W x (L(L+1)/2 * 2 each per state / head column) and C h, B^T x
+    (2 * L * N * P each)."""
+    nbytes = 4 * B * T * H + 2 * B * T * N * elem + B * T * H * P * elem \
+        + 4 * B * T * H * P
+    flops = B * H * (T // L) * (L * (L + 1) / 2 * 2 * (N + P)
+                                + 4.0 * L * N * P)
+    return nbytes, flops
+
+
+def phase_ssd_kernel(dev, hbm_bw):
+    """The SSD chunked-scan kernel against its plain version at the
+    Zamba2-1.2B layer's shape and at edge shapes; times kernel and plain
+    version (no single PyTorch call computes the scan)."""
+    import torch
+
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.kernels.ssd_chunk import ref as sref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    fp32, bf16 = torch.float32, torch.bfloat16
+    cases = {"ssd_chunk": []}
+    for B, T, H, N, P, chunk, dt, lam_kind, label in [
+        (4, 1024, 64, 64, 64, 256, fp32, "rand", "Zamba2-1.2B layer"),
+        (2, 600, 64, 64, 64, 256, fp32, "rand", "ragged T = 600: L = T"),
+        (4, 64, 64, 64, 64, 256, fp32, "rand", "T = 64 < chunk"),
+        (1, 4096, 1, 64, 64, 256, fp32, "rand", "B = H = 1: 16 chunks"),
+        (4, 1024, 64, 64, 64, 256, bf16, "rand", "Zamba2-1.2B layer, bf16"),
+        (2, 512, 32, 16, 16, 16, fp32, "rand", "smoke widths N = P = 16"),
+        (2, 512, 8, 64, 64, 256, fp32, "-50", "lam <= -50: decays underflow"),
+        (2, 512, 8, 64, 64, 256, fp32, "0",
+         "lam = 0: no decay (B, C, x scaled by 1/4)"),
+    ]:
+        lam = -torch.randn((B, T, H), generator=g, device=dev).abs() * 0.1
+        scale = 1.0
+        if lam_kind == "-50":
+            lam = lam * 10.0 - 50.0
+        elif lam_kind == "0":
+            lam.zero_()
+            scale = 0.25
+        Bm = (torch.randn((B, T, N), generator=g, device=dev) * scale).to(dt)
+        Cm = (torch.randn((B, T, N), generator=g, device=dev) * scale).to(dt)
+        xdt = (torch.randn((B, T, H, P), generator=g, device=dev)
+               * scale).to(dt)
+        got = sk.ssd_chunk(lam, Bm, Cm, xdt, chunk=chunk)
+        want = sref.ssd_scan_ref(lam, Bm, Cm, xdt, chunk=chunk)
+        torch.cuda.synchronize()
+        tol = SSD_TOL["fp32" if dt == fp32 else "half"]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"ssd_chunk {label}: non-finite output")
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        err = (got - want).abs().max().item()
+        del got, want
+        L = sref.chunk_len(T, chunk)
+        nbytes, flops = _ssd_work(B, T, H, N, P, L, Bm.element_size())
+        bound_ms, bound_by = _bound(nbytes, flops, hbm_bw,
+                                    FP32_FLOPS if dt == fp32 else HALF_FLOPS)
+        cases["ssd_chunk"].append({
+            "shape": [B, T, H, N, P], "L": L, "chunks": T // L,
+            "dtype": "fp32" if dt == fp32 else "bf16", "what": label,
+            "max_abs_err": err, "rtol": tol, "atol": tol, "flops": flops,
+            "ms": _ms_median(
+                lambda: sk.ssd_chunk(lam, Bm, Cm, xdt, chunk=chunk)),
+            "plain_ms": _ms_median(
+                lambda: sref.ssd_scan_ref(lam, Bm, Cm, xdt, chunk=chunk),
+                reps=5),
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes the scan",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+        print(f"[phase1] ssd_chunk {json.dumps(cases['ssd_chunk'][-1])}",
+              flush=True)
+        del lam, Bm, Cm, xdt
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _profile(fn, what, top=6, phase="phase4"):
     """Device busy time and the kernels and host ops that take the most
     time in one run of ``fn``, under ``torch.profiler`` (CPU + CUDA).
     Returns (wall ms under the profiler, device busy ms)."""
@@ -847,7 +947,7 @@ def _profile(fn, what, top=6):
     by_device = sorted(kernels, key=lambda e: -e.self_device_time_total)
     by_host = sorted((e for e in events if e not in kernels),
                      key=lambda e: -e.self_cpu_time_total)
-    print(f"[phase4] profile {what}: wall {wall_ms:.3f} ms under the "
+    print(f"[{phase}] profile {what}: wall {wall_ms:.3f} ms under the "
           f"profiler, device busy {busy_ms:.3f} ms "
           f"({busy_ms / wall_ms:.1%}); top kernels (ms, calls): "
           + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} "
@@ -858,25 +958,43 @@ def _profile(fn, what, top=6):
     return wall_ms, busy_ms
 
 
-def _serving_launches(delta, what, layers, prefills, steps, fusion=False):
-    """The serving run launched the flash-attention kernel once per layer
-    of each prefill, the flash-decode kernel once per layer of each
-    decode step, and, with ``fusion``, the weighted-sum kernel."""
-    want = {"flash_attention": layers * prefills,
-            "flash_decode": layers * steps}
+def _per_call(cfg):
+    """Kernel launches of one prefill and of one decode step of a model
+    of ``cfg``: the dense decoder runs flash_attention / flash_decode
+    once per layer; the hybrid runs ssd_chunk once per Mamba2 layer in
+    prefill (never in a decode step) and flash_attention / flash_decode
+    once per call point of the shared block."""
+    from repro_torch.models.zamba import call_points
+
+    if cfg.ssm is not None:
+        shared = sum(after for _, _, after in call_points(cfg))
+        return ({"ssd_chunk": cfg.n_layers, "flash_attention": shared},
+                {"flash_decode": shared})
+    return {"flash_attention": cfg.n_layers}, {"flash_decode": cfg.n_layers}
+
+
+def _serving_launches(delta, what, cfg, prefills, steps, fusions=0):
+    """The serving run launched exactly the kernels ``prefills`` prefills
+    and ``steps`` decode steps of a ``cfg`` model take, and one
+    weighted-sum launch per fusion."""
+    per_prefill, per_step = _per_call(cfg)
+    want = {k: per_prefill.get(k, 0) * prefills + per_step.get(k, 0) * steps
+            for k in ("ssd_chunk", "flash_attention", "flash_decode")}
+    want["weighted_sum"] = fusions
     got = {k: delta.get(k, 0) for k in want}
-    if got != want or (fusion and delta.get("weighted_sum", 0) < 1):
-        raise AssertionError(f"{what}: launches {delta}, want {want}"
-                             + (" and weighted_sum >= 1" if fusion else ""))
+    if got != want:
+        raise AssertionError(f"{what}: launches {delta}, want {want}")
 
 
-def _prefill_vs_decode(model, tokens, what, rtol, atol):
-    """Prefill's last-position logits (flash-attention kernel) against the
-    same tokens teacher-forced through ``decode_step`` (flash-decode
-    kernel) and against prefill through the plain attention."""
+def _prefill_vs_decode(model, tokens, what, rtol, atol, phase="phase4"):
+    """Prefill's last-position logits (flash-attention kernel, and the
+    SSD-scan kernel in a hybrid) against the same tokens teacher-forced
+    through ``decode_step`` (flash-decode kernel) and against prefill
+    through the plain versions."""
     import torch
 
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd_chunk.ref import ssd_scan_ref
     from repro_torch.launch.generate import generate
 
     B, T = tokens.shape
@@ -890,18 +1008,51 @@ def _prefill_vs_decode(model, tokens, what, rtol, atol):
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     delta = _launch_delta(before)
-    plain = model.prefill({"tokens": tokens}, attention=attention_ref)
+    plain_kw = {"attention": attention_ref}
+    if model.config.ssm is not None:
+        plain_kw["ssd"] = ssd_scan_ref
+    plain = model.prefill({"tokens": tokens}, **plain_kw)
     tf = logits[:, 0]
     err_tf = _check_close(tf.cpu().numpy(), pre.double().cpu().numpy(),
                           rtol, atol, f"{what}: teacher-forced vs prefill")
     err_plain = _check_close(plain.cpu().numpy(), pre.double().cpu().numpy(),
                              rtol, atol, f"{what}: plain vs kernel prefill")
-    print(f"[phase4] {what}: prefill {B}x{T} {prefill_s * 1e3:.3f} ms, "
+    print(f"[{phase}] {what}: prefill {B}x{T} {prefill_s * 1e3:.3f} ms, "
           f"{T} teacher-forced steps {decode_s:.3f} s; max_abs_err "
           f"teacher-forced={err_tf} plain={err_plain} (rtol={rtol}, "
           f"atol={atol}) launches={delta}", flush=True)
-    _serving_launches(delta, what, len(model.layers), 1, T)
+    _serving_launches(delta, what, model.config, 1, T)
     return delta
+
+
+def _fused_vs_eq1(fused, clients, weights, template, what, phase):
+    """The fused flat vector against float64 Eq. 1, one parameter's
+    slice at a time (so the card never holds a float64 copy of the
+    whole model)."""
+    import numpy as np
+
+    denom = float(np.sum(weights.astype(np.float64))) + 1e-6
+    offset, bad, max_err = 0, 0, 0.0
+    for name, p in template.items():
+        n = p.numel()
+        want = None
+        for c, w in zip(clients, weights):
+            term = c[name].double().reshape(-1) * float(w)
+            want = term if want is None else want.add_(term)
+        want /= denom
+        got = fused[offset:offset + n].double()
+        offset += n
+        err = (got - want).abs()
+        bad += int((err > 1e-6 + 2e-5 * want.abs()).sum().item())
+        max_err = max(max_err, err.max().item())
+        if not got.isfinite().all():
+            raise AssertionError(f"{what}: non-finite fused values in {name}")
+    if offset != fused.numel() or bad:
+        raise AssertionError(f"{what} vs float64 Eq. 1: {bad} values outside "
+                             f"rtol 2e-5, max_abs_err {max_err}")
+    print(f"[{phase}] {what}: max_abs_err={max_err} (float64 Eq. 1, "
+          "rtol 2e-5, a parameter at a time)", flush=True)
+    return max_err
 
 
 def phase_serving(dev, attn_cases):
@@ -917,7 +1068,6 @@ def phase_serving(dev, attn_cases):
     from repro_torch.configs import get_config
     from repro_torch.launch import generate as gen
     from repro_torch.models import build_model
-    from repro_torch.utils.pytree import tree_to_flat_vector
 
     rng = np.random.default_rng(SEED)
     out = {}
@@ -937,23 +1087,13 @@ def phase_serving(dev, attn_cases):
     fused, report = gen.fuse_clients(model, clients, weights)
     torch.cuda.synchronize()
     fuse_s = time.perf_counter() - t0
-    want = None
-    for c, w in zip(clients, weights):
-        term = tree_to_flat_vector(c).double() * float(w)
-        want = term if want is None else want.add_(term)
-        del term
-    want /= float(np.sum(weights.astype(np.float64))) + 1e-6
-    err = (fused.double() - want).abs()
-    bad = int((err > 1e-6 + 2e-5 * want.abs()).sum().item())
-    max_err = err.max().item()
-    if fused.shape != want.shape or bad or not torch.isfinite(fused).all():
-        raise AssertionError(f"qwen2 fusion vs float64 Eq. 1: {bad} values "
-                             f"outside rtol 2e-5, max_abs_err {max_err}")
-    del clients, want, err, fused
-    torch.cuda.empty_cache()
     print(f"[phase4] qwen2-0.5b bf16 FedAvg of 4 clients: wall={fuse_s:.3f}s "
-          f"fuse={report.fuse_seconds:.3f}s phases={report.phase_seconds} "
-          f"max_abs_err={max_err} (float64 Eq. 1, rtol 2e-5)", flush=True)
+          f"fuse={report.fuse_seconds:.3f}s phases={report.phase_seconds}",
+          flush=True)
+    _fused_vs_eq1(fused, clients, weights, model.state_dict(),
+                  "qwen2-0.5b bf16 FedAvg of 4 clients", "phase4")
+    del clients, fused
+    torch.cuda.empty_cache()
 
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab,
                                            size=(4, 1024))).to(dev)
@@ -996,8 +1136,8 @@ def phase_serving(dev, attn_cases):
     delta = _launch_delta(before)
     print(f"[phase4] qwen2-0.5b bf16 launches={delta}", flush=True)
     # 4 prefills; 65 warm-up, 95 timed and 7 profiled decode steps
-    _serving_launches(delta, "qwen2-0.5b bf16 serving", cfg.n_layers, 4,
-                      65 + steps + 7, fusion=True)
+    _serving_launches(delta, "qwen2-0.5b bf16 serving", cfg, 4,
+                      65 + steps + 7, fusions=1)
     # the kernel at this step's shape mid-run (pos 80 of 2048), as
     # phase 1 timed it
     fd_ms = next(c["ms"] for c in attn_cases["flash_decode"]
@@ -1042,8 +1182,152 @@ def phase_serving(dev, attn_cases):
     print(f"[phase4] CLI generate qwen2-0.5b: "
           f"wall={time.perf_counter() - t0:.3f}s launches={delta}",
           flush=True)
-    _serving_launches(delta, "CLI generate", cfg.n_layers, 1, 16 + 8 - 1,
-                      fusion=True)
+    _serving_launches(delta, "CLI generate", cfg, 1, 16 + 8 - 1,
+                      fusions=1)
+    return out
+
+
+def phase_hybrid_serving(dev, cases):
+    """The hybrid's serving path through ``build_model`` and
+    ``launch.generate``: a FedAvg-fused Zamba2-1.2B at full width and
+    depth served by prefill (the SSD-scan kernel in every Mamba2 layer,
+    flash attention in the shared block) and cached decoding, then fp32
+    prefill-vs-decode checks at full width and 12 layers, then the CLI."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import generate as gen
+    from repro_torch.models import build_model
+
+    rng = np.random.default_rng(SEED + 5)
+    out = {}
+    cfg = get_config("zamba2-1.2b")
+    per_prefill, per_step = _per_call(cfg)
+
+    # (a) Zamba2-1.2B bf16, 38 layers: fuse 2 clients, prefill 4 x 1024,
+    # decode 32 tokens after a 64-token prompt with a 2048-slot cache
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=SEED)
+    clients = gen.perturbed_clients(model, 2, seed=SEED + 1)
+    weights = rng.integers(1, 100, size=2).astype(np.float32)
+    torch.cuda.synchronize()
+    print(f"[phase5] zamba2-1.2b bf16: {cfg.num_params()} params, 2 clients "
+          f"made in {time.perf_counter() - t0:.3f} s", flush=True)
+    before = _all_launches()
+    t0 = time.perf_counter()
+    fused, report = gen.fuse_clients(model, clients, weights)
+    torch.cuda.synchronize()
+    fuse_s = time.perf_counter() - t0
+    delta = _launch_delta(before)
+    _serving_launches(delta, "zamba2 fusion", cfg, 0, 0, fusions=1)
+    print(f"[phase5] zamba2-1.2b bf16 FedAvg of 2 clients: wall={fuse_s:.3f}s "
+          f"fuse={report.fuse_seconds:.3f}s phases={report.phase_seconds} "
+          f"launches={delta}", flush=True)
+    _fused_vs_eq1(fused, clients, weights, model.state_dict(),
+                  "zamba2-1.2b bf16 FedAvg of 2 clients", "phase5")
+    del clients, fused
+    torch.cuda.empty_cache()
+
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           size=(4, 1024))).to(dev)
+    times = []
+    for i in range(3):
+        before = _all_launches()
+        t0 = time.perf_counter()
+        last = model.prefill({"tokens": prompt})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        _serving_launches(_launch_delta(before), "zamba2 prefill", cfg, 1, 0)
+    if tuple(last.shape) != (4, cfg.vocab) or not torch.isfinite(last).all():
+        raise AssertionError(f"zamba2 prefill logits {tuple(last.shape)}")
+    prefill_ms = statistics.median(times[1:]) * 1e3
+    ssd_ms = cases["ssd_chunk"][0]["ms"]     # this layer's scan, fp32
+    fa_ms = next(c["ms"] for c in cases["flash_attention"]
+                 if c["shape"] == [4, 1024, 32, 32, 64])
+    kernel_ms = cfg.n_layers * ssd_ms + per_prefill["flash_attention"] * fa_ms
+    out["zamba2_prefill_ms"] = prefill_ms
+    out["zamba2_prefill_kernel_share"] = kernel_ms / prefill_ms
+    out["zamba2_prefill_ssd_share"] = cfg.n_layers * ssd_ms / prefill_ms
+    print(f"[phase5] zamba2-1.2b bf16 prefill 4x1024: {prefill_ms:.3f} ms "
+          f"(first call {times[0] * 1e3:.3f} ms); ssd_chunk {cfg.n_layers} x "
+          f"{ssd_ms:.4f} ms + flash_attention "
+          f"{per_prefill['flash_attention']} x {fa_ms:.4f} ms = "
+          f"{out['zamba2_prefill_kernel_share']:.1%} (ssd_chunk "
+          f"{out['zamba2_prefill_ssd_share']:.1%})", flush=True)
+    before = _all_launches()
+    wall, busy = _profile(lambda: model.prefill({"tokens": prompt}),
+                          "zamba2 bf16 prefill 4x1024", phase="phase5")
+    _serving_launches(_launch_delta(before), "zamba2 profiled prefill", cfg,
+                      1, 0)
+    out["zamba2_prefill_device_busy_ms"] = busy
+    out["zamba2_prefill_device_busy_share"] = busy / wall
+
+    prompt = prompt[:, :64].contiguous()
+    n_new = 32
+    before = _all_launches()
+    gen.generate(model, prompt, 2, cache_len=2048)    # warm-up
+    torch.cuda.synchronize()
+    _serving_launches(_launch_delta(before), "zamba2 warm-up decode", cfg,
+                      0, 65)
+    before = _all_launches()
+    t0 = time.perf_counter()
+    tokens, logits = gen.generate(model, prompt, n_new, cache_len=2048,
+                                  return_logits=True)
+    torch.cuda.synchronize()
+    steps = prompt.shape[1] + n_new - 1
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    _serving_launches(_launch_delta(before), "zamba2 generate", cfg, 0, steps)
+    if tuple(tokens.shape) != (4, 64 + n_new) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"zamba2 generate {tuple(tokens.shape)}")
+    before = _all_launches()
+    wall, busy = _profile(
+        lambda: gen.generate(model, prompt[:, :4], 4, cache_len=2048),
+        "zamba2 bf16 decode, 7 steps", phase="phase5")
+    _serving_launches(_launch_delta(before), "zamba2 profiled decode", cfg,
+                      0, 7)
+    out["zamba2_decode_device_busy_share"] = busy / wall
+    fd_ms = next(c["ms"] for c in cases["flash_decode"]
+                 if c["shape"] == [4, 2048, 32, 32, 64])
+    out["zamba2_decode_ms_per_step"] = step_ms
+    out["zamba2_decode_kernel_share"] = \
+        per_step["flash_decode"] * fd_ms / step_ms
+    print(f"[phase5] zamba2-1.2b bf16 generate: {steps} steps (64 "
+          f"teacher-forced + {n_new - 1} greedy, B=4, 2048-slot cache): "
+          f"{step_ms:.3f} ms/step; flash_decode {per_step['flash_decode']} x "
+          f"{fd_ms:.4f} ms (pos 80) = {out['zamba2_decode_kernel_share']:.1%}",
+          flush=True)
+    del model, prompt, tokens, logits, last
+    torch.cuda.empty_cache()
+
+    # (b) fp32 at full width, 12 layers (segments [6, 6]: two call points
+    # of the shared block, each with its own ring): 2 chunks of 256, and
+    # the L = T fallback at T = 300
+    cfg32 = dataclasses.replace(cfg, n_layers=12, dtype="float32")
+    model = build_model(cfg32, device=dev, seed=SEED)
+    for B, T in [(2, 512), (1, 300)]:
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                               size=(B, T))).to(dev)
+        _prefill_vs_decode(model, tokens, f"zamba2-1.2b fp32, 12 layers, "
+                           f"{B}x{T}", 2e-3, 2e-3, phase="phase5")
+    del model
+    torch.cuda.empty_cache()
+
+    # (c) the CLI, as a user runs it
+    before = _all_launches()
+    t0 = time.perf_counter()
+    gen.main(["--arch", "zamba2-1.2b", "--clients", "2", "--batch", "2",
+              "--prompt-len", "16", "--new-tokens", "8",
+              "--seed", str(SEED)])
+    delta = _launch_delta(before)
+    print(f"[phase5] CLI generate zamba2-1.2b: "
+          f"wall={time.perf_counter() - t0:.3f}s launches={delta}",
+          flush=True)
+    _serving_launches(delta, "CLI generate zamba2", cfg, 1, 16 + 8 - 1,
+                      fusions=1)
     return out
 
 
@@ -1060,7 +1344,7 @@ def main() -> int:
 
     from repro_torch.utils.mem import hardware_spec
 
-    kernel, rk, fa, fd = _kernel_modules()
+    kernel, rk, fa, fd, sk = _kernel_modules()
 
     # float32 products in full precision: the torch-strategy einsums and
     # the torch.mv yardstick are compared and timed without TF32
@@ -1081,8 +1365,8 @@ def main() -> int:
           f"device={torch.cuda.get_device_name(0)} sms={hw.sm_count} "
           f"hbm_bytes={hw.hbm_bytes}", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:   # one nvcc per source, together
-        for done in [pool.submit(m.build) for m in (kernel, rk, fa, fd)]:
+    with ThreadPoolExecutor(5) as pool:   # one nvcc per source, together
+        for done in [pool.submit(m.build) for m in (kernel, rk, fa, fd, sk)]:
             done.result()
     print(f"[phase0] kernel build seconds={time.perf_counter() - t0:.3f}",
           flush=True)
@@ -1114,40 +1398,33 @@ def main() -> int:
     cases = phase_kernels(dev, hw.hbm_bw, resnet_p, cnn_p, U[0])
     cases.update(phase_robust_kernels(dev, hw.hbm_bw, resnet_p, cnn_p))
     cases.update(phase_attention_kernels(dev, hw.hbm_bw))
+    cases.update(phase_ssd_kernel(dev, hw.hbm_bw))
     print(f"[phase1] seconds={time.perf_counter() - t0:.3f}", flush=True)
 
-    # -- phase 2: the FedAvg rounds ---------------------------------------
-    _reset_launches()
-    t0 = time.perf_counter()
-    phase_main_path(dev, U, W, Uc, Wc, cu_rows)
-    launches = {k: v for k, v in _all_launches().items()
-                if k in kernel.LAUNCHES}
-    print(f"[phase2] seconds={time.perf_counter() - t0:.3f} "
-          f"launches={launches}", flush=True)
+    # -- phases 2-5: each path with the counts set to 0 just before it --
+    by_phase = {}
 
-    # -- phase 3: the robust rounds ---------------------------------------
-    _reset_launches()
-    t0 = time.perf_counter()
-    phase_robust_path(dev, U, Uc, cu_rows)
-    robust = {k: v for k, v in _all_launches().items() if k in rk.LAUNCHES}
-    print(f"[phase3] seconds={time.perf_counter() - t0:.3f} "
-          f"launches={robust}", flush=True)
-    launches.update(robust)
+    def run_phase(name, fn, *args):
+        _reset_launches()
+        t0 = time.perf_counter()
+        result = fn(*args)
+        by_phase[name] = {k: v for k, v in _all_launches().items() if v}
+        print(f"[{name}] seconds={time.perf_counter() - t0:.3f} "
+              f"launches={by_phase[name]}"
+              + (f" {json.dumps(result)}" if result else ""), flush=True)
+
+    run_phase("phase2", phase_main_path, dev, U, W, Uc, Wc, cu_rows)  # FedAvg
+    run_phase("phase3", phase_robust_path, dev, U, Uc, cu_rows)     # robust
     del U, Uc, cu_rows
-
-    # -- phase 4: serving a fused model ----------------------------------
-    _reset_launches()
-    t0 = time.perf_counter()
-    serving = phase_serving(dev, cases)
-    served = {k: v for k, v in _all_launches().items()
-              if k in fa.LAUNCHES or k in fd.LAUNCHES}
-    print(f"[phase4] seconds={time.perf_counter() - t0:.3f} "
-          f"launches={served} {json.dumps(serving)}", flush=True)
-    launches.update(served)
+    run_phase("phase4", phase_serving, dev, cases)      # a fused decoder
+    run_phase("phase5", phase_hybrid_serving, dev, cases)   # fused Zamba2
+    launches = {k: sum(p.get(k, 0) for p in by_phase.values())
+                for k in _all_launches()}
     missing = [k for k, v in launches.items() if v == 0]
-    if missing or robust["topk_carve"] < 48:
+    if missing or by_phase["phase3"].get("topk_carve", 0) < 48 \
+            or by_phase["phase5"].get("ssd_chunk", 0) == 0:
         raise AssertionError(f"main path never launched {missing}: "
-                             f"{launches}")
+                             f"{by_phase}")
 
     replaces = {
         "weighted_sum": "src/repro/kernels/fused_fusion/kernel.py:61",
@@ -1157,10 +1434,11 @@ def main() -> int:
         "coord_median": "src/repro/kernels/robust_fusion/kernel.py:43",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:83",
         "flash_decode": "src/repro/kernels/flash_decode/kernel.py:65",
+        "ssd_chunk": "src/repro/kernels/ssd_chunk/kernel.py:59",
     }
     sources = {name: src for mod, src in (
         (kernel, "fused_fusion"), (rk, "robust_fusion"),
-        (fa, "flash_attention"), (fd, "flash_decode"))
+        (fa, "flash_attention"), (fd, "flash_decode"), (sk, "ssd_chunk"))
         for name in mod.LAUNCHES}
     kernels = []
     for name, runs in cases.items():
@@ -1171,6 +1449,8 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{source}.cu",
             "replaces": replaces[name],
             "launches": launches[name],
+            "launches_by_phase": {ph: n[name] for ph, n in by_phase.items()
+                                  if name in n},
             "max_abs_err": max(c["max_abs_err"] for c in runs),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],

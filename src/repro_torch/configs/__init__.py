@@ -2,7 +2,8 @@
 the model architectures the port serves, resolved by ``get_config``.
 
 The architectures arrive with their families: this package holds the
-dense decoders (Qwen2-0.5B, Gemma3-1B) so far.
+dense decoders (Qwen2-0.5B, Gemma3-1B) and the Mamba2 / shared-attention
+hybrid (Zamba2-1.2B) so far.
 """
 from __future__ import annotations
 
@@ -11,9 +12,10 @@ from typing import Dict
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.gemma3_1b import CONFIG as GEMMA3_1B
 from repro_torch.configs.qwen2_0_5b import CONFIG as QWEN2_0_5B
+from repro_torch.configs.zamba2_1_2b import CONFIG as ZAMBA2_1_2B
 
 ARCHITECTURES: Dict[str, ModelConfig] = {
-    c.arch_id: c for c in (QWEN2_0_5B, GEMMA3_1B)
+    c.arch_id: c for c in (QWEN2_0_5B, GEMMA3_1B, ZAMBA2_1_2B)
 }
 
 

@@ -2,10 +2,10 @@
 
 What crosses between the two packages is data — a streamed round's
 reducer carry, a server optimizer's state, the pytree an update is
-shaped like, and a decoder's parameters. Each comes over as numpy
-arrays, which is how a ``repro`` caller holds them (``np.asarray`` of
-its leaves; bf16 leaves as ``ml_dtypes.bfloat16`` arrays, read as raw
-16-bit words), so nothing here imports JAX.
+shaped like, and a model's parameters (the dense decoder's, Zamba2's).
+Each comes over as numpy arrays, which is how a ``repro`` caller holds
+them (``np.asarray`` of its leaves; bf16 leaves as ``ml_dtypes.bfloat16``
+arrays, read as raw 16-bit words), so nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -102,11 +102,60 @@ def decoder_state_from_numpy(params, cfg: ModelConfig,
     return state
 
 
-def decoder_from_numpy(params, cfg: ModelConfig, device: DeviceLike = None):
-    """A dense ``Model`` holding ``repro``'s decoder parameters."""
+def _model_holding(state, cfg: ModelConfig, device: DeviceLike):
     from repro_torch.models.registry import build_model
 
-    state = decoder_state_from_numpy(params, cfg, device)
     model = build_model(cfg, device=device)
     model.load_state_dict(state, strict=True)
     return model
+
+
+def decoder_from_numpy(params, cfg: ModelConfig, device: DeviceLike = None):
+    """A dense ``Model`` holding ``repro``'s decoder parameters."""
+    return _model_holding(decoder_state_from_numpy(params, cfg, device), cfg,
+                          device)
+
+
+_MAMBA2_FIELDS = ("w_in", "conv_w", "dt_bias", "a_log", "d_skip",
+                  "norm_scale", "w_out")
+
+
+def zamba_state_from_numpy(params, cfg: ModelConfig,
+                           device: DeviceLike = None
+                           ) -> "collections.OrderedDict[str, torch.Tensor]":
+    """``repro``'s ``init_zamba`` tree (numpy leaves) as the
+    ``state_dict`` of this package's ``Zamba``, on ``device``, keys in
+    ``Model.state_dict()``'s order.
+
+    The JAX ``params["mamba"]`` is stacked on axis 0 (``jax.vmap`` init);
+    each layer's slice becomes ``mamba.<i>.norm`` and
+    ``mamba.<i>.cell.<field>`` (``Mamba2Params`` arrives as a NamedTuple
+    or a dict). The shared block, when the config has one, becomes
+    ``shared.*``."""
+    dev = resolve_device(device)
+    dt = lambda x: to_device(np.asarray(x), dev)   # noqa: E731
+    state = collections.OrderedDict()   # in Model.state_dict()'s order
+    state["embed"] = dt(params["embed"])
+    state["final_norm"] = dt(params["final_norm"])
+    mamba = params["mamba"]
+    cell = mamba["cell"]
+    for i in range(cfg.n_layers):
+        pre = f"mamba.{i}."
+        state[pre + "norm"] = dt(np.asarray(mamba["norm"])[i])
+        for name in _MAMBA2_FIELDS:
+            state[pre + "cell." + name] = dt(np.asarray(_field(cell, name))[i])
+    if cfg.hybrid_shared_every:
+        shared = params["shared"]
+        state["shared.ln1"] = dt(shared["ln1"])
+        state["shared.ln2"] = dt(shared["ln2"])
+        for name in ("wq", "wk", "wv", "wo"):
+            state["shared.attn." + name] = dt(_field(shared["attn"], name))
+        for name in ("w_gate", "w_up", "w_down"):
+            state["shared.mlp." + name] = dt(_field(shared["mlp"], name))
+    return state
+
+
+def zamba_from_numpy(params, cfg: ModelConfig, device: DeviceLike = None):
+    """A ``Zamba`` holding ``repro``'s hybrid parameters."""
+    return _model_holding(zamba_state_from_numpy(params, cfg, device), cfg,
+                          device)

@@ -1,0 +1,123 @@
+"""Hopper kernel for the SSD (Mamba2) chunked scan.
+
+``ssd_chunk`` replaces ``repro/kernels/ssd_chunk/kernel.py``
+``ssd_chunk_pallas`` with its wrapper ``ops.py`` ``ssd_scan``. It is CUDA
+C++ in ``csrc/ssd_chunk.cu`` (its header says what bounds it and what
+the design does about it), built by ``kernels/_build.py`` at first use:
+one block per (batch, head) lane carries the state over the chunks.
+
+On a CPU tensor the wrapper returns its plain version from ``ref.py``; on
+a CUDA tensor it launches the kernel on the current stream or raises. It
+checks device, dtype, shape and contiguity first, on either device.
+``LAUNCHES`` counts kernel launches, one per wrapper call that reached
+the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels._build import load_library
+from repro_torch.kernels.ssd_chunk.ref import chunk_len, ssd_scan_ref
+
+LAUNCHES: Dict[str, int] = {"ssd_chunk": 0}
+_COUNT_LOCK = threading.Lock()
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+MAX_STATE = 128      # N, padded to 16 / 32 / 64 / 128 in shared memory
+MAX_HEAD_DIM = 64    # P, padded to 64
+
+
+def reset_launches() -> None:
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+
+
+def _library() -> ctypes.CDLL:
+    lib = load_library("ssd_chunk")
+    if lib.ssd_chunk_fwd.argtypes is None:
+        ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.ssd_chunk_fwd.argtypes = [ptr] * 6 + [i64] * 7 + [ptr]
+        lib.ssd_chunk_fwd.restype = ctypes.c_int
+    return lib
+
+
+def build() -> None:
+    """Build and load the kernel library now instead of at first launch."""
+    _library()
+
+
+def check_inputs(lam: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                 xdt: torch.Tensor) -> None:
+    """lam (B, T, H) of a float dtype; Bm, Cm (B, T, N) and xdt
+    (B, T, H, P) of one of fp32 / bf16 / fp16; all contiguous, on one
+    device; 1 <= N <= 128 and 1 <= P <= 64."""
+    if lam.dim() != 3 or Bm.dim() != 3 or xdt.dim() != 4 \
+            or tuple(Cm.shape) != tuple(Bm.shape):
+        raise ValueError(f"lam must be (B, T, H), Bm / Cm (B, T, N) and xdt "
+                         f"(B, T, H, P); got {tuple(lam.shape)}, "
+                         f"{tuple(Bm.shape)}, {tuple(Cm.shape)}, "
+                         f"{tuple(xdt.shape)}")
+    B, T, H = lam.shape
+    if tuple(Bm.shape[:2]) != (B, T) or tuple(xdt.shape[:3]) != (B, T, H):
+        raise ValueError(f"Bm {tuple(Bm.shape)} / xdt {tuple(xdt.shape)} do "
+                         f"not match lam {tuple(lam.shape)}")
+    N, P = Bm.shape[2], xdt.shape[3]
+    if not (1 <= N <= MAX_STATE and 1 <= P <= MAX_HEAD_DIM):
+        raise ValueError(f"state {N} / head dim {P} outside the kernel's "
+                         f"1..{MAX_STATE} / 1..{MAX_HEAD_DIM}")
+    if not lam.dtype.is_floating_point:
+        raise TypeError(f"lam must be floating point, got {lam.dtype}")
+    if Bm.dtype not in DTYPE_CODES or Cm.dtype != Bm.dtype \
+            or xdt.dtype != Bm.dtype:
+        raise TypeError(f"Bm, Cm, xdt must share one of fp32 / bf16 / fp16; "
+                        f"got {Bm.dtype}, {Cm.dtype}, {xdt.dtype}")
+    for name, t in (("lam", lam), ("Bm", Bm), ("Cm", Cm), ("xdt", xdt)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not (lam.device == Bm.device == Cm.device == xdt.device):
+        raise ValueError(f"lam, Bm, Cm, xdt on {lam.device}, {Bm.device}, "
+                         f"{Cm.device}, {xdt.device}")
+    if lam.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the SSD kernel takes CPU or CUDA tensors, got "
+                         f"{lam.device}")
+
+
+def ssd_chunk(lam: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+              xdt: torch.Tensor, *, chunk: int = 256) -> torch.Tensor:
+    """The SSD scan: lam (B, T, H) log-decays, Bm / Cm (B, T, N) shared
+    across heads, xdt (B, T, H, P) dt-scaled inputs -> y (B, T, H, P)
+    fp32, in chunks of ``chunk_len(T, chunk)`` steps (the whole sequence
+    when ``chunk`` does not divide T). lam is taken in fp32."""
+    check_inputs(lam, Bm, Cm, xdt)
+    L = chunk_len(lam.shape[1], int(chunk))
+    if lam.device.type == "cpu":
+        return ssd_scan_ref(lam, Bm, Cm, xdt, chunk=chunk)
+    B, T, H = lam.shape
+    N, P = Bm.shape[2], xdt.shape[3]
+    y = torch.empty((B, T, H, P), dtype=torch.float32, device=lam.device)
+    if B == 0 or T == 0 or H == 0:
+        return y
+    lam32 = lam.float()
+    ws = torch.empty((B * H, L), dtype=torch.float32, device=lam.device)
+    lib = _library()
+    with torch.cuda.device(lam.device):
+        err = lib.ssd_chunk_fwd(
+            lam32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), xdt.data_ptr(),
+            y.data_ptr(), ws.data_ptr(), B, T, H, N, P, L,
+            DTYPE_CODES[Bm.dtype],
+            torch.cuda.current_stream(lam.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ssd_chunk_fwd launch failed: CUDA error {err}")
+    _count("ssd_chunk")
+    return y

@@ -1,19 +1,24 @@
 """Serve a federated model: fuse K client models with FedAvg, then prefill
-a prompt and decode from it with per-layer KV ring caches.
+a prompt and decode from it with per-layer caches (KV rings; for the
+Mamba2 layers of Zamba2, the conv window and SSM state).
 
     PYTHONPATH=src python -m repro_torch.launch.generate --arch qwen2-0.5b
     PYTHONPATH=src python -m repro_torch.launch.generate \
         --arch qwen2-0.5b-smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.generate --arch zamba2-1.2b
 
 The serving half of ``examples/serve_federated_model.py``: the clients'
 models (``state_dict``-shaped trees; local training comes with the
 training slice) are fused through ``AggregationService.aggregate`` and
 the fused tree applied as ``repro.fl.FederatedServer.run_round`` does;
 then ``generate`` teacher-forces the prompt through ``decode_step`` and
-decodes greedily. On the card the fusion runs the weighted-sum kernel,
-prefill the flash-attention kernel and each decode step the flash-decode
-kernel. The CLI also checks that ``prefill``'s last-position logits
-agree with the teacher-forced ones.
+decodes greedily. The families are the dense decoders (Qwen2-0.5B,
+Gemma3-1B) and the Mamba2 / shared-attention hybrid (Zamba2-1.2B). On
+the card the fusion runs the weighted-sum kernel; prefill runs the
+flash-attention kernel (and, for Zamba2, the SSD-scan kernel in every
+Mamba2 layer); each decode step runs the flash-decode kernel. The CLI
+also checks that ``prefill``'s last-position logits agree with the
+teacher-forced ones.
 """
 from __future__ import annotations
 

@@ -15,3 +15,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, n_groups: int,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Per-head group norm of the Mamba gated-norm path, in fp32, cast
+    back to the input dtype: x (..., d) normalized independently in
+    ``n_groups`` equal groups, with the population variance (``jnp.var``
+    has ddof 0; ``torch.var`` defaults to the unbiased estimate) and the
+    ``(1 + scale)`` form."""
+    *lead, d = x.shape
+    g = x.float().reshape(*lead, n_groups, d // n_groups)
+    mean = g.mean(dim=-1, keepdim=True)
+    var = g.var(dim=-1, keepdim=True, correction=0)
+    y = ((g - mean) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return (y * (1.0 + scale.float())).to(x.dtype)

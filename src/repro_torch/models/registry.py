@@ -6,24 +6,29 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.base import Model
 from repro_torch.models.decoder import Decoder
+from repro_torch.models.zamba import Zamba
 from repro_torch.utils.device import DeviceLike, resolve_device
 
-_LATER = {
-    "moe": "16(d)", "vlm": "16(d)", "audio": "16(d)", "ssm": "16(b)/(d)",
-    "hybrid": "16(b)",
-}
+_LATER = {"moe": "16(d)", "vlm": "16(d)", "audio": "16(d)", "ssm": "16(d)"}
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None,
                 seed: int = 0) -> Model:
     """The family's model with random weights on ``device`` (the card
     unless the CPU is asked for), drawn from a generator on the device
-    seeded with ``seed``."""
+    seeded with ``seed``: the dense decoder, or the Mamba2 hybrid for
+    ``hybrid`` (and ``ssm`` with a Mamba2 ``SSMConfig``, as ``repro``
+    routes it)."""
     dev = resolve_device(device)
-    if cfg.family != "dense":
+    if cfg.family == "dense":
+        family = Decoder
+    elif cfg.family in ("ssm", "hybrid") and cfg.ssm is not None \
+            and cfg.xlstm is None:
+        family = Zamba
+    else:
         item = _LATER.get(cfg.family, "16")
         raise NotImplementedError(
             f"{cfg.arch_id}: the {cfg.family} family is not ported yet "
             f"(ROADMAP modules item {item})")
     generator = torch.Generator(device=dev).manual_seed(seed)
-    return Decoder(cfg, device=dev, generator=generator)
+    return family(cfg, device=dev, generator=generator)

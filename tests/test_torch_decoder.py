@@ -228,7 +228,8 @@ def test_num_params_matches_model_and_reference(arch):
         == tree_num_params(params)
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHITECTURES))
+@pytest.mark.parametrize("arch", sorted(a for a, c in ARCHITECTURES.items()
+                                         if c.family == "dense"))
 def test_full_size_param_count_and_shapes(arch):
     """The full configs, built on the meta device (shapes, no memory):
     the parameter count equals the analytic one and the reference's."""
@@ -250,7 +251,7 @@ def test_configs_mirror_the_reference():
                 a, b = dataclasses.asdict(a), dataclasses.asdict(b)
             assert a == b, (arch, f.name)
     with pytest.raises(KeyError):
-        get_config("zamba2-1.2b")
+        get_config("xlstm-350m")
 
 
 def test_families_not_yet_ported_raise():

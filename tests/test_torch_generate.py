@@ -24,6 +24,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import kernel as fa
 from repro_torch.kernels.flash_decode import kernel as fd
 from repro_torch.kernels.fused_fusion import kernel as fk
+from repro_torch.kernels.ssd_chunk import kernel as sk
 from repro_torch.launch import generate as gen
 
 REPO = Path(__file__).resolve().parents[1]
@@ -32,12 +33,13 @@ MODEL_TOL = dict(rtol=2e-3, atol=2e-3)   # tests/test_models.py:137-140
 
 @pytest.fixture(autouse=True)
 def _no_launches():
-    for mod in (fa, fd, fk):
+    for mod in (fa, fd, fk, sk):
         mod.reset_launches()
     yield
     assert fa.LAUNCHES == {"flash_attention": 0}
     assert fd.LAUNCHES == {"flash_decode": 0}
     assert fk.LAUNCHES == {"weighted_sum": 0, "weighted_sum_dequant": 0}
+    assert sk.LAUNCHES == {"ssd_chunk": 0}
 
 
 def _jax_generate(model, params, prompt, n_new, cache_len):
@@ -68,7 +70,8 @@ def _clients(params, n, seed):
             np.float32), params) for _ in range(n)]
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b-smoke", "gemma3-1b-smoke"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b-smoke", "gemma3-1b-smoke",
+                                  "zamba2-1.2b-smoke"])
 def test_fused_model_generates_as_the_reference(arch):
     jcfg = jget_config(arch)
     jmodel = jbuild_model(jcfg)
@@ -84,13 +87,15 @@ def test_fused_model_generates_as_the_reference(arch):
                                      params, fused)
 
     cfg = get_config(arch)
+    state_from_numpy = (convert.zamba_state_from_numpy if cfg.ssm
+                        else convert.decoder_state_from_numpy)
     np_params = jax.tree_util.tree_map(np.asarray, params)
-    model = convert.decoder_from_numpy(np_params, cfg, device="cpu")
-    states = [convert.decoder_state_from_numpy(c, cfg, device="cpu")
-              for c in clients]
+    model = (convert.zamba_from_numpy if cfg.ssm
+             else convert.decoder_from_numpy)(np_params, cfg, device="cpu")
+    states = [state_from_numpy(c, cfg, device="cpu") for c in clients]
     vec, report = gen.fuse_clients(model, states, weights)
     assert report.n_clients == 3 and vec.numel() == cfg.num_params()
-    want = convert.decoder_state_from_numpy(
+    want = state_from_numpy(
         jax.tree_util.tree_map(np.asarray, jparams), cfg, device="cpu")
     got = model.state_dict()
     assert list(got) == list(want)

@@ -37,7 +37,10 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
     assert {"repro_torch.kernels.fused_fusion.kernel",
             "repro_torch.kernels.flash_attention.kernel",
             "repro_torch.kernels.flash_decode.kernel",
+            "repro_torch.kernels.ssd_chunk.kernel",
             "repro_torch.models.decoder",
+            "repro_torch.models.layers.mamba2",
+            "repro_torch.models.zamba",
             "repro_torch.launch.generate"} <= set(mods)
     code = (
         "import importlib, sys\n"

@@ -62,6 +62,7 @@ SPIN_CYCLES = 2_000_000   # about 1 ms of SM clock: covers the host launch path
 TOL = {"fp32": 2e-5, "half": 2e-2}   # rtol of the reference's kernel tests
 ORACLE_COLS = 1 << 20   # float64 order-statistic oracles, a slice at a time
 QUANTILE_MAX = 1 << 24  # torch.quantile refuses larger inputs
+REG_MAX = 128           # the dense kernels' register route takes n <= this
 
 
 def _ms_median(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
@@ -242,6 +243,17 @@ def _special(u, n):
     u[:, 1::19] = 1.5
 
 
+def _route_text(route) -> str:
+    if route.route == "register":
+        return f"register sorting network, NB = {route.nb}"
+    if route.route == "warp_staged":
+        held = (f"{route.lane_keys} keys a lane in registers"
+                if route.lane_keys else "passes over shared memory")
+        return (f"warp select over keys staged in shared memory "
+                f"({route.smem_bytes} bytes a block; {held})")
+    return "warp select, each pass from device memory"
+
+
 def phase_robust_kernels(dev, hbm_bw, resnet_p, cnn_p):
     """The order-statistic kernels against their plain versions: carve
     buffers bit for bit, the dense statistics to the reference's
@@ -305,6 +317,10 @@ def phase_robust_kernels(dev, hbm_bw, resnet_p, cnn_p):
         print(f"[phase1] topk_carve {json.dumps(cases['topk_carve'][-1])}",
               flush=True)
         del u, valid, topk, botk, ssum, stacked
+    if rk.dense_route(REG_MAX, dev).route != "register" \
+            or rk.dense_route(REG_MAX + 1, dev).route == "register":
+        raise AssertionError(f"the register route does not end at n = "
+                             f"{REG_MAX}")
     for name, n, p, trim, dt, label in [
         ("trimmed_mean", 48, resnet_p, 4, torch.float32,
          "Resnet50 x 48 TrimmedMean(0.1)"),
@@ -315,14 +331,50 @@ def phase_robust_kernels(dev, hbm_bw, resnet_p, cnn_p):
         ("coord_median", 33, 1000, None, torch.float16, "fp16"),
         ("coord_median", 48, 5000, None, torch.float32,
          "inf, NaN, signed zeros, ties"),
-        ("coord_median", 2048, 4096, None, torch.float32,
-         "past the shared-memory tile: radix select"),
+        ("coord_median", 2048, 4096, None, torch.float32, "n = 2048"),
         ("trimmed_mean", 49, 3000, 7, torch.float16, "fp16, odd n"),
         ("trimmed_mean", 20, 513, 5, torch.bfloat16, "bf16"),
         ("trimmed_mean", 48, 5000, 4, torch.float32,
          "inf, NaN, signed zeros, ties"),
+        ("trimmed_mean", 2048, 4096, 204, torch.float32, "n = 2048"),
+        # the routes' edges: n = 1-3, the register route's last n and the
+        # warp route's first, ragged column groups, past the staging limit
+        ("trimmed_mean", 1, 5003, 0, torch.float32, "n = 1"),
+        ("coord_median", 1, 5003, None, torch.float32, "n = 1"),
+        ("trimmed_mean", 2, 5003, 0, torch.float32, "n = 2"),
+        ("coord_median", 2, 5003, None, torch.float32, "n = 2"),
+        ("trimmed_mean", 3, 5003, 1, torch.float32, "n = 3"),
+        ("coord_median", 3, 5003, None, torch.float32, "n = 3"),
+        ("trimmed_mean", REG_MAX, 100_003, 12, torch.float32,
+         "register route's largest n"),
+        ("coord_median", REG_MAX, 100_003, None, torch.float32,
+         "register route's largest n"),
+        ("trimmed_mean", REG_MAX + 1, 100_003, 12, torch.float32,
+         "warp route's smallest n"),
+        ("coord_median", REG_MAX + 1, 100_003, None, torch.float32,
+         "warp route's smallest n"),
+        ("trimmed_mean", 256, cnn_p, 25, torch.float32,
+         "CNN4.6 x 256 TrimmedMean(0.1)"),
+        ("coord_median", 256, cnn_p, None, torch.float32,
+         "CNN4.6 x 256 CoordMedian"),
         ("trimmed_mean", 2048, 4096, 204, torch.float32,
-         "past the shared-memory tile: radix select"),
+         "inf, NaN, signed zeros, ties"),
+        ("coord_median", 2048, 4096, None, torch.float32,
+         "inf, NaN, signed zeros, ties"),
+        ("trimmed_mean", 2048, 4096, 204, torch.bfloat16, "bf16"),
+        ("coord_median", 2048, 4096, None, torch.bfloat16, "bf16"),
+        ("trimmed_mean", 300, 4099, 30, torch.float32,
+         "P = 4,099: a ragged 8-column group"),
+        ("coord_median", 300, 4099, None, torch.float32,
+         "P = 4,099: a ragged 8-column group"),
+        ("trimmed_mean", 1000, 20_000, 100, torch.float32,
+         "32 keys a lane in registers"),
+        ("coord_median", 1000, 20_000, None, torch.float32,
+         "32 keys a lane in registers"),
+        ("trimmed_mean", 10_000, 1000, 1000, torch.float32,
+         "past the staging limit: device-memory passes"),
+        ("coord_median", 10_000, 1000, None, torch.float32,
+         "past the staging limit: device-memory passes"),
     ]:
         u = torch.randn((n, p), generator=g, device=dev)
         if "NaN" in label:
@@ -336,8 +388,9 @@ def phase_robust_kernels(dev, hbm_bw, resnet_p, cnn_p):
                 library = lambda: torch.quantile(u.float(), 0.5, dim=0)  # noqa: E731
                 lib_what = "torch.quantile(u, 0.5, dim=0)"
             else:
-                library = None
-                lib_what = (f"none: torch.quantile refuses inputs over "
+                library = lambda: torch.sort(u, dim=0)   # noqa: E731
+                lib_what = (f"torch.sort(u, dim=0), the sort alone: "
+                            f"torch.quantile refuses inputs over "
                             f"{QUANTILE_MAX} elements")
         else:
             run = lambda: rk.trimmed_mean(u, trim)       # noqa: E731
@@ -357,12 +410,10 @@ def phase_robust_kernels(dev, hbm_bw, resnet_p, cnn_p):
                                     hbm_bw)
         cases[name].append({
             "shape": [n, p], "trim": trim, "dtype": names[dt], "what": label,
-            "path": ("shared-memory tile of "
-                     f"{rk.dense_tile(n, dev)} columns"
-                     if rk.dense_tile(n, dev) else "radix select"),
+            "path": _route_text(rk.dense_route(n, dev)),
             "max_abs_err": err, "rtol": tol,
             "ms": _ms_median(run), "plain_ms": _ms_median(plain),
-            "library_ms": _ms_median(library) if library else None,
+            "library_ms": _ms_median(library),
             "library": lib_what,
             "bound_ms": bound_ms, "bound_by": bound_by,
         })

@@ -6,7 +6,7 @@
 // largest values seen) and botk (K, P) (the K smallest). Rows with
 // valid == 0 never enter.
 // robust_trimmed_mean replaces trimmedmean_pallas and robust_coord_median
-// replaces coordmedian_pallas: per coordinate, sort the n client values,
+// replaces coordmedian_pallas: per coordinate, order the n client values,
 // then the mean of ranks [trim, n - trim), or the middle value (the mean
 // of the two middle values, (a + b) * 0.5, for even n; NaN when the
 // coordinate holds a NaN, as jnp.median).
@@ -14,38 +14,59 @@
 // Order. Every comparison is jnp.sort's: NaN after every number, -0
 // equal to +0, and equal values kept in input order (a stable sort). So
 // the carve buffers equal the reference's bit for bit, NaN included, and
-// the dense kernels select the values the reference's sort selects.
+// the dense kernels select the values the reference's sort selects: the
+// register route sorts fp32 values with each NaN counted and replaced by
+// +inf, the warp route compares 32-bit order keys (order_key) whose
+// unsigned order is jnp.sort's.
 //
-// What bounds them: device-memory bytes. The carve reads the block and
-// reads and writes its carry once, c*P*b + 8*P + 16*K*P + 4*c bytes; the
-// dense kernels read the matrix once, n*P*b + 4*P bytes. Their compare
-// counts stay far below the fp32 rate at the main path's shapes.
+// What bounds them. The carve: device-memory bytes; it reads the block
+// and reads and writes its carry once, c*P*b + 8*P + 16*K*P + 4*c bytes.
+// The dense kernels read the matrix once, n*P*b + 4*P bytes, but their
+// compare work per column grows faster than n: at small n the bytes
+// bound them, at larger n the compares (and for the warp route the
+// instructions each pass issues).
 //
 // What the designs do about it. The TPU kernels load an (n, 1024) strip
-// into VMEM and sort it whole; on Hopper one thread owns one column,
-// neighbouring threads neighbouring columns, so every load and store of
-// a row or buffer row is coalesced, and no padded copy is made: rows at
-// or beyond the block's are never read.
-//   * Carve: one pass over the block. For K <= 32 the column's K top
+// into VMEM and sort it whole. On Hopper:
+//   * Carve: one thread per column, neighbouring threads on neighbouring
+//     columns, one pass over the block. For K <= 32 the column's K top
 //     and K bottom values live in registers, in a window of KM >= K slots
 //     (compile-time KM, so the insertion merge is unrolled and branch
 //     free; topk's K slots sit at the top of the window over -inf, botk's
 //     at the bottom over +inf, and only those K are written back). For
 //     K > 32 the merge works in the (K, P) buffers themselves, in place.
 //     The carry is updated in place: the caller must not alias it.
-//   * Dense, first path: a block stages an (n, TILE) fp32 strip in
-//     shared memory, TILE columns sized from n against the 227 KB a
-//     block can hold (TILE <= 256, a multiple of 32; conflict-free, as
-//     thread t touches bank t % 32 only), and each thread insertion-sorts
-//     its column there.
-//   * Dense, second path (n too large for a 32-column tile): each thread
-//     selects its column's order statistics by a radix select over a
-//     32-bit order key, straight from device memory, one bit a pass
-//     (about 32 passes per selected rank). No scratch, and no limit on n.
+//   * Dense, register route (n <= 128): one thread per column, so every
+//     row load is coalesced across the warp. The thread issues its n
+//     loads at once, pads the column to a compile-time bucket NB in {8,
+//     16, 24, 32, 48, 64, 96, 128} and sorts it by Batcher's odd-even
+//     merge network, fully unrolled and branch free (comparators that
+//     only meet padding are dropped: 384 at NB = 48). The values stay in
+//     registers: no shared memory, no divergence, no run-time index. At
+//     n = 48 that is 768 fp32 min / max per column against 192 bytes
+//     read, and it overlaps the loads only in part. The network compares
+//     fp32 values rather than integer order keys because fp32 min / max
+//     issue faster on Hopper.
+//   * Dense, warp route (n > 128, no upper limit): one warp per column, a
+//     block of 8 warps on 8 adjacent columns so that each row it reads is
+//     a whole 32-byte sector. The block stages its (n, 8) keys in shared
+//     memory once where 32 * n bytes fit (n <= ~7,200 in 227 KB); past
+//     that each pass re-reads device memory. For n <= 1024 each lane then
+//     lifts its rows into registers (8, 16 or 32 keys, fully unrolled),
+//     which takes the shared loads and the loop control out of every
+//     pass. The ranks are found by one radix select, one bit a pass, each
+//     pass serving both of the trimmed mean's ranks; a rank stops once
+//     one candidate is left, so spread data take far fewer than the 32
+//     passes that ties take. Each lane counts its rows and the warp sums
+//     the counts with __reduce_add_sync, so there are no atomics and no
+//     block barrier per pass. A column's data are read from device memory
+//     once, by 32 lanes instead of one thread. At mid n (a few keys a
+//     lane) the instructions each pass issues bound it, not the bytes.
 //
 // All index arithmetic that reaches device memory is 64-bit. The kernels
 // allocate nothing and use no atomics; every entry point returns the
-// cudaGetLastError() of its launch.
+// cudaGetLastError() of its launch, and a refused launch is never retried
+// on another route.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -53,12 +74,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSelectThreads = 64;
-constexpr int kMaxTile = 256;
-constexpr int kMinTile = 32;
+constexpr uint32_t kNanKey = 0xFFFFFFFFu;   // every NaN; also the padding
 
 enum DType : int64_t { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
@@ -73,17 +94,17 @@ __device__ __forceinline__ bool before(float a, float b) {
   return a < b || (is_nan(b) && !is_nan(a));
 }
 
-// A 32-bit key whose unsigned order is jnp.sort's order: -0 maps to +0,
-// every NaN to the largest key.
+// A 32-bit key whose unsigned order is jnp.sort's order: -0 maps to +0
+// (-0 + 0 is +0), every NaN to the largest key.
 __device__ __forceinline__ uint32_t order_key(float f) {
-  if (is_nan(f)) return 0xFFFFFFFFu;
-  uint32_t b = __float_as_uint(f);
-  if (f == 0.f) b = 0u;
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  const uint32_t b = __float_as_uint(__fadd_rn(f, 0.f));
+  const uint32_t k =
+      b ^ (static_cast<uint32_t>(static_cast<int32_t>(b) >> 31) | 0x80000000u);
+  return is_nan(f) ? kNanKey : k;
 }
 
 __device__ __forceinline__ float key_value(uint32_t k) {
-  if (k == 0xFFFFFFFFu) return __uint_as_float(0x7FC00000u);
+  if (k == kNanKey) return __uint_as_float(0x7FC00000u);
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
 }
 
@@ -210,126 +231,323 @@ void launch_carve(const void* u, const float* v, float* s, float* t,
 
 // ---------------------------------------------------------------- dense
 
-// The statistic of one sorted column, element i at col[i * stride]:
-// the median (NaN if the column holds one, which sorts last), or the
-// mean of ranks [trim, n - trim) summed in rank order.
-template <bool MEDIAN>
-__device__ __forceinline__ float sorted_stat(const float* col, int stride,
-                                             int n, int trim) {
-  if (MEDIAN) {
-    const float last = col[(n - 1) * stride];
-    if (is_nan(last)) return last;
-    const int mid = n / 2;
-    if (n % 2) return col[mid * stride];
-    return (col[(mid - 1) * stride] + col[mid * stride]) * 0.5f;
-  }
-  float acc = 0.f;
-  for (int i = trim; i < n - trim; ++i) acc += col[i * stride];
-  return acc / static_cast<float>(n - 2 * trim);
+constexpr uint32_t kFull = 0xFFFFFFFFu;
+constexpr int kRegMax = 128;                // largest n of the register route
+constexpr int kRegThreads = 128;
+constexpr int kWarps = 8;                   // columns (a warp each) per block
+constexpr int kWarpThreads = 32 * kWarps;
+
+enum Route : int64_t { kRegister = 0, kWarpStaged = 1, kWarpStreamed = 2 };
+
+__host__ __device__ constexpr int pow2_ceil(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
 }
 
-// First path: the block's (n, TILE) strip in shared memory, thread t's
-// column at strip[i * TILE + t]; stable insertion sort per thread.
-template <typename T, bool MEDIAN>
-__global__ void __launch_bounds__(kMaxTile)
-sorted_stat_smem_kernel(const T* __restrict__ u, float* __restrict__ out,
-                        int n, int64_t P, int trim) {
-  extern __shared__ float strip[];
-  const int tile = blockDim.x;
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * tile + threadIdx.x;
-  if (p >= P) return;   // each thread touches its own column only
-  float* col = strip + threadIdx.x;
-#pragma unroll 4
-  for (int i = 0; i < n; ++i)
-    col[i * tile] = to_f32(u[static_cast<int64_t>(i) * P + p]);
-  for (int i = 1; i < n; ++i) {
-    const float x = col[i * tile];
-    int j = i;
-    while (j > 0 && before(x, col[(j - 1) * tile])) {
-      col[j * tile] = col[(j - 1) * tile];
-      --j;
-    }
-    col[j * tile] = x;
+// Compare-exchange, the smaller value to slot a (a < b). Slots at or past
+// NB would hold padding, +inf, the largest value, and no comparator moves
+// it, so comparators that reach them are dropped. The values hold no NaN.
+template <int NB>
+__device__ __forceinline__ void cx(float (&v)[NB], int a, int b) {
+  if (b < NB) {
+    const float x = v[a], y = v[b];
+    v[a] = fminf(x, y);
+    v[b] = fmaxf(x, y);
   }
-  out[p] = sorted_stat<MEDIAN>(col, tile, n, trim);
 }
 
-// The order key of rank r (0-based) in column p: radix select, one bit
-// a pass from the top.
-template <typename T>
-__device__ uint32_t select_key(const T* __restrict__ u, int64_t p, int64_t n,
-                               int64_t P, int64_t r) {
-  uint32_t prefix = 0u, mask = 0u;
-  for (int bit = 31; bit >= 0; --bit) {
-    const uint32_t m = mask | (1u << bit);
-    int64_t cnt = 0;   // keys that match the prefix with this bit 0
-#pragma unroll 4
-    for (int64_t i = 0; i < n; ++i)
-      cnt += (order_key(to_f32(u[i * P + p])) & m) == prefix;
-    if (r >= cnt) {
-      prefix |= 1u << bit;
-      r -= cnt;
-    }
-    mask = m;
+// Batcher's odd-even merge of slots [LO, HI] (inclusive), comparing slots
+// R apart; the network of slots [0, pow2_ceil(NB)) with every comparator
+// past NB dropped sorts NB values (384 comparators at NB = 48, 543 at 64;
+// tests/test_torch_robust_select.py models it).
+template <int NB, int LO, int HI, int R>
+__device__ __forceinline__ void oe_merge(float (&v)[NB]) {
+  if constexpr (2 * R < HI - LO) {
+    oe_merge<NB, LO, HI, 2 * R>(v);
+    oe_merge<NB, LO + R, HI, 2 * R>(v);
+#pragma unroll
+    for (int i = LO + R; i < HI - R; i += 2 * R) cx<NB>(v, i, i + R);
+  } else {
+    cx<NB>(v, LO, LO + R);
   }
-  return prefix;
 }
 
-// Second path: order statistics selected straight from device memory.
-template <typename T, bool MEDIAN>
-__global__ void __launch_bounds__(kSelectThreads)
-sorted_stat_select_kernel(const T* __restrict__ u, float* __restrict__ out,
-                          int64_t n, int64_t P, int64_t trim) {
+template <int NB, int LO, int HI>
+__device__ __forceinline__ void oe_sort(float (&v)[NB]) {
+  if constexpr (HI > LO) {
+    constexpr int MID = LO + (HI - LO) / 2;
+    oe_sort<NB, LO, MID>(v);
+    oe_sort<NB, MID + 1, HI>(v);
+    oe_merge<NB, LO, HI, 1>(v);
+  }
+}
+
+// Register route (n <= kRegMax): one thread per column, neighbouring
+// threads on neighbouring columns. The column's n values, each NaN
+// counted and replaced by +inf, padded to NB, are sorted in registers by
+// a fully unrolled network; ranks are read from compile-time slots, so
+// the array never leaves the register file. In jnp.sort's order the NaNs
+// are the column's last `nans` ranks, so the median is NaN when nans > 0
+// and the trimmed mean when nans > trim; every other kept rank holds the
+// sorted value (a NaN's +inf sorts at or above every real value). The
+// trimmed mean pads with +inf and sums slots [trim, n - trim). The median
+// pads with as many -inf as +inf (one more -inf for odd n), so its middle
+// values sit at slots NB / 2 - 1 and NB / 2 whatever n is, and the
+// compiler drops every comparator outside their cone.
+template <typename T, bool MEDIAN, int NB>
+__global__ void __launch_bounds__(kRegThreads)
+stat_reg_kernel(const T* __restrict__ u, float* __restrict__ out, int n,
+                int64_t P, int trim) {
   const int64_t p =
-      static_cast<int64_t>(blockIdx.x) * kSelectThreads + threadIdx.x;
+      static_cast<int64_t>(blockIdx.x) * kRegThreads + threadIdx.x;
   if (p >= P) return;
-  const int64_t lo_rank = MEDIAN ? (n - 1) / 2 : trim;
-  const int64_t hi_rank = MEDIAN ? n / 2 : n - 1 - trim;
-  const uint32_t klo = select_key(u, p, n, P, lo_rank);
-  // one pass: how many keys are <= klo, the next key above it, and
-  // whether a NaN (the largest key) is present
-  int64_t le_lo = 0;
-  uint32_t next = 0xFFFFFFFFu, kmax = 0u;
-#pragma unroll 4
-  for (int64_t i = 0; i < n; ++i) {
-    const uint32_t k = order_key(to_f32(u[i * P + p]));
-    le_lo += k <= klo;
-    if (k > klo && k < next) next = k;
-    kmax = k > kmax ? k : kmax;
+  const int low_pad = MEDIAN ? (NB - n + (n & 1)) / 2 : 0;
+  float v[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)   // every load issued before any compare
+    v[j] = j < n ? to_f32(u[static_cast<int64_t>(j) * P + p])
+                 : j < n + low_pad ? -INFINITY : INFINITY;
+  int nans = 0;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    nans += is_nan(v[j]);
+    v[j] = is_nan(v[j]) ? INFINITY : v[j];
   }
+  oe_sort<NB, 0, pow2_ceil(NB) - 1>(v);
   if (MEDIAN) {
-    if (kmax == 0xFFFFFFFFu) {
-      out[p] = key_value(kmax);
-      return;
-    }
-    const float a = key_value(klo);
-    if (lo_rank == hi_rank) {
-      out[p] = a;
-      return;
-    }
-    const float b = le_lo > hi_rank ? a : key_value(next);
-    out[p] = (a + b) * 0.5f;
+    const float mid = n & 1 ? v[NB / 2] : (v[NB / 2 - 1] + v[NB / 2]) * 0.5f;
+    out[p] = nans > 0 ? __uint_as_float(0x7FC00000u) : mid;
     return;
   }
-  const float vlo = key_value(klo);
-  if (le_lo >= n - trim) {   // ranks [trim, n - trim) all hold klo
-    out[p] = vlo;
-    return;
+  float acc = 0.f;   // the kept ranks, summed in rank order
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+    if (j >= trim && j < n - trim) acc += v[j];
+  out[p] = nans > trim ? __uint_as_float(0x7FC00000u)
+                       : acc / static_cast<float>(n - 2 * trim);
+}
+
+// The warp's sum of a per-lane count. With 32-bit rows the sum fits in
+// 32 bits; with 64-bit rows it is taken in 16-bit halves, which cannot
+// wrap over 32 lanes.
+template <typename I>
+__device__ __forceinline__ I warp_count(uint32_t c) {
+  if constexpr (sizeof(I) == 4) {
+    return static_cast<I>(__reduce_add_sync(kFull, c));
+  } else {
+    const uint32_t lo = __reduce_add_sync(kFull, c & 0xFFFFu);
+    const uint32_t hi = __reduce_add_sync(kFull, c >> 16);
+    return (static_cast<I>(hi) << 16) + lo;
   }
-  const uint32_t khi = select_key(u, p, n, P, hi_rank);
-  float between = 0.f;
-  int64_t lt_hi = 0;
+}
+
+// A lane's keys of the warp's column, rows lane, lane + 32, ...: each(f)
+// calls f(key, valid) on every one. RowKeys reads them (shared or device
+// memory) on every visit; LaneKeys holds KPL of them in registers, fully
+// unrolled, rows past n as the NaN key with valid false. A padding key has
+// every bit set, so it never counts as a 0 bit in a select pass.
+template <typename I, typename KeyAt>
+struct RowKeys {
+  const KeyAt& key_at;
+  I n;
+  int lane;
+  template <typename F>
+  __device__ __forceinline__ void each(F&& f) const {
 #pragma unroll 4
-  for (int64_t i = 0; i < n; ++i) {
-    const float x = to_f32(u[i * P + p]);
-    const uint32_t k = order_key(x);
-    lt_hi += k < khi;
-    if (k > klo && k < khi) between += x;
+    for (I i = lane; i < n; i += 32) f(key_at(i), true);
   }
-  const float take_lo = static_cast<float>(le_lo - trim);
-  const float take_hi = static_cast<float>(n - trim - lt_hi);
-  out[p] = (between + take_lo * vlo + take_hi * key_value(khi)) /
-           static_cast<float>(n - 2 * trim);
+};
+
+template <int KPL>
+struct LaneKeys {
+  uint32_t k[KPL];
+  int n, lane;
+  template <typename F>
+  __device__ __forceinline__ void each(F&& f) const {
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) f(k[j], lane + 32 * j < n);
+  }
+};
+
+// The key of a rank (0-based) in the warp's column, with how many keys
+// lie below it (lt) and equal it (eq).
+template <typename I>
+struct Selected {
+  uint32_t key;
+  I lt, eq;
+};
+
+// Radix select of NR ranks at once, one bit a pass from the top: each
+// pass visits every key once and counts, for each rank still open, the
+// keys that match its prefix with the bit at 0. Each lane counts its rows
+// and the warp sums the counts: no atomics, no barrier. A rank closes
+// once one candidate is left (one more pass then finds it); ties run all
+// 32 passes.
+template <int NR, typename I, typename Keys>
+__device__ __forceinline__ void warp_select(const Keys& keys, I n,
+                                            const I (&rank)[NR],
+                                            Selected<I> (&sel)[NR]) {
+  uint32_t prefix[NR], mask[NR];
+  I r[NR], cand[NR];
+#pragma unroll
+  for (int q = 0; q < NR; ++q) {
+    prefix[q] = mask[q] = 0u;
+    r[q] = rank[q];
+    cand[q] = n;
+  }
+  for (int bit = 31; bit >= 0; --bit) {
+    bool open = false;
+#pragma unroll
+    for (int q = 0; q < NR; ++q) open |= cand[q] > 1;
+    if (!open) break;
+    const uint32_t b = 1u << bit;
+    uint32_t c[NR];
+#pragma unroll
+    for (int q = 0; q < NR; ++q) c[q] = 0u;
+    keys.each([&](uint32_t k, bool) {
+#pragma unroll
+      for (int q = 0; q < NR; ++q)
+        if (((k ^ prefix[q]) & (mask[q] | b)) == 0u) ++c[q];
+    });
+#pragma unroll
+    for (int q = 0; q < NR; ++q) {
+      if (cand[q] <= 1) continue;
+      const I zeros = warp_count<I>(c[q]);
+      if (r[q] >= zeros) {
+        prefix[q] |= b;
+        r[q] -= zeros;
+        cand[q] -= zeros;
+      } else {
+        cand[q] = zeros;
+      }
+      mask[q] |= b;
+    }
+  }
+  bool seek = false;   // a rank closed early: its one key under the prefix
+#pragma unroll
+  for (int q = 0; q < NR; ++q) seek |= mask[q] != kFull;
+  if (seek) {
+    uint32_t found[NR];
+#pragma unroll
+    for (int q = 0; q < NR; ++q) found[q] = 0u;
+    keys.each([&](uint32_t k, bool valid) {
+#pragma unroll
+      for (int q = 0; q < NR; ++q)
+        if (valid && ((k ^ prefix[q]) & mask[q]) == 0u) found[q] = k;
+    });
+#pragma unroll
+    for (int q = 0; q < NR; ++q)
+      if (mask[q] != kFull) prefix[q] = __reduce_max_sync(kFull, found[q]);
+  }
+#pragma unroll
+  for (int q = 0; q < NR; ++q) sel[q] = {prefix[q], rank[q] - r[q], cand[q]};
+}
+
+// The statistic of the warp's column from its keys; lane 0 writes it.
+template <bool MEDIAN, typename I, typename Keys>
+__device__ __forceinline__ void warp_stat(const Keys& keys, I n, I trim,
+                                          int lane, float* out) {
+  if (MEDIAN) {
+    const I ranks[1] = {(n - 1) / 2};
+    Selected<I> sel[1];
+    warp_select<1, I>(keys, n, ranks, sel);
+    const Selected<I>& lo = sel[0];
+    // one pass: the next key above lo and whether a NaN is present
+    uint32_t next = kNanKey, kmax = 0u;
+    keys.each([&](uint32_t k, bool valid) {
+      if (!valid) return;
+      if (k > lo.key) next = min(next, k);
+      kmax = max(kmax, k);
+    });
+    next = __reduce_min_sync(kFull, next);
+    kmax = __reduce_max_sync(kFull, kmax);
+    if (lane != 0) return;
+    const float a = key_value(lo.key);
+    if (kmax == kNanKey) {
+      *out = key_value(kmax);
+    } else if (n % 2) {
+      *out = a;
+    } else {   // the upper middle is lo's tie or the next key
+      const float b = lo.lt + lo.eq > n / 2 ? a : key_value(next);
+      *out = (a + b) * 0.5f;
+    }
+    return;
+  }
+  const I ranks[2] = {trim, n - 1 - trim};
+  Selected<I> sel[2];
+  warp_select<2, I>(keys, n, ranks, sel);
+  const Selected<I>&lo = sel[0], &hi = sel[1];
+  const float vlo = key_value(lo.key);
+  if (lo.key == hi.key) {   // ranks [trim, n - trim) all hold that key
+    if (lane == 0) *out = vlo;
+    return;
+  }
+  // the keys strictly between the two, each lane in row order, then the
+  // lanes in a fixed butterfly order; the boundary ties by their counts
+  float between = 0.f;
+  keys.each([&](uint32_t k, bool valid) {
+    if (valid && k > lo.key && k < hi.key) between += key_value(k);
+  });
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) between += __shfl_xor_sync(kFull, between, o);
+  if (lane != 0) return;
+  const float take_lo = static_cast<float>(lo.lt + lo.eq - trim);
+  const float take_hi = static_cast<float>(n - trim - hi.lt);
+  *out = (between + take_lo * vlo + take_hi * key_value(hi.key)) /
+         static_cast<float>(n - 2 * trim);
+}
+
+// Warp route (n > kRegMax): one warp per column, a block of kWarps warps
+// on kWarps adjacent columns. STAGED: the block first stores its (n,
+// kWarps) keys in shared memory, column c at keys[c * stride + row] with
+// stride = 4 (mod 32), so both the staging stores (4 rows x 8 columns a
+// warp) and each warp's reads of its column are free of bank conflicts.
+// With KPL > 0 (n <= 32 * KPL) each lane then lifts its rows into
+// registers and every pass runs there, fully unrolled; otherwise every
+// pass reads shared memory. Not STAGED: every pass reads device memory
+// (the block's columns share each row's sector).
+template <typename T, bool MEDIAN, bool STAGED, int KPL>
+__global__ void __launch_bounds__(kWarpThreads)
+stat_warp_kernel(const T* __restrict__ u, float* __restrict__ out, int64_t n,
+                 int64_t P, int64_t trim, int64_t stride) {
+  extern __shared__ uint32_t keys[];
+  using I = typename std::conditional<STAGED, int, int64_t>::type;
+  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * kWarps;
+  const int lane = threadIdx.x & 31;
+  const int64_t p = p0 + (threadIdx.x >> 5);
+  if constexpr (STAGED) {
+    const int c = threadIdx.x % kWarps;   // a thread stages one column
+    if (p0 + c < P) {
+      uint32_t* dst = keys + c * stride;
+      const T* src = u + p0 + c;
+#pragma unroll 8
+      for (int64_t i = threadIdx.x / kWarps; i < n;
+           i += kWarpThreads / kWarps)
+        dst[i] = order_key(to_f32(src[i * P]));
+    }
+    __syncthreads();
+  }
+  if (p >= P) return;   // warp-uniform; no barrier follows
+  const uint32_t* col = keys + (threadIdx.x >> 5) * stride;
+  const I rows = static_cast<I>(n), t = static_cast<I>(trim);
+  if constexpr (KPL > 0) {
+    LaneKeys<KPL> lk;
+    lk.n = static_cast<int>(n);
+    lk.lane = lane;
+#pragma unroll
+    for (int j = 0; j < KPL; ++j)
+      lk.k[j] = lane + 32 * j < lk.n ? col[lane + 32 * j] : kNanKey;
+    warp_stat<MEDIAN, I>(lk, rows, t, lane, out + p);
+  } else {
+    const T* src = u + p;
+    const auto key_at = [&](I i) -> uint32_t {
+      if constexpr (STAGED) return col[i];
+      else return order_key(to_f32(src[static_cast<int64_t>(i) * P]));
+    };
+    warp_stat<MEDIAN, I>(RowKeys<I, decltype(key_at)>{key_at, rows, lane},
+                         rows, t, lane, out + p);
+  }
 }
 
 int max_smem_per_block() {
@@ -341,35 +559,84 @@ int max_smem_per_block() {
   return bytes;
 }
 
-// Columns per block of the shared-memory path for n rows, or 0 when
-// not even kMinTile columns fit.
-int64_t tile_for(int64_t n) {
-  const int64_t cols = max_smem_per_block() / (4 * (n > 0 ? n : 1));
-  const int64_t tile = (cols < kMaxTile ? cols : kMaxTile) / 32 * 32;
-  return tile >= kMinTile ? tile : 0;
+// Keys per staged column: n rounded up to 32, plus 4 (see stat_warp_kernel).
+int64_t staged_stride(int64_t n) { return (n + 31) / 32 * 32 + 4; }
+
+// The route n takes on the current device, and its parameters: for the
+// register route NB; for the staged warp route the block's shared bytes
+// and the keys each lane holds in registers (0: passes over shared
+// memory); nothing for the streamed warp route.
+Route route_for(int64_t n, int64_t (&param)[2]) {
+  param[0] = param[1] = 0;
+  if (n <= kRegMax) {
+    param[0] = n <= 8 ? 8 : n <= 16 ? 16 : n <= 24 ? 24 : n <= 32 ? 32
+             : n <= 48 ? 48 : n <= 64 ? 64 : n <= 96 ? 96 : 128;
+    return kRegister;
+  }
+  const int64_t bytes = 4 * kWarps * staged_stride(n);
+  if (bytes > max_smem_per_block()) return kWarpStreamed;
+  param[0] = bytes;
+  param[1] = n <= 256 ? 8 : n <= 512 ? 16 : n <= 1024 ? 32 : 0;
+  return kWarpStaged;
+}
+
+template <typename T, bool MEDIAN, int NB>
+void launch_reg(const T* u, float* out, int64_t n, int64_t P, int64_t trim,
+                cudaStream_t st) {
+  const unsigned grid =
+      static_cast<unsigned>((P + kRegThreads - 1) / kRegThreads);
+  stat_reg_kernel<T, MEDIAN, NB><<<grid, kRegThreads, 0, st>>>(
+      u, out, static_cast<int>(n), P, static_cast<int>(trim));
+}
+
+template <typename T, bool MEDIAN, int KPL>
+cudaError_t launch_staged(const T* u, float* out, int64_t n, int64_t P,
+                          int64_t trim, int64_t smem, cudaStream_t st) {
+  const auto kernel = stat_warp_kernel<T, MEDIAN, true, KPL>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>((P + kWarps - 1) / kWarps);
+  kernel<<<grid, kWarpThreads, static_cast<size_t>(smem), st>>>(
+      u, out, n, P, trim, staged_stride(n));
+  return cudaGetLastError();
 }
 
 template <typename T, bool MEDIAN>
 cudaError_t launch_stat(const void* u, float* out, int64_t n, int64_t P,
                         int64_t trim, cudaStream_t st) {
   const T* up = static_cast<const T*>(u);
-  const int64_t tile = tile_for(n);
-  if (tile > 0) {
-    const size_t smem = static_cast<size_t>(4 * n * tile);
-    cudaError_t err = cudaFuncSetAttribute(
-        sorted_stat_smem_kernel<T, MEDIAN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const unsigned grid = static_cast<unsigned>((P + tile - 1) / tile);
-    sorted_stat_smem_kernel<T, MEDIAN>
-        <<<grid, static_cast<unsigned>(tile), smem, st>>>(
-        up, out, static_cast<int>(n), P, static_cast<int>(trim));
-  } else {
-    const unsigned grid =
-        static_cast<unsigned>((P + kSelectThreads - 1) / kSelectThreads);
-    sorted_stat_select_kernel<T, MEDIAN><<<grid, kSelectThreads, 0, st>>>(
-        up, out, n, P, trim);
+  int64_t param[2];
+  const Route route = route_for(n, param);
+  if (route == kRegister) {
+    switch (param[0]) {
+      case 8: launch_reg<T, MEDIAN, 8>(up, out, n, P, trim, st); break;
+      case 16: launch_reg<T, MEDIAN, 16>(up, out, n, P, trim, st); break;
+      case 24: launch_reg<T, MEDIAN, 24>(up, out, n, P, trim, st); break;
+      case 32: launch_reg<T, MEDIAN, 32>(up, out, n, P, trim, st); break;
+      case 48: launch_reg<T, MEDIAN, 48>(up, out, n, P, trim, st); break;
+      case 64: launch_reg<T, MEDIAN, 64>(up, out, n, P, trim, st); break;
+      case 96: launch_reg<T, MEDIAN, 96>(up, out, n, P, trim, st); break;
+      default: launch_reg<T, MEDIAN, 128>(up, out, n, P, trim, st); break;
+    }
+    return cudaGetLastError();
   }
+  if (route == kWarpStaged) {
+    switch (param[1]) {
+      case 8:
+        return launch_staged<T, MEDIAN, 8>(up, out, n, P, trim, param[0], st);
+      case 16:
+        return launch_staged<T, MEDIAN, 16>(up, out, n, P, trim, param[0], st);
+      case 32:
+        return launch_staged<T, MEDIAN, 32>(up, out, n, P, trim, param[0], st);
+      default:
+        return launch_staged<T, MEDIAN, 0>(up, out, n, P, trim, param[0], st);
+    }
+  }
+  const unsigned grid = static_cast<unsigned>((P + kWarps - 1) / kWarps);
+  stat_warp_kernel<T, MEDIAN, false, 0><<<grid, kWarpThreads, 0, st>>>(
+      up, out, n, P, trim, 0);
   return cudaGetLastError();
 }
 
@@ -433,8 +700,16 @@ int robust_coord_median(const void* u, void* out, int64_t n, int64_t P,
   return dispatch_stat<true>(u, out, n, P, 0, dtype, stream);
 }
 
-// Columns per block of the dense kernels' shared-memory path for n rows
-// on the current device, 0 where they take the radix-select path.
-int64_t robust_dense_tile(int64_t n) { return tile_for(n); }
+// The route of the dense kernels for n rows on the current device: 0 the
+// register route (param = {NB, 0}), 1 the warp route staged in shared
+// memory (param = {the block's bytes, keys a lane holds in registers or
+// 0}), 2 the warp route streamed from device memory (param = {0, 0}).
+int64_t robust_dense_route(int64_t n, int64_t* param) {
+  int64_t p[2];
+  const Route route = route_for(n, p);
+  param[0] = p[0];
+  param[1] = p[1];
+  return static_cast<int64_t>(route);
+}
 
 }  // extern "C"

@@ -16,12 +16,17 @@ the card.
 ``topk_carve`` updates the carry IN PLACE on the card (and returns the
 same three tensors), which saves writing a second 2*K*P fp32 carry per
 block; on the CPU it returns fresh tensors, as the reference does.
+
+``trimmed_mean`` and ``coord_median`` take one of two routes by n (see
+``dense_route``): a register sorting network per column for n <= 128, a
+warp-parallel radix select per column beyond, staged in shared memory
+while the block's keys fit there.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -52,7 +57,7 @@ def _count(name: str) -> None:
 
 def _library() -> ctypes.CDLL:
     lib = load_library("robust_fusion")
-    if lib.robust_dense_tile.argtypes is None:
+    if lib.robust_dense_route.argtypes is None:
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.robust_topk_carve.argtypes = [ptr] * 5 + [i64] * 4 + [ptr]
         lib.robust_topk_carve.restype = ctypes.c_int
@@ -60,8 +65,8 @@ def _library() -> ctypes.CDLL:
         lib.robust_trimmed_mean.restype = ctypes.c_int
         lib.robust_coord_median.argtypes = [ptr] * 2 + [i64] * 3 + [ptr]
         lib.robust_coord_median.restype = ctypes.c_int
-        lib.robust_dense_tile.argtypes = [i64]
-        lib.robust_dense_tile.restype = ctypes.c_int64
+        lib.robust_dense_route.argtypes = [i64, ctypes.POINTER(i64)]
+        lib.robust_dense_route.restype = ctypes.c_int64
     return lib
 
 
@@ -70,12 +75,32 @@ def build() -> None:
     _library()
 
 
-def dense_tile(n: int, device=None) -> int:
-    """Columns per block of the dense kernels' shared-memory path for n
-    rows on ``device`` (the current card by default); 0 means the
-    radix-select path."""
+class DenseRoute(NamedTuple):
+    """The route of the dense kernels for n rows: ``"register"`` (a
+    sorting network over ``nb`` values per thread), ``"warp_staged"`` (a
+    warp's radix select over keys staged in ``smem_bytes`` of shared
+    memory per block, with ``lane_keys`` of them held in each lane's
+    registers, or 0 when every pass reads shared memory) or
+    ``"warp_streamed"`` (the same select reading device memory on every
+    pass)."""
+    route: str
+    nb: int = 0
+    smem_bytes: int = 0
+    lane_keys: int = 0
+
+
+_ROUTES = ("register", "warp_staged", "warp_streamed")
+
+
+def dense_route(n: int, device=None) -> DenseRoute:
+    """The route ``trimmed_mean`` and ``coord_median`` take for n rows on
+    ``device`` (the current card by default)."""
+    param = (ctypes.c_int64 * 2)()
     with torch.cuda.device(device):
-        return int(_library().robust_dense_tile(int(n)))
+        route = _ROUTES[_library().robust_dense_route(int(n), param)]
+    if route == "register":
+        return DenseRoute(route, nb=param[0])
+    return DenseRoute(route, smem_bytes=param[0], lane_keys=param[1])
 
 
 def _device_of(*tensors: torch.Tensor) -> torch.device:

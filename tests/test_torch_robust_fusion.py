@@ -247,7 +247,7 @@ def test_cuda_source_is_64bit_atomic_free_and_names_its_tpu_kernels():
                  "coordmedian_pallas"):
         assert name in src
     for entry in ("robust_topk_carve", "robust_trimmed_mean",
-                  "robust_coord_median", "robust_dense_tile"):
+                  "robust_coord_median", "robust_dense_route"):
         assert f" {entry}(" in code
 
 

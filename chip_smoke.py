@@ -4,8 +4,10 @@
     python chip_smoke.py
 
 Phase 0 requires a CUDA device, prints the card's name and power limit as
-``nvidia-smi`` gives them, and builds the CUDA kernels from
-``src/repro_torch/csrc`` (one nvcc per source, side by side). Phase 1
+``nvidia-smi`` gives them, builds the CUDA kernels from
+``src/repro_torch/csrc`` (one nvcc per source, side by side) and counts
+the attention library's tensor-core, async-copy and ldmatrix
+instructions in its SASS. Phase 1
 holds each kernel against its plain PyTorch version on the card at the
 shapes the main path gives it and at edge shapes, and times kernel,
 plain version, library call and one block's host-to-device copy. Phase 2
@@ -46,6 +48,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -554,6 +557,19 @@ def phase_main_path(dev, U, W, Uc, Wc, cu_rows):
                        _eq1_f64(Uc[:64], Wc[:64]), 2e-5, 1e-6,
                        "CNN4.6 x 64 in-memory vs float64 Eq. 1")
     print(f"[phase2] CNN4.6 x 64 in-memory: max_abs_err={err}", flush=True)
+
+    # the same round with the weights as a CUDA tensor
+    before = _all_launches()
+    fused, report = svc.aggregate(updates=list(rows),
+                                  weights=torch.from_numpy(Wc[:64]).to(dev))
+    delta = _launch_delta(before)
+    if delta["weighted_sum"] < 1:
+        raise AssertionError(f"CUDA-weights round: {delta}")
+    err = _check_close(fused.cpu().numpy(), _eq1_f64(Uc[:64], Wc[:64]),
+                       2e-5, 1e-6, "CNN4.6 x 64 CUDA-tensor weights vs "
+                       "float64 Eq. 1")
+    print(f"[phase2] CNN4.6 x 64 in-memory, CUDA-tensor weights: "
+          f"launches={delta} max_abs_err={err}", flush=True)
     del rows
 
     # the CLI, as a user runs it
@@ -768,6 +784,23 @@ def _sdpa(q, k, v, mask=None, causal=False):
         qt, kt, vt, attn_mask=mask, is_causal=causal, enable_gqa=gqa)
 
 
+def _attention_sass():
+    """The built attention library's tensor-core products (HMMA),
+    asynchronous copies (LDGSTS) and shared-memory matrix loads (LDSM),
+    counted in its SASS: the bf16 / fp16 route must have all three."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(_build.library_path("flash_attention"))],
+        check=True, capture_output=True, text=True, timeout=300).stdout
+    counts = {op: sass.count(op) for op in ("HMMA", "LDGSTS", "LDSM")}
+    print(f"[phase0] flash_attention SASS {counts}", flush=True)
+    if not all(counts.values()):
+        raise AssertionError(f"flash_attention SASS lacks {counts}")
+
+
 def phase_attention_kernels(dev, hbm_bw):
     """The flash-attention and flash-decode kernels against their plain
     versions at the serving path's shapes and at edge shapes; times
@@ -784,6 +817,7 @@ def phase_attention_kernels(dev, hbm_bw):
              torch.float16: "fp16"}
     bf16, fp32, fp16 = torch.bfloat16, torch.float32, torch.float16
     cases = {"flash_attention": [], "flash_decode": []}
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     for B, T, nq, nkv, hd, win, dt, label in [
         (4, 1024, 14, 2, 64, 0, bf16, "Qwen2-0.5B prefill layer"),
         (4, 1024, 14, 2, 64, 0, fp32, "Qwen2-0.5B prefill layer"),
@@ -823,6 +857,9 @@ def phase_attention_kernels(dev, hbm_bw):
         cases["flash_attention"].append({
             "shape": [B, T, nq, nkv, hd], "window": win,
             "dtype": names[dt], "what": label,
+            "route": (f"cuda cores, {fa.fp32_query_tile(B, T, nq, sm_count)}"
+                      "-row query tiles" if dt == fp32 else
+                      "tensor cores (mma.sync), 64-row query tiles"),
             "max_abs_err": err, "rtol": rtol, "atol": atol,
             "live_scores": live,
             "ms": _ms_median(lambda: fa.flash_attention(q, k, v, window=win)),
@@ -1024,6 +1061,29 @@ def _per_call(cfg):
     return {"flash_attention": cfg.n_layers}, {"flash_decode": cfg.n_layers}
 
 
+PREFILL_REPS = 10   # timed prefills after the first
+
+
+def _time_prefill(model, prompt):
+    """(logits, first call's wall, median wall, median enqueue) over
+    PREFILL_REPS calls after the first, in ms: the wall runs from the call
+    to ``synchronize``, the enqueue to the call's return. Where the two
+    meet, the host's launches and not the device set the prefill's pace."""
+    import torch
+
+    walls, enqueues = [], []
+    for _ in range(PREFILL_REPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = model.prefill({"tokens": prompt})
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        enqueues.append((t1 - t0) * 1e3)
+    return (last, walls[0], statistics.median(walls[1:]),
+            statistics.median(enqueues[1:]))
+
+
 def _serving_launches(delta, what, cfg, prefills, steps, fusions=0):
     """The serving run launched exactly the kernels ``prefills`` prefills
     and ``steps`` decode steps of a ``cfg`` model take, and one
@@ -1148,20 +1208,16 @@ def phase_serving(dev, attn_cases):
 
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab,
                                            size=(4, 1024))).to(dev)
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        last = model.prefill({"tokens": prompt})
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    last, first_ms, prefill_ms, enqueue_ms = _time_prefill(model, prompt)
     if tuple(last.shape) != (4, cfg.vocab) or not torch.isfinite(last).all():
         raise AssertionError(f"qwen2 prefill logits {tuple(last.shape)}")
-    prefill_ms = statistics.median(times[1:]) * 1e3
     fa_ms = attn_cases["flash_attention"][0]["ms"]     # this layer, bf16
     out["qwen2_prefill_ms"] = prefill_ms
+    out["qwen2_prefill_enqueue_ms"] = enqueue_ms
     out["qwen2_prefill_kernel_share"] = cfg.n_layers * fa_ms / prefill_ms
     print(f"[phase4] qwen2-0.5b bf16 prefill 4x1024: {prefill_ms:.3f} ms "
-          f"(first call {times[0] * 1e3:.3f} ms); flash_attention "
+          f"(median of {PREFILL_REPS}; host enqueue {enqueue_ms:.3f} ms; "
+          f"first call {first_ms:.3f} ms); flash_attention "
           f"{cfg.n_layers} x {fa_ms:.4f} ms = "
           f"{out['qwen2_prefill_kernel_share']:.1%}", flush=True)
 
@@ -1186,8 +1242,9 @@ def phase_serving(dev, attn_cases):
     out["qwen2_decode_device_busy_share"] = busy / wall
     delta = _launch_delta(before)
     print(f"[phase4] qwen2-0.5b bf16 launches={delta}", flush=True)
-    # 4 prefills; 65 warm-up, 95 timed and 7 profiled decode steps
-    _serving_launches(delta, "qwen2-0.5b bf16 serving", cfg, 4,
+    # PREFILL_REPS + 2 prefills; 65 warm-up, 95 timed and 7 profiled
+    # decode steps
+    _serving_launches(delta, "qwen2-0.5b bf16 serving", cfg, PREFILL_REPS + 2,
                       65 + steps + 7, fusions=1)
     # the kernel at this step's shape mid-run (pos 80 of 2048), as
     # phase 1 timed it
@@ -1284,26 +1341,23 @@ def phase_hybrid_serving(dev, cases):
 
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab,
                                            size=(4, 1024))).to(dev)
-    times = []
-    for i in range(3):
-        before = _all_launches()
-        t0 = time.perf_counter()
-        last = model.prefill({"tokens": prompt})
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        _serving_launches(_launch_delta(before), "zamba2 prefill", cfg, 1, 0)
+    before = _all_launches()
+    last, first_ms, prefill_ms, enqueue_ms = _time_prefill(model, prompt)
+    _serving_launches(_launch_delta(before), "zamba2 prefills", cfg,
+                      PREFILL_REPS + 1, 0)
     if tuple(last.shape) != (4, cfg.vocab) or not torch.isfinite(last).all():
         raise AssertionError(f"zamba2 prefill logits {tuple(last.shape)}")
-    prefill_ms = statistics.median(times[1:]) * 1e3
     ssd_ms = cases["ssd_chunk"][0]["ms"]     # this layer's scan, fp32
     fa_ms = next(c["ms"] for c in cases["flash_attention"]
                  if c["shape"] == [4, 1024, 32, 32, 64])
     kernel_ms = cfg.n_layers * ssd_ms + per_prefill["flash_attention"] * fa_ms
     out["zamba2_prefill_ms"] = prefill_ms
+    out["zamba2_prefill_enqueue_ms"] = enqueue_ms
     out["zamba2_prefill_kernel_share"] = kernel_ms / prefill_ms
     out["zamba2_prefill_ssd_share"] = cfg.n_layers * ssd_ms / prefill_ms
     print(f"[phase5] zamba2-1.2b bf16 prefill 4x1024: {prefill_ms:.3f} ms "
-          f"(first call {times[0] * 1e3:.3f} ms); ssd_chunk {cfg.n_layers} x "
+          f"(median of {PREFILL_REPS}; host enqueue {enqueue_ms:.3f} ms; "
+          f"first call {first_ms:.3f} ms); ssd_chunk {cfg.n_layers} x "
           f"{ssd_ms:.4f} ms + flash_attention "
           f"{per_prefill['flash_attention']} x {fa_ms:.4f} ms = "
           f"{out['zamba2_prefill_kernel_share']:.1%} (ssd_chunk "
@@ -1421,6 +1475,7 @@ def main() -> int:
             done.result()
     print(f"[phase0] kernel build seconds={time.perf_counter() - t0:.3f}",
           flush=True)
+    _attention_sass()
 
     # -- data, made from the seed on the card ---------------------------
     t0 = time.perf_counter()

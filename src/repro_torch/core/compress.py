@@ -39,15 +39,15 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.utils.dtypes import as_tensor
+
 BLOCK = 2048
 
 
 def _host_f32(vec) -> np.ndarray:
     """A flat update on the host as fp32 numpy (tensors of any device
-    and float dtype included)."""
-    if isinstance(vec, torch.Tensor):
-        return vec.detach().float().cpu().numpy()
-    return np.asarray(vec, np.float32)
+    and float dtype, and bf16 arrays, included)."""
+    return as_tensor(vec).detach().float().cpu().numpy()
 
 
 def _quantize_np(vec: np.ndarray, block: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -73,7 +73,7 @@ def quantize(vec, block: int = BLOCK):
     and the scales are ALWAYS fp32 (the module's invariant) — the
     return contract never follows the input dtype."""
     P = vec.shape[0]
-    v = torch.nn.functional.pad(torch.as_tensor(vec).float(),
+    v = torch.nn.functional.pad(as_tensor(vec).float(),
                                 (0, (-P) % block))
     v = v.reshape(-1, block)
     scale = v.abs().amax(dim=1) / 127.0
@@ -151,7 +151,7 @@ class CompressedBlock:
 def compress_update(vec, block: int = BLOCK) -> CompressedUpdate:
     """Quantize one flat update into its spool container (host-side
     numpy — this is the client write path, no jit dispatch)."""
-    v = vec if isinstance(vec, np.ndarray) else _host_f32(vec)
+    v = _host_f32(vec)
     codes, scales = _quantize_np(v, block)
     return CompressedUpdate(codes=codes, scales=scales, dim=int(v.shape[0]))
 
@@ -167,7 +167,7 @@ class ErrorFeedbackCompressor:
         self._residual: Dict = {}
 
     def compress(self, client_id, update: torch.Tensor):
-        u = torch.as_tensor(update).float()
+        u = as_tensor(update).float()
         r = self._residual.get(client_id)
         if r is not None:
             u = u + torch.as_tensor(r, device=u.device)

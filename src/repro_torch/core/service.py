@@ -386,11 +386,12 @@ class AggregationService:
             else:
                 raw = np.stack([host_array(f) for f in flat])
             w = (
-                np.asarray(weights, np.float32)
+                np.asarray(host_array(weights), np.float32)
                 if weights is not None
                 else np.ones((len(flat),), np.float32)
             )
-        stacked = updates_to_device(raw, dev)   # one copy to the device
+        # ingest ends with the rows staged on the host; their copy to
+        # the device is timed in compute, as the reference times it
         phase["ingest"] = time.perf_counter() - t0
 
         # dense path (in-memory round, or a store round that can't
@@ -404,6 +405,7 @@ class AggregationService:
             warm_engines=self._warm_engines(n, p, raw_dtype, fusion=fusion),
         )
         t0 = time.perf_counter()
+        stacked = updates_to_device(raw, dev)   # one copy to the device
         # the engine holds the semaphore around execution only, so a cold
         # build (outside it, single-flight) never stalls other folds
         fused = self.local.fuse(fusion, stacked, w,

@@ -3,7 +3,10 @@
 ``flash_attention`` replaces ``repro/kernels/flash_attention/kernel.py``
 ``flash_attention``. It is CUDA C++ in ``csrc/flash_attention.cu`` (its
 header says what bounds it and what the design does about it), built by
-``kernels/_build.py`` at first use.
+``kernels/_build.py`` at first use. The one entry point routes by dtype:
+bf16 / fp16 go to a FlashAttention-2 kernel on the tensor cores
+(``mma.sync``, 64-row query tiles), fp32 to a kernel on the CUDA cores
+whose query tile :func:`fp32_query_tile` picks.
 
 On a CPU tensor the wrapper returns its plain version from ``ref.py``; on
 a CUDA tensor it launches the kernel on the current stream or raises. It
@@ -14,6 +17,7 @@ the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Dict
 
@@ -27,6 +31,20 @@ _COUNT_LOCK = threading.Lock()
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (32, 64, 128, 256)
+HALF_BLOCK_Q = 64     # query rows of a tensor-core block
+
+
+def fp32_query_tile(B: int, T: int, nq: int, sm_count: int) -> int:
+    """Query rows of an fp32 block: 64, or 32 when 64-row tiles would
+    put fewer than two blocks on each of the card's ``sm_count`` SMs
+    (Gemma3's hd-256 local layer: 80 blocks on 132 SMs). A row's
+    arithmetic is the same for both."""
+    return 64 if -(-T // 64) * nq * B >= 2 * sm_count else 32
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def reset_launches() -> None:
@@ -44,7 +62,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("flash_attention")
     if lib.flash_attn_fwd.argtypes is None:
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.flash_attn_fwd.argtypes = [ptr] * 4 + [i64] * 8 + [ptr]
+        lib.flash_attn_fwd.argtypes = [ptr] * 4 + [i64] * 9 + [ptr]
         lib.flash_attn_fwd.restype = ctypes.c_int
     return lib
 
@@ -104,11 +122,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if S == 0:
         raise ValueError("flash_attention needs at least one key")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention needs 16-byte aligned q, k, v")
+    block_q = (fp32_query_tile(B, T, nq, _sm_count(q.device))
+               if q.dtype == torch.float32 else HALF_BLOCK_Q)
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, T, S, nq, nkv, hd, DTYPE_CODES[q.dtype], window,
+            B, T, S, nq, nkv, hd, DTYPE_CODES[q.dtype], window, block_q,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:

@@ -52,6 +52,14 @@ def fold_dtype(x) -> np.dtype:
     return np.dtype(np.float32)
 
 
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a host dtype; ``BF16`` words (or ml_dtypes'
+    bfloat16) are ``torch.bfloat16``."""
+    if is_bf16(dtype):
+        return torch.bfloat16
+    return torch.from_numpy(np.empty((0,), np.dtype(dtype))).dtype
+
+
 def host_array(x) -> np.ndarray:
     """A tensor (any device) or array-like as a host numpy array, bf16 as
     ``BF16`` words."""
@@ -79,6 +87,16 @@ def to_device(x, device: torch.device) -> torch.Tensor:
         raw = arr.view(np.int16)
         return torch.from_numpy(raw).to(device).view(torch.bfloat16)
     return torch.from_numpy(arr).to(device)
+
+
+def as_tensor(x, device=None) -> torch.Tensor:
+    """A tensor as it is (moved to ``device`` when one is given), or an
+    array-like, bf16 included, copied to ``device`` (the CPU by default)
+    in its own dtype."""
+    if isinstance(x, torch.Tensor):
+        return x if device is None else x.to(device)
+    return to_device(host_array(x), torch.device("cpu") if device is None
+                     else device)
 
 
 def updates_to_device(x, device: torch.device) -> torch.Tensor:

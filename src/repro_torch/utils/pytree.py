@@ -15,6 +15,8 @@ from typing import Any, List
 import numpy as np
 import torch
 
+from repro_torch.utils.dtypes import as_tensor, host_array, torch_dtype
+
 PyTree = Any
 
 
@@ -61,13 +63,6 @@ def tree_unflatten(like: PyTree, leaves) -> PyTree:
     return type(like)(*items) if hasattr(like, "_fields") else tuple(items)
 
 
-def _as_tensor(leaf, device=None) -> torch.Tensor:
-    """One leaf as a tensor (ndarrays and Python numbers converted)."""
-    if isinstance(leaf, torch.Tensor):
-        return leaf if device is None else leaf.to(device)
-    return torch.as_tensor(np.asarray(leaf), device=device)
-
-
 def tree_to_flat_vector(tree: PyTree, dtype=None) -> torch.Tensor:
     """Concatenate every leaf, raveled, into one 1-D tensor on the first
     tensor leaf's device (the CPU for a tree of ndarrays)."""
@@ -76,7 +71,7 @@ def tree_to_flat_vector(tree: PyTree, dtype=None) -> torch.Tensor:
         return torch.zeros((0,), dtype=dtype or torch.float32)
     device = next((l.device for l in leaves if isinstance(l, torch.Tensor)),
                   None)
-    vec = torch.cat([_as_tensor(l, device).reshape(-1) for l in leaves])
+    vec = torch.cat([as_tensor(l, device).reshape(-1) for l in leaves])
     return vec if dtype is None else vec.to(dtype)
 
 
@@ -89,9 +84,8 @@ def flat_vector_to_tree(vec: torch.Tensor, like: PyTree) -> PyTree:
         if isinstance(leaf, torch.Tensor):
             shape, dtype = leaf.shape, leaf.dtype
         else:
-            arr = np.asarray(leaf)
-            shape = arr.shape
-            dtype = torch.from_numpy(np.empty((0,), arr.dtype)).dtype
+            arr = host_array(leaf)
+            shape, dtype = arr.shape, torch_dtype(arr.dtype)
         n = int(np.prod(shape))
         out.append(vec[offset:offset + n].reshape(shape).to(dtype))
         offset += n

@@ -1,12 +1,14 @@
 """The port's quantized transport against the JAX package's: codes and
 scales bit for bit, error-feedback residuals, and byte accounting."""
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
 from repro.core import compress as jc
 from repro_torch.core import compress as tc
+from repro_torch.utils.dtypes import host_array
 
 
 @pytest.mark.parametrize("p,block", [(1, 2048), (5003, 2048), (4096, 1024),
@@ -104,3 +106,28 @@ def test_compress_update_takes_tensors():
     b = jc.compress_update(v, 128)
     np.testing.assert_array_equal(a.codes, b.codes)
     np.testing.assert_array_equal(a.scales, b.scales)
+
+
+@pytest.mark.parametrize("words", [False, True], ids=["ml_dtypes", "BF16"])
+def test_bf16_arrays_quantize_like_jax(words):
+    """A bf16 ndarray, as a JAX caller holds it (ml_dtypes) or as the
+    port's store keeps it (``BF16`` words), quantizes through the module
+    functions and the error-feedback compressor as the reference
+    quantizes the same values."""
+    rng = np.random.default_rng(21)
+    v = rng.normal(size=(3000,)).astype(ml_dtypes.bfloat16)
+    arr = host_array(v) if words else v
+    jq, js = jc.quantize(jnp.asarray(v), 512)
+    tq, ts = tc.quantize(arr, 512)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    want = jc.compress_update(v, 512)
+    for got in (tc.compress_update(arr, 512),
+                tc.ErrorFeedbackCompressor(block=512).compress_update("c", arr)):
+        np.testing.assert_array_equal(got.codes, want.codes)
+        np.testing.assert_array_equal(got.scales, want.scales)
+        assert got.dim == want.dim
+    jq, js = jc.ErrorFeedbackCompressor(block=512).compress("c", jnp.asarray(v))
+    tq, ts = tc.ErrorFeedbackCompressor(block=512).compress("c", arr)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))

@@ -4,6 +4,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import ml_dtypes
 import numpy as np
@@ -138,6 +139,95 @@ def test_in_memory_round_with_template_matches():
     again, _ = ours.aggregate(updates=tups, weights=ws, template=template)
     np.testing.assert_allclose(again["w"].numpy(), got["w"].numpy(),
                                rtol=RTOL, atol=ATOL)
+
+
+HALF_RTOL = 2e-2    # tests/test_kernels.py's bf16 tolerance
+
+
+def _bf16_trees(seed, n):
+    rng = np.random.default_rng(seed)
+    return [{"w": rng.normal(size=(3, 5)).astype(ml_dtypes.bfloat16),
+             "b": rng.normal(size=(5,)).astype(ml_dtypes.bfloat16)}
+            for _ in range(n)]
+
+
+def test_in_memory_bf16_round_with_template_matches():
+    """bf16 pytrees and a bf16 template, as a JAX caller holds them
+    (ml_dtypes arrays): the fused vector and the fused bf16 tree match
+    the reference's."""
+    ups = _bf16_trees(14, 6)
+    template = {"w": np.zeros((3, 5), ml_dtypes.bfloat16),
+                "b": np.zeros((5,), ml_dtypes.bfloat16)}
+    ws = np.random.default_rng(15).uniform(1, 9, size=(6,)).astype(np.float32)
+    ours, theirs = _pair()
+    got, rep = ours.aggregate(updates=ups, weights=ws)
+    want, jrep = theirs.aggregate(updates=ups, weights=ws)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=RTOL, atol=ATOL)
+    assert _report_fields(rep) == _report_fields(jrep)
+    got, _ = ours.aggregate(updates=ups, weights=ws, template=template)
+    want, _ = theirs.aggregate(updates=ups, weights=ws, template=template)
+    for key in ("w", "b"):
+        assert got[key].dtype == torch.bfloat16
+        assert str(np.asarray(want[key]).dtype) == "bfloat16"
+        np.testing.assert_allclose(got[key].float().numpy(),
+                                   np.asarray(want[key], np.float32),
+                                   rtol=HALF_RTOL, atol=ATOL)
+
+
+def test_bf16_pytree_store_round_matches():
+    """bf16 pytrees written to the store, plain and compressed through
+    the service's error-feedback quantizer, fuse as the reference's."""
+    ups = _bf16_trees(16, 5)
+    ws = [float(i + 1) for i in range(5)]
+    for kw in ({}, {"compress": True}):
+        ours, theirs = _pair(**kw)
+        for svc in (ours, theirs):
+            for i, (u, w) in enumerate(zip(ups, ws)):
+                if kw:
+                    u = svc.compress_update(f"c{i}", u)
+                svc.store.write(f"c{i}", u, weight=w)
+        got, rep = ours.aggregate(from_store=True)
+        want, jrep = theirs.aggregate(from_store=True)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=RTOL, atol=ATOL)
+        assert _report_fields(rep) == _report_fields(jrep)
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["plain", "requires_grad"])
+def test_in_memory_round_takes_tensor_weights(grad):
+    """``weights`` may be a tensor (on any device; a CPU one here, a
+    CUDA one in chip_smoke.py): the round matches the reference's with
+    the same weights as numpy."""
+    ups, ws = _updates(17, n=5, p=257)
+    tw = torch.tensor(ws, dtype=torch.float64, requires_grad=grad)
+    ours, theirs = _pair()
+    got, rep = ours.aggregate(updates=ups, weights=tw)
+    want, jrep = theirs.aggregate(updates=ups, weights=np.asarray(ws))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+    assert _report_fields(rep) == _report_fields(jrep)
+
+
+def test_in_memory_round_times_the_copy_in_compute(monkeypatch):
+    """As in the reference, a dense round's ingest ends with the rows
+    stacked on the host: the host-to-device copy is timed in compute."""
+    from repro_torch.core import service as service_mod
+
+    real = service_mod.updates_to_device
+
+    def slow_copy(x, device):
+        time.sleep(0.3)
+        return real(x, device)
+
+    monkeypatch.setattr(service_mod, "updates_to_device", slow_copy)
+    ups, ws = _updates(18, n=4, p=129)
+    _, rep = AggregationService(device="cpu").aggregate(updates=ups,
+                                                        weights=ws)
+    assert rep.phase_seconds["compute"] >= 0.3
+    assert rep.phase_seconds["ingest"] < 0.3
 
 
 def _spool(store, seed):

@@ -5,9 +5,11 @@
 
 Phase 0 requires a CUDA device, prints the card's name and power limit as
 ``nvidia-smi`` gives them, builds the CUDA kernels from
-``src/repro_torch/csrc`` (one nvcc per source, side by side) and counts
+``src/repro_torch/csrc`` (one nvcc per source, side by side), counts
 the attention library's tensor-core, async-copy and ldmatrix
-instructions in its SASS. Phase 1
+instructions in its SASS, and the decode library's 16-byte loads and
+copies and cluster barriers, its registers and spills (``ptxas -v``) and
+how many 8-CTA clusters fit on the card. Phase 1
 holds each kernel against its plain PyTorch version on the card at the
 shapes the main path gives it and at edge shapes, and times kernel,
 plain version, library call and one block's host-to-device copy. Phase 2
@@ -22,7 +24,9 @@ the torch strategy. Phases 2 and 3 check every fused vector against a
 float64 numpy reference and count kernel launches, each with the counts
 set to 0 just before it. Phase 1 also holds the flash-attention and
 flash-decode kernels against their plain versions (with
-``scaled_dot_product_attention`` timed as a yardstick), and phase 4
+``scaled_dot_product_attention`` timed as a yardstick; each decode case
+prints its split plan, checks that two calls agree bit for bit and
+times the wrapper's host time per call too), and phase 4
 drives the serving path through ``build_model`` and
 ``repro_torch.launch.generate``: a FedAvg fusion of 4 full-width
 Qwen2-0.5B bf16 clients, a 4 x 1024 prefill and cached decoding; fp32
@@ -33,7 +37,8 @@ against its plain version, and phase 5 serves the hybrid the same way:
 a FedAvg fusion of 2 full-width, full-depth Zamba2-1.2B bf16 clients
 checked against float64 Eq. 1 a parameter at a time, a 4 x 1024 prefill
 (38 SSD-scan and 6 flash-attention launches) and cached decoding (6
-flash-decode launches a step); fp32 Zamba2-1.2B (12 of its 38 layers)
+flash-decode launches a step, each one device kernel in the profiler);
+fp32 Zamba2-1.2B (12 of its 38 layers)
 prefills of 2 x 512 and 1 x 300 checked against teacher-forced decoding
 and the plain SSD and attention; and the generate CLI. Phases 2-5 each
 start with the launch counts at 0, and every serving run must launch
@@ -784,39 +789,109 @@ def _sdpa(q, k, v, mask=None, causal=False):
         qt, kt, vt, attn_mask=mask, is_causal=causal, enable_gqa=gqa)
 
 
-def _attention_sass():
-    """The built attention library's tensor-core products (HMMA),
-    asynchronous copies (LDGSTS) and shared-memory matrix loads (LDSM),
-    counted in its SASS: the bf16 / fp16 route must have all three."""
+def _sass(name: str) -> str:
+    """The SASS of the built library ``lib<name>.so``."""
     from repro_torch.kernels import _build
 
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run(
-        [cuobjdump, "-sass", str(_build.library_path("flash_attention"))],
+    return subprocess.run(
+        [cuobjdump, "-sass", str(_build.library_path(name))],
         check=True, capture_output=True, text=True, timeout=300).stdout
+
+
+def _attention_sass():
+    """The built attention library's tensor-core products (HMMA),
+    asynchronous copies (LDGSTS) and shared-memory matrix loads (LDSM),
+    counted in its SASS: the bf16 / fp16 route must have all three."""
+    sass = _sass("flash_attention")
     counts = {op: sass.count(op) for op in ("HMMA", "LDGSTS", "LDSM")}
     print(f"[phase0] flash_attention SASS {counts}", flush=True)
     if not all(counts.values()):
         raise AssertionError(f"flash_attention SASS lacks {counts}")
 
 
+_PTX_TYPES = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
+
+
+def _ptxas_report(name: str, entry: str):
+    """{(dtype, hd, head tile): (registers, spill store bytes, spill load
+    bytes)} of the kernels named ``entry`` in the ``ptxas -v`` report of
+    the build of ``lib<name>.so``."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    report, cur = {}, None
+    for line in _build.build_log(name).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            m = re.search(entry + r"I(\w+?)Li(\d+)ELi(\d+)E", m.group(1))
+            cur = (_PTX_TYPES.get(m.group(1), m.group(1)), int(m.group(2)),
+                   int(m.group(3))) if m else None
+            if cur:
+                report[cur] = [0, 0, 0]
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[cur][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[cur][0] = int(m.group(1))
+    return {key: tuple(v) for key, v in report.items()}
+
+
+def _decode_build():
+    """What the build of the decode kernel shows: 16-byte global loads of
+    q (LDG.E.128) and 16-byte asynchronous copies of k / v
+    (LDGSTS.E.BYPASS.128) and the cluster barrier (UCGABAR) in its SASS,
+    each instance's registers and spills from ``ptxas -v``, and how many
+    8-CTA clusters fit on the card at once."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import kernel as fd
+
+    sass = _sass("flash_decode")
+    counts = {op: sass.count(op) for op in ("LDG.E.128", "LDGSTS.E.BYPASS.128",
+                                            "UCGABAR")}
+    ptxas = _ptxas_report("flash_decode", "decode_kernel")
+    spills = {f"{t} hd {hd} x{gt}": [st, ld]
+              for (t, hd, gt), (_, st, ld) in sorted(ptxas.items())
+              if st or ld}
+    regs = {f"{t} hd {hd} x{gt}": r
+            for (t, hd, gt), (r, _, _) in sorted(ptxas.items())}
+    clusters = {f"{name} x{tile}": fd.max_active_clusters(hd, dt, tile, 8)
+                for name, hd, dt, tile in (
+                    ("bf16 hd 64", 64, torch.bfloat16, 4),
+                    ("bf16 hd 256", 256, torch.bfloat16, 8),
+                    ("fp32 hd 256", 256, torch.float32, 8))}
+    print(f"[phase0] flash_decode SASS {counts}; ptxas: {len(ptxas)} "
+          f"kernels, registers {regs}; spills (store, load bytes) "
+          f"{spills or 'none'}; max active 8-CTA clusters {clusters}",
+          flush=True)
+    if not all(counts.values()) or len(ptxas) != 48 \
+            or min(clusters.values()) < 1:
+        raise AssertionError(f"flash_decode build: SASS {counts}, "
+                             f"{len(ptxas)} kernels, clusters {clusters}")
+
+
 def phase_attention_kernels(dev, hbm_bw):
-    """The flash-attention and flash-decode kernels against their plain
-    versions at the serving path's shapes and at edge shapes; times
-    kernel, plain version and SDPA."""
+    """The flash-attention kernel against its plain version at the
+    serving path's shapes and at edge shapes; times kernel, plain
+    version and SDPA."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention import ref as faref
-    from repro_torch.kernels.flash_decode import kernel as fd
-    from repro_torch.kernels.flash_decode import ref as fdref
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     names = {torch.float32: "fp32", torch.bfloat16: "bf16",
              torch.float16: "fp16"}
     bf16, fp32, fp16 = torch.bfloat16, torch.float32, torch.float16
-    cases = {"flash_attention": [], "flash_decode": []}
+    cases = {"flash_attention": []}
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     for B, T, nq, nkv, hd, win, dt, label in [
         (4, 1024, 14, 2, 64, 0, bf16, "Qwen2-0.5B prefill layer"),
@@ -872,17 +947,61 @@ def phase_attention_kernels(dev, hbm_bw):
         print(f"[phase1] flash_attention "
               f"{json.dumps(cases['flash_attention'][-1])}", flush=True)
         del q, k, v, library, mask
+    torch.cuda.empty_cache()
+    return cases
+
+
+HOST_REPS = 100   # enqueues timed on the host clock
+
+
+def _host_us(fn, reps: int = HOST_REPS) -> float:
+    """Median host time of one call of ``fn`` in microseconds: the
+    wrapper's checks and launch, the card left to run behind."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def phase_decode_kernel(dev, hbm_bw):
+    """The flash-decode kernel against its plain version at the serving
+    path's shapes and at edge shapes (one live slot, the fewest CTAs
+    with the most registers, hd 32); each case prints the split plan,
+    checks that two calls agree bit for bit and times kernel (device
+    and host), plain version and SDPA."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode import ref as fdref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    names = {torch.float32: "fp32", torch.bfloat16: "bf16",
+             torch.float16: "fp16"}
+    bf16, fp32, fp16 = torch.bfloat16, torch.float32, torch.float16
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = {"flash_decode": []}
     for B, S, nq, nkv, hd, pos, dt, label in [
         (4, 2048, 14, 2, 64, 1500, bf16, "Qwen2-0.5B decode step"),
         (4, 2048, 14, 2, 64, 5, bf16, "Qwen2-0.5B decode step, pos 5"),
         (4, 2048, 14, 2, 64, 80, bf16, "Qwen2-0.5B decode step, pos 80"),
+        (4, 2048, 14, 2, 64, 0, bf16,
+         "Qwen2-0.5B decode step, pos 0 (one live slot)"),
         (4, 2048, 14, 2, 64, 5000, bf16, "Qwen2-0.5B, ring wrapped"),
         (4, 2048, 14, 2, 64, 1500, fp32, "Qwen2-0.5B decode step"),
         (1, 1024, 4, 1, 256, 1279, fp32, "Gemma3-1B local ring, wrapped"),
         (1, 1024, 4, 1, 256, 1279, bf16, "Gemma3-1B local ring, wrapped"),
+        (1, 2048, 8, 1, 256, 1500, bf16, "B 1, MQA group 8, hd 256"),
         (2, 600, 8, 2, 128, 599, fp32, "ragged S = 600, full"),
         (2, 600, 8, 2, 128, 300, fp32, "ragged S = 600, half live"),
         (2, 300, 4, 4, 64, 150, fp16, "MHA fp16"),
+        (2, 300, 4, 2, 32, 200, fp32, "hd 32 (smoke configs)"),
         (4, 2048, 32, 32, 64, 80, bf16,
          "Zamba2-1.2B shared block step, pos 80"),
     ]:
@@ -890,9 +1009,13 @@ def phase_attention_kernels(dev, hbm_bw):
         kc = torch.randn((B, S, nkv, hd), generator=g, device=dev).to(dt)
         vc = torch.randn((B, S, nkv, hd), generator=g, device=dev).to(dt)
         p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        splits = fd.split_plan(S, B * nkv, sm_count)
         got = fd.flash_decode(q, kc, vc, p)
+        again = fd.flash_decode(q, kc, vc, p)
         want = fdref.flash_decode_ref(q, kc, vc, p)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash_decode {label}: two calls differ")
         key = "fp32" if dt == fp32 else "half"
         rtol, atol = DECODE_TOL[key]
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
@@ -906,7 +1029,7 @@ def phase_attention_kernels(dev, hbm_bw):
                                        rtol=HALF_OUT_TOL[0],
                                        atol=HALF_OUT_TOL[1])
             err32 = (got.float() - want).abs().max().item()
-        del got, want
+        del got, again, want
         live = S if pos >= S else pos + 1
         nbytes = (2 * q.numel() + 2 * B * live * nkv * hd) * q.element_size()
         bound_ms, bound_by = _bound(nbytes, 4.0 * B * nq * hd * live, hbm_bw,
@@ -915,9 +1038,12 @@ def phase_attention_kernels(dev, hbm_bw):
         library = _sdpa(q, kc, vc, mask=mask)
         cases["flash_decode"].append({
             "shape": [B, S, nq, nkv, hd], "pos": pos, "dtype": names[dt],
-            "what": label, "max_abs_err": err, "rtol": rtol, "atol": atol,
+            "what": label, "splits": splits,
+            "head_tile": fd.head_tile(nq // nkv, splits * B * nkv, sm_count),
+            "max_abs_err": err, "rtol": rtol, "atol": atol,
             "max_abs_err_vs_fp32_plain": err32, "live_slots": live,
             "ms": _ms_median(lambda: fd.flash_decode(q, kc, vc, p)),
+            "host_us": _host_us(lambda: fd.flash_decode(q, kc, vc, p)),
             "plain_ms": _ms_median(
                 lambda: fdref.flash_decode_ref(q, kc, vc, p)),
             "library_ms": _ms_median(library),
@@ -1018,7 +1144,8 @@ def phase_ssd_kernel(dev, hbm_bw):
 def _profile(fn, what, top=6, phase="phase4"):
     """Device busy time and the kernels and host ops that take the most
     time in one run of ``fn``, under ``torch.profiler`` (CPU + CUDA).
-    Returns (wall ms under the profiler, device busy ms)."""
+    Returns (wall ms under the profiler, device busy ms, {kernel name:
+    (calls, device ms)})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1043,7 +1170,28 @@ def _profile(fn, what, top=6, phase="phase4"):
           + "; top host ops (self ms, calls): "
           + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.3f} "
                       f"x{e.count}" for e in by_host[:top]), flush=True)
-    return wall_ms, busy_ms
+    return wall_ms, busy_ms, {e.key: (e.count, e.self_device_time_total / 1e3)
+                              for e in kernels}
+
+
+def _decode_profile(kernels, busy_ms, steps, per_step, what, phase):
+    """flash_decode in a profiled run of ``steps`` decode steps: exactly
+    one device kernel per call (``per_step`` calls a step), and its
+    device time per step and share of the device busy time."""
+    calls = [v for key, v in kernels.items() if "decode_kernel" in key]
+    n = sum(c for c, _ in calls)
+    ms = sum(m for _, m in calls)
+    if n != steps * per_step:
+        raise AssertionError(f"{what}: {n} flash_decode device kernels in "
+                             f"{steps} steps, expected {steps * per_step}")
+    out = {"device_busy_ms_per_step": busy_ms / steps,
+           "flash_decode_ms_per_step": ms / steps,
+           "flash_decode_busy_share": ms / busy_ms}
+    print(f"[{phase}] {what}: {n} flash_decode kernels ({per_step} a step), "
+          f"device busy {out['device_busy_ms_per_step']:.4f} ms a step, "
+          f"flash_decode {out['flash_decode_ms_per_step']:.4f} ms a step "
+          f"({out['flash_decode_busy_share']:.1%} of busy)", flush=True)
+    return out
 
 
 def _per_call(cfg):
@@ -1221,7 +1369,7 @@ def phase_serving(dev, attn_cases):
           f"{cfg.n_layers} x {fa_ms:.4f} ms = "
           f"{out['qwen2_prefill_kernel_share']:.1%}", flush=True)
 
-    _, out["qwen2_prefill_device_busy_ms"] = _profile(
+    _, out["qwen2_prefill_device_busy_ms"], _ = _profile(
         lambda: model.prefill({"tokens": prompt}), "qwen2 bf16 prefill 4x1024")
     prompt = prompt[:, :64].contiguous()
     n_new = 32
@@ -1236,10 +1384,13 @@ def phase_serving(dev, attn_cases):
     if tuple(tokens.shape) != (4, 64 + n_new) \
             or not torch.isfinite(logits).all():
         raise AssertionError(f"qwen2 generate {tuple(tokens.shape)}")
-    wall, busy = _profile(
+    wall, busy, kernels = _profile(
         lambda: gen.generate(model, prompt[:, :4], 4, cache_len=2048),
         "qwen2 bf16 decode, 7 steps")
     out["qwen2_decode_device_busy_share"] = busy / wall
+    for name, val in _decode_profile(kernels, busy, 7, cfg.n_layers,
+                                     "qwen2 bf16 decode", "phase4").items():
+        out[f"qwen2_decode_{name}"] = val
     delta = _launch_delta(before)
     print(f"[phase4] qwen2-0.5b bf16 launches={delta}", flush=True)
     # PREFILL_REPS + 2 prefills; 65 warm-up, 95 timed and 7 profiled
@@ -1363,8 +1514,8 @@ def phase_hybrid_serving(dev, cases):
           f"{out['zamba2_prefill_kernel_share']:.1%} (ssd_chunk "
           f"{out['zamba2_prefill_ssd_share']:.1%})", flush=True)
     before = _all_launches()
-    wall, busy = _profile(lambda: model.prefill({"tokens": prompt}),
-                          "zamba2 bf16 prefill 4x1024", phase="phase5")
+    wall, busy, _ = _profile(lambda: model.prefill({"tokens": prompt}),
+                             "zamba2 bf16 prefill 4x1024", phase="phase5")
     _serving_launches(_launch_delta(before), "zamba2 profiled prefill", cfg,
                       1, 0)
     out["zamba2_prefill_device_busy_ms"] = busy
@@ -1389,12 +1540,16 @@ def phase_hybrid_serving(dev, cases):
             or not torch.isfinite(logits).all():
         raise AssertionError(f"zamba2 generate {tuple(tokens.shape)}")
     before = _all_launches()
-    wall, busy = _profile(
+    wall, busy, kernels = _profile(
         lambda: gen.generate(model, prompt[:, :4], 4, cache_len=2048),
         "zamba2 bf16 decode, 7 steps", phase="phase5")
     _serving_launches(_launch_delta(before), "zamba2 profiled decode", cfg,
                       0, 7)
     out["zamba2_decode_device_busy_share"] = busy / wall
+    for name, val in _decode_profile(kernels, busy, 7,
+                                     per_step["flash_decode"],
+                                     "zamba2 bf16 decode", "phase5").items():
+        out[f"zamba2_decode_{name}"] = val
     fd_ms = next(c["ms"] for c in cases["flash_decode"]
                  if c["shape"] == [4, 2048, 32, 32, 64])
     out["zamba2_decode_ms_per_step"] = step_ms
@@ -1476,6 +1631,7 @@ def main() -> int:
     print(f"[phase0] kernel build seconds={time.perf_counter() - t0:.3f}",
           flush=True)
     _attention_sass()
+    _decode_build()
 
     # -- data, made from the seed on the card ---------------------------
     t0 = time.perf_counter()
@@ -1504,6 +1660,7 @@ def main() -> int:
     cases = phase_kernels(dev, hw.hbm_bw, resnet_p, cnn_p, U[0])
     cases.update(phase_robust_kernels(dev, hw.hbm_bw, resnet_p, cnn_p))
     cases.update(phase_attention_kernels(dev, hw.hbm_bw))
+    cases.update(phase_decode_kernel(dev, hw.hbm_bw))
     cases.update(phase_ssd_kernel(dev, hw.hbm_bw))
     print(f"[phase1] seconds={time.perf_counter() - t0:.3f}", flush=True)
 

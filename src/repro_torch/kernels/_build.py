@@ -3,7 +3,9 @@
 Each library is one ``csrc/<name>.cu`` with a plain C interface,
 compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``build/repro_torch/<hash of the sources>/lib<name>.so`` at the root of
-the checkout and loaded with ``ctypes``. Nothing is compiled or loaded
+the checkout and loaded with ``ctypes``; what ``ptxas -v`` said of each
+kernel (registers, shared memory, spills) is kept beside it in
+``lib<name>.log``. Nothing is compiled or loaded
 at import: the first caller builds, and a lock per library makes
 concurrent first callers build it once, while two libraries build side
 by side. A changed source hashes to a new directory, so a
@@ -25,6 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parents[1] / "build" / "repro_torch"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+PTXAS_FLAGS = ["-Xptxas", "-v"]   # report registers and spills
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}   # guarded-by: _LOCK
@@ -49,13 +52,18 @@ def library_path(name: str) -> Path:
     digest = hashlib.sha256()
     for src in sources(name):
         digest.update(src.read_bytes())
-    digest.update(" ".join(ARCH_FLAGS).encode())
+    digest.update(" ".join(ARCH_FLAGS + PTXAS_FLAGS).encode())
     return BUILD_ROOT / digest.hexdigest()[:16] / f"lib{name}.so"
+
+
+def build_log(name: str) -> Path:
+    """The compiler's report of the build of ``lib<name>.so``."""
+    return library_path(name).with_suffix(".log")
 
 
 def nvcc_command(name: str, out: Path, nvcc: str = "nvcc") -> List[str]:
     """The compile command for library ``name`` (nothing is run)."""
-    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+    return [nvcc, *ARCH_FLAGS, *PTXAS_FLAGS, "-std=c++17", "-O3", "-shared",
             "-Xcompiler", "-fPIC", "-o", str(out),
             *(str(s) for s in sources(name))]
 
@@ -83,6 +91,7 @@ def load_library(name: str) -> ctypes.CDLL:
                 raise RuntimeError(
                     f"nvcc failed building {name}:\n{proc.stdout}{proc.stderr}"
                 )
+            build_log(name).write_text(proc.stdout + proc.stderr)
             os.replace(tmp, out)   # another process may build the same file
         lib = ctypes.CDLL(str(out))
         with _LOCK:

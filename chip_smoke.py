@@ -9,7 +9,9 @@ Phase 0 requires a CUDA device, prints the card's name and power limit as
 the attention library's tensor-core, async-copy and ldmatrix
 instructions in its SASS, and the decode library's 16-byte loads and
 copies and cluster barriers, its registers and spills (``ptxas -v``) and
-how many 8-CTA clusters fit on the card. Phase 1
+how many 8-CTA clusters fit on the card, and the SSD library's TF32
+tensor-core products and asynchronous copies, its registers and spills
+(none allowed). Phase 1
 holds each kernel against its plain PyTorch version on the card at the
 shapes the main path gives it and at edge shapes, and times kernel,
 plain version, library call and one block's host-to-device copy. Phase 2
@@ -32,8 +34,13 @@ drives the serving path through ``build_model`` and
 Qwen2-0.5B bf16 clients, a 4 x 1024 prefill and cached decoding; fp32
 Qwen2-0.5B and Gemma3-1B (6 of its 26 layers) prefills checked against
 the same prompts teacher-forced through the decode step and against the
-plain attention path. Phase 1 also holds the SSD chunked-scan kernel
-against its plain version, and phase 5 serves the hybrid the same way:
+plain attention path. Phase 0 also counts the SSD output kernel's
+instruction mix in its SASS and times ``mma.sync`` TF32 alone, the
+ceiling of the SSD kernels' products. Phase 1 also holds the SSD
+chunked-scan kernels against their plain version (two calls bit-equal,
+the device kernels of a call and each one's device time from the
+profiler, the Zamba2 layer also at a head tile of 1), and phase 5
+serves the hybrid the same way:
 a FedAvg fusion of 2 full-width, full-depth Zamba2-1.2B bf16 clients
 checked against float64 Eq. 1 a parameter at a time, a 4 x 1024 prefill
 (38 SSD-scan and 6 flash-attention launches) and cached decoding (6
@@ -53,6 +60,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -815,20 +823,20 @@ _PTX_TYPES = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
 
 
 def _ptxas_report(name: str, entry: str):
-    """{(dtype, hd, head tile): (registers, spill store bytes, spill load
-    bytes)} of the kernels named ``entry`` in the ``ptxas -v`` report of
-    the build of ``lib<name>.so``."""
-    import re
-
+    """{(dtype, *int template arguments): (registers, spill store bytes,
+    spill load bytes)} of the kernels named ``entry`` in the ``ptxas -v``
+    report of the build of ``lib<name>.so`` (for the decode kernel the
+    arguments are hd and the head tile)."""
     from repro_torch.kernels import _build
 
     report, cur = {}, None
     for line in _build.build_log(name).read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            m = re.search(entry + r"I(\w+?)Li(\d+)ELi(\d+)E", m.group(1))
-            cur = (_PTX_TYPES.get(m.group(1), m.group(1)), int(m.group(2)),
-                   int(m.group(3))) if m else None
+            m = re.search(entry + r"I(\w+?)((?:Li\d+E)+)E", m.group(1))
+            cur = (_PTX_TYPES.get(m.group(1), m.group(1)),
+                   *(int(v) for v in re.findall(r"Li(\d+)E", m.group(2)))
+                   ) if m else None
             if cur:
                 report[cur] = [0, 0, 0]
             continue
@@ -876,6 +884,141 @@ def _decode_build():
             or min(clusters.values()) < 1:
         raise AssertionError(f"flash_decode build: SASS {counts}, "
                              f"{len(ptxas)} kernels, clusters {clusters}")
+
+
+def _sass_functions(sass: str):
+    """{mangled kernel name: [opcode of each instruction]} of a SASS
+    listing (NOPs left out, predicates and modifiers dropped)."""
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                     line)
+        if m and cur is not None and m.group(1) != "NOP":
+            cur.append(m.group(1))
+    return funcs
+
+
+def _ssd_build():
+    """What the build of the SSD scan shows: tensor-core TF32 products
+    (HMMA.1688.F32.TF32) and asynchronous copies (LDGSTS) in its SASS,
+    each instance's registers and spills from ``ptxas -v``, which must be
+    none, and the instruction mix of the Zamba2 layer's two kernels (fp32,
+    N_pad 64, head tile 2): how many instructions each tensor-core
+    product takes with it."""
+    from collections import Counter
+
+    from repro_torch.kernels import _build
+
+    sass = _sass("ssd_chunk")
+    counts = {op: sass.count(op) for op in ("HMMA.1688.F32.TF32", "LDGSTS")}
+    regs = {}
+    for entry, short in (("ssd_state_kernel", "state"), ("ssd_out_kernel", "out")):
+        for (t, n_pad, heads), (r, st, ld) in sorted(
+                _ptxas_report("ssd_chunk", entry).items()):
+            regs[f"{short} {t} N{n_pad} x{heads}"] = r
+    spills = [line.strip() for line in
+              _build.build_log("ssd_chunk").read_text().splitlines()
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+    mix = {}
+    for name, ops in _sass_functions(sass).items():
+        for entry in ("ssd_state_kernel", "ssd_out_kernel"):
+            if f"{entry}IfLi64ELi2E" in name:
+                top = Counter(ops).most_common(8)
+                mix[entry] = {"instructions": len(ops),
+                              "HMMA": ops.count("HMMA"),
+                              "per_HMMA": len(ops) / max(ops.count("HMMA"), 1),
+                              "top": dict(top)}
+    print(f"[phase0] ssd_chunk SASS {counts}; ptxas: {len(regs)} templated "
+          f"kernels, registers {regs}; spills {spills or 'none'}", flush=True)
+    print(f"[phase0] ssd_chunk static instruction mix, fp32 N_pad 64 head "
+          f"tile 2: {json.dumps(mix)}", flush=True)
+    if not all(counts.values()) or spills or len(regs) != 48 or len(mix) != 2:
+        raise AssertionError(f"ssd_chunk build: SASS {counts}, {len(regs)} "
+                             f"kernels, spills {spills}, mix of {list(mix)}")
+
+
+# mma.sync m16n8k8 TF32 alone: every warp keeps MMA_ACC independent
+# products in flight on operands held in registers, so the time is the
+# tensor cores' issue rate for the instruction the SSD kernels use.
+MMA_ACC = 16
+MMA_PEAK_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__global__ void mma_peak_kernel(float* out, int iters) {
+  uint32_t a[4] = {threadIdx.x, threadIdx.x + 1, threadIdx.x + 2, threadIdx.x + 3};
+  float d[ACC][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int k = 0; k < ACC; ++k)
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+          "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+          : "+f"(d[k][0]), "+f"(d[k][1]), "+f"(d[k][2]), "+f"(d[k][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[0] ^ it), "r"(a[1]));
+  }
+  float s = 0.f;
+  for (int k = 0; k < ACC; ++k) s += d[k][0] + d[k][1] + d[k][2] + d[k][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+extern "C" int mma_peak(float* out, int blocks, int threads, int iters, void* stream) {
+  mma_peak_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def _mma_peak_build():
+    """Compile the mma.sync probe into the build directory; its path."""
+    import hashlib
+
+    from repro_torch.kernels import _build
+
+    out = (_build.BUILD_ROOT / "probe"
+           / hashlib.sha256(MMA_PEAK_CU.encode()).hexdigest()[:16]
+           / "libmma_peak.so")
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        src = out.with_name("mma_peak.cu")
+        src.write_text(MMA_PEAK_CU)
+        subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, f"-DACC={MMA_ACC}",
+                        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                        "-o", str(out), str(src)],
+                       check=True, capture_output=True, text=True, timeout=600)
+    return out
+
+
+def _mma_peak(dev, sms: int) -> float:
+    """The best rate of mma.sync m16n8k8 TF32 over 4, 8 and 16 warps a
+    block, two blocks an SM, in FLOP/s (2 * 16 * 8 * 8 a product)."""
+    import ctypes
+
+    import torch
+
+    lib = ctypes.CDLL(str(_mma_peak_build()))
+    lib.mma_peak.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    lib.mma_peak.restype = ctypes.c_int
+    out = torch.empty(2 * sms * 16 * 32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    iters, rates = 4096, {}
+    for warps in (4, 8, 16):
+        def run(n):
+            if lib.mma_peak(out.data_ptr(), 2 * sms, warps * 32, n, stream):
+                raise RuntimeError("mma_peak launch failed")
+        run(16)
+        ms = _ms_median(lambda: run(iters), reps=5, warmup=1)
+        rates[warps] = 2 * sms * warps * iters * MMA_ACC * 2048 / (ms * 1e-3)
+    print(f"[phase0] mma.sync m16n8k8 TF32 alone, TFLOP/s by warps a block "
+          f"(2 blocks an SM): "
+          + ", ".join(f"{w}: {r / 1e12:.1f}" for w, r in rates.items()),
+          flush=True)
+    return max(rates.values())
 
 
 def phase_attention_kernels(dev, hbm_bw):
@@ -1060,31 +1203,73 @@ def phase_decode_kernel(dev, hbm_bw):
 # rtol = atol of the reference's SSD tests (tests/test_kernels_extra.py:
 # 47-48 for fp32 inputs, :76 for bf16 inputs)
 SSD_TOL = {"fp32": 1e-4, "half": 5e-2}
+# fp32-accurate products on the tensor cores take three TF32 passes
+# (H100 SXM TF32 dense, data sheet): the least time of the SSD scan's
+# fp32 work, beside FP32_FLOPS, the CUDA cores' FMA rate
+TF32X3_FLOPS = 495e12 / 3
 
 
 def _ssd_work(B, T, H, N, P, L, elem):
-    """(bytes, FLOPs) of one SSD scan: lam read in fp32, B, C and x in
-    their dtype, y written in fp32; per lane and chunk the causal C B^T
-    and W x (L(L+1)/2 * 2 each per state / head column) and C h, B^T x
-    (2 * L * N * P each)."""
+    """(bytes, FLOPs) of one SSD scan, the least work: lam read in fp32,
+    B, C and x in their dtype, y written in fp32; C B^T once per (batch,
+    chunk), since B and C are shared by the heads (L(L+1)/2 * 2N), and
+    per lane and chunk W x (L(L+1)/2 * 2P) and C h, B^T x (2LNP each)."""
     nbytes = 4 * B * T * H + 2 * B * T * N * elem + B * T * H * P * elem \
         + 4 * B * T * H * P
-    flops = B * H * (T // L) * (L * (L + 1) / 2 * 2 * (N + P)
-                                + 4.0 * L * N * P)
+    nc = T // L
+    flops = B * nc * (L * (L + 1) / 2 * 2 * N) \
+        + B * H * nc * (L * (L + 1) / 2 * 2 * P + 4.0 * L * N * P)
     return nbytes, flops
 
 
-def phase_ssd_kernel(dev, hbm_bw):
+def _device_kernels(fn, expect, tag="ssd_", tries=3):
+    """{name: (launches, device ms)} of the device kernels whose name holds
+    ``tag`` in one call of ``fn``, from torch.profiler tracing host and
+    device together, as ``_profile`` does (tracing the device alone has
+    returned sessions short of its records on the H100). A profile whose
+    count is not ``expect`` is taken again, up to ``tries`` times, and
+    said so; the caller checks the count it gets, so a call that runs
+    other kernels than planned still fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        found = {e.key: (e.count, e.self_device_time_total / 1e3)
+                 for e in prof.key_averages()
+                 if tag in e.key and str(e.device_type).endswith("CUDA")}
+        if sum(n for n, _ in found.values()) == expect:
+            break
+        print(f"[profile] {tag} kernels recorded {found}, expected {expect}; "
+              f"profile {attempt + 1} of {tries}", flush=True)
+    return found
+
+
+def phase_ssd_kernel(dev, hbm_bw, mma_peak):
     """The SSD chunked-scan kernel against its plain version at the
-    Zamba2-1.2B layer's shape and at edge shapes; times kernel and plain
-    version (no single PyTorch call computes the scan)."""
+    Zamba2-1.2B layer's shape and at edge shapes; each case checks that
+    two calls agree bit for bit and gives the device kernels a call runs
+    and each one's device time; times kernel and plain version (no
+    single PyTorch call computes the scan), and the Zamba2 layer also at
+    a head tile of 1, the alternative to the wrapper's choice of 2. The
+    fp32 cases also give the least time at ``mma_peak``, the rate of
+    mma.sync TF32 that phase 0 measured, taken three times."""
+    from unittest import mock
+
     import torch
 
     from repro_torch.kernels.ssd_chunk import kernel as sk
     from repro_torch.kernels.ssd_chunk import ref as sref
+    from repro_torch.utils.device import sm_count
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    fp32, bf16 = torch.float32, torch.bfloat16
+    fp32, bf16, fp16 = torch.float32, torch.bfloat16, torch.float16
+    names = {fp32: "fp32", bf16: "bf16", fp16: "fp16"}
     cases = {"ssd_chunk": []}
     for B, T, H, N, P, chunk, dt, lam_kind, label in [
         (4, 1024, 64, 64, 64, 256, fp32, "rand", "Zamba2-1.2B layer"),
@@ -1096,6 +1281,13 @@ def phase_ssd_kernel(dev, hbm_bw):
         (2, 512, 8, 64, 64, 256, fp32, "-50", "lam <= -50: decays underflow"),
         (2, 512, 8, 64, 64, 256, fp32, "0",
          "lam = 0: no decay (B, C, x scaled by 1/4)"),
+        (2, 512, 8, 128, 64, 256, fp32, "rand", "N = 128"),
+        (2, 512, 8, 64, 32, 256, fp32, "rand", "P = 32 (padded to 64)"),
+        (1, 300, 3, 10, 7, 256, fp32, "rand",
+         "odd N, P, H: 4-byte copies, odd-P stores, head tile 1"),
+        (2, 512, 4, 64, 64, 256, fp16, "rand", "fp16"),
+        (1, 300, 3, 10, 7, 256, bf16, "rand",
+         "odd N, P, H, bf16: rows padded to 16 bytes"),
     ]:
         lam = -torch.randn((B, T, H), generator=g, device=dev).abs() * 0.1
         scale = 1.0
@@ -1108,31 +1300,62 @@ def phase_ssd_kernel(dev, hbm_bw):
         Cm = (torch.randn((B, T, N), generator=g, device=dev) * scale).to(dt)
         xdt = (torch.randn((B, T, H, P), generator=g, device=dev)
                * scale).to(dt)
-        got = sk.ssd_chunk(lam, Bm, Cm, xdt, chunk=chunk)
+
+        def call():
+            return sk.ssd_chunk(lam, Bm, Cm, xdt, chunk=chunk)
+
+        got, again = call(), call()
         want = sref.ssd_scan_ref(lam, Bm, Cm, xdt, chunk=chunk)
         torch.cuda.synchronize()
         tol = SSD_TOL["fp32" if dt == fp32 else "half"]
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"ssd_chunk {label}: non-finite output")
+        if tuple(got.shape) != (B, T, H, P) or not torch.isfinite(got).all():
+            raise AssertionError(f"ssd_chunk {label}: shape "
+                                 f"{tuple(got.shape)} or non-finite output")
+        if not torch.equal(got, again):
+            raise AssertionError(f"ssd_chunk {label}: two calls differ")
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
         err = (got - want).abs().max().item()
-        del got, want
         L = sref.chunk_len(T, chunk)
+        tile = sk.head_tile(B, T // L, -(-L // sk.ROW_TILE), H, sm_count(dev))
+        extra = {}
+        if label == "Zamba2-1.2B layer":
+            with mock.patch.object(sk, "head_tile", lambda *_: 1):
+                one = call()
+                torch.testing.assert_close(one, want, rtol=tol, atol=tol)
+                extra["ms_head_tile_1"] = _ms_median(call)
+            del one
+        del got, again, want
+        planned = sk.device_kernels(T, chunk)
+        kernels = _device_kernels(call, planned)
+        n_kernels = sum(n for n, _ in kernels.values())
+        if n_kernels != planned:
+            raise AssertionError(f"ssd_chunk {label}: device kernels a call "
+                                 f"{kernels}, planned {planned}")
         nbytes, flops = _ssd_work(B, T, H, N, P, L, Bm.element_size())
         bound_ms, bound_by = _bound(nbytes, flops, hbm_bw,
-                                    FP32_FLOPS if dt == fp32 else HALF_FLOPS)
+                                    TF32X3_FLOPS if dt == fp32 else HALF_FLOPS)
+        ms = _ms_median(call)
         cases["ssd_chunk"].append({
             "shape": [B, T, H, N, P], "L": L, "chunks": T // L,
-            "dtype": "fp32" if dt == fp32 else "bf16", "what": label,
+            "dtype": names[dt], "what": label, "head_tile": tile,
+            "device_kernels": n_kernels,
+            "kernel_ms": {re.search(r"ssd_\w+", k).group(0): t
+                          for k, (_, t) in kernels.items()},
             "max_abs_err": err, "rtol": tol, "atol": tol, "flops": flops,
-            "ms": _ms_median(
-                lambda: sk.ssd_chunk(lam, Bm, Cm, xdt, chunk=chunk)),
+            "ms": ms, **extra,
             "plain_ms": _ms_median(
                 lambda: sref.ssd_scan_ref(lam, Bm, Cm, xdt, chunk=chunk),
                 reps=5),
             "library_ms": None,
             "library": "none: no single PyTorch call computes the scan",
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_rate": ("TF32 x3, 165 TFLOP/s" if dt == fp32
+                           else "bf16, 989 TFLOP/s"),
+            "bound_fma_ms": (flops / FP32_FLOPS * 1e3 if dt == fp32
+                             else None),
+            "bound_mma_sync_ms": (3 * flops / mma_peak * 1e3 if dt == fp32
+                                  else None),
+            "tf32x3_tflops": (3 * flops / ms * 1e-9 if dt == fp32 else None),
         })
         print(f"[phase1] ssd_chunk {json.dumps(cases['ssd_chunk'][-1])}",
               flush=True)
@@ -1625,13 +1848,16 @@ def main() -> int:
           f"device={torch.cuda.get_device_name(0)} sms={hw.sm_count} "
           f"hbm_bytes={hw.hbm_bytes}", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:   # one nvcc per source, together
-        for done in [pool.submit(m.build) for m in (kernel, rk, fa, fd, sk)]:
+    with ThreadPoolExecutor(6) as pool:   # one nvcc per source, together
+        for done in [pool.submit(m.build) for m in (kernel, rk, fa, fd, sk)] \
+                + [pool.submit(_mma_peak_build)]:
             done.result()
     print(f"[phase0] kernel build seconds={time.perf_counter() - t0:.3f}",
           flush=True)
     _attention_sass()
     _decode_build()
+    _ssd_build()
+    mma_peak = _mma_peak(dev, hw.sm_count)
 
     # -- data, made from the seed on the card ---------------------------
     t0 = time.perf_counter()
@@ -1661,7 +1887,7 @@ def main() -> int:
     cases.update(phase_robust_kernels(dev, hw.hbm_bw, resnet_p, cnn_p))
     cases.update(phase_attention_kernels(dev, hw.hbm_bw))
     cases.update(phase_decode_kernel(dev, hw.hbm_bw))
-    cases.update(phase_ssd_kernel(dev, hw.hbm_bw))
+    cases.update(phase_ssd_kernel(dev, hw.hbm_bw, mma_peak))
     print(f"[phase1] seconds={time.perf_counter() - t0:.3f}", flush=True)
 
     # -- phases 2-5: each path with the counts set to 0 just before it --

@@ -12,41 +12,92 @@
 // x (B, T, H, P) in fp32, bf16 or fp16; y (B, T, H, P) fp32; the
 // (N, P) state h is fp32 and starts at 0.
 //
-// Bound: operations. Per lane and chunk the causal C B^T and W x take
-// L(L+1)/2 * 2 * (N + P) FLOPs and C h, B^T x 4 * L * N * P, against
-// 4 * H * P bytes of x and y per step: at the Zamba2-1.2B layer (L = 256,
-// N = P = 64) about 100 FLOPs per byte, so the fp32 rate on the CUDA
-// cores is the limit. What the design does about it (a first, simple
-// kernel; tensor cores come later):
-//   * the TPU's sequential grid over chunks has no Hopper counterpart:
-//     one block of 256 threads owns one lane and loops over its chunks,
-//     the (N, P) state carried in shared memory (16 KB at N = P = 64);
-//   * the TPU holds the whole (L x L) decay tile (256 KB at L = 256);
-//     here the chunk is cut into 64-step row tiles against 64-step
-//     column tiles s <= t, as flash attention does, and tiles above the
-//     diagonal are skipped. Each thread owns a 4 x 4 micro-tile of the
-//     scores and of y, fed by 16-byte shared loads;
-//   * any L: cum is scanned once per chunk into a small workspace in
-//     device memory ((B * H, L) fp32, written and read by the same
-//     block), so a row tile of L = 1000 reads its own cum and that of
-//     each column tile; ragged tails are zero-filled in shared memory.
-//     The prefix sums are taken in float64 and rounded to fp32 once (as
-//     in the plain version): at |cum| ~ 20 (L = 256) two fp32 orders of
-//     addition moved a y of magnitude ~1 by 2e-4, past the 1e-4
-//     tolerance, and the decays exp(cum_t - cum_s) now carry one
-//     rounding whatever the order;
-//   * the mask is applied before exp: for s > t, cum_t - cum_s > 0 may
-//     overflow to inf, and inf * 0 would be NaN;
-//   * B and C are read through the batch index, never copied per head;
-//   * the state update B^T x is accumulated while the last row tile
-//     walks every column tile, so B and x are read once for it;
+// Bound: operations at the tensor cores' TF32 rate taken three times,
+// then bytes. The least work counts C B^T once per (batch, chunk), since
+// B and C are shared by the heads (L(L+1)/2 * 2N FLOPs), and per lane
+// and chunk W x (L(L+1)/2 * 2P) and C h, B^T x (2LNP each), against
+// 4 * H * P bytes of x and y a step: at the Zamba2-1.2B layer (B 4,
+// T 1024, H 64, N = P = 64, L 256) 8.68 GFLOP against 137 MB. fp32
+// inputs need fp32-accurate products: one TF32 pass (10-bit mantissas)
+// leaves the 1e-4 tolerance, three (hi.hi + hi.lo + lo.hi, fp32
+// accumulation) stay inside it (tests/test_torch_ssd_plan.py), so the
+// floor is 8.68 GFLOP at 495 / 3 TFLOP/s = 0.053 ms (0.13 ms at the
+// 67 TFLOP/s of the CUDA cores' FMAs; 0.041 ms by bytes). The design
+// reads x twice (state pass and output pass): 0.061 ms of HBM time at
+// that layer. What each part does:
+//   * three kernels, so that chunks and heads spread over the card (the
+//     chunked SSD splits the scan into work independent per (lane,
+//     chunk) and a hand-off of the (N, P) state in chunk order):
+//     - ssd_state_kernel, a block per (batch, chunk, pair of heads):
+//       the float64 prefix sums into a workspace cum (B, H, nc, Lpad)
+//       that the output kernel reads too; the chunk's state increment
+//       S_c = B^T (exp(cum_last - cum_s) x) over 64-step tiles, into a
+//       workspace of states (B, nc - 1, H, N_pad, 64) (12.6 MB at the
+//       Zamba2 layer; the last chunk's is never needed); and the scores
+//       C B^T of the chunk's tile pairs, into a workspace (B, nc,
+//       RT (RT + 1) / 2, 64, 64), spread over the chunk's blocks. That
+//       workspace grows with the square of L: 2.6 MB at the Zamba2
+//       layer, but at L = T (a T that the chunk does not divide) it is
+//       B * RT (RT + 1) / 2 * 16 KB, 0.54 GB at B 4, T 8191 and 8.6 GB
+//       at T 32767, where a block per lane walking its chunks needs
+//       only its own L x L scores. There the scores also fall to only
+//       H / head tile state blocks of a batch row, each taking its tile
+//       pairs one after another without a ring (at T 8191 and H 64,
+//       258 pairs a block);
+//     - ssd_handoff_kernel, a thread per state element of a lane: h_c
+//       in chunk order, in place of S_{c-1};
+//     - ssd_out_kernel, a block per (64-row tile, chunk, batch, pair of
+//       heads): y of its rows from the column tiles s <= t and h_c.
+//     At the Zamba2 layer 512 state blocks and 2,048 output blocks, where
+//     a block per lane walking its chunks in order would make 256. An
+//     L = T lane (one chunk) spreads the same way, a block per
+//     64 rows. The wrapper allocates the workspaces; the kernels
+//     allocate nothing;
+//   * C B^T once per (batch, chunk, tile pair): the output blocks of
+//     every head read the state kernel's scores tile and each warp
+//     applies its own head's decay exp(cum_t - cum_s) (ex2.approx of the
+//     difference in log2 units) while forming its A fragments;
+//   * every product on the tensor cores: mma.sync.m16n8k8 TF32 with
+//     fp32 accumulators, each operand split into hi = cvt.rna.tf32(v)
+//     and lo = cvt.rna.tf32(v - hi) and multiplied as lo.hi + hi.lo +
+//     hi.hi, each pass swept over all of a warp's tiles before the next
+//     so that an accumulator's three products do not wait on each
+//     other. W = scores * decay is formed in fp32 from the three-pass
+//     scores and split again for W x. bf16 / fp16 inputs stay in their
+//     type in shared memory and are widened as fragments are formed;
+//     the wrapper pads their rows to 16 bytes;
+//   * tiles are staged by 16-byte cp.async (4-byte copies for fp32 rows
+//     that are not 16-byte multiples) into two-stage rings: the next
+//     column tile (scores, x, cum; B and x in the state kernel) copies
+//     while this one is multiplied, and the output kernel copies C and
+//     h_c into the stages its last column tile leaves free. Shared
+//     memory is padded for the fragment loads: rows read as A fragments
+//     along k have a stride of 4 mod 32 words, rows read as B fragments
+//     8 mod 32, so each fragment load is free of bank conflicts. An
+//     output block of two heads takes 107 KB at fp32 N_pad 64, two
+//     blocks an SM; each of its 4 warps owns two m-tiles of one head,
+//     {0, 3} or {1, 2}, an even share of the causal triangle, so that
+//     its x fragments serve both, and on the diagonal tile skips the
+//     k-steps above its rows;
+//   * the float64 prefix sum runs in parallel: each thread of a head's
+//     group (128 threads for a pair of heads) sums a run of ceil(L / 128)
+//     steps, a warp scans its runs with shuffles, the warps' totals are
+//     added in warp order, and each thread re-walks its run, rounding
+//     every prefix to fp32 once. Its float64 partials differ from the
+//     sequential sum of ref.cumulative_decay in their last bits; on data
+//     drawn as chip_smoke.py draws it that changed 0 of 262,144 fp32
+//     decays at the Zamba2 layer's shape and 0 of 76,800 at L = 600
+//     (tests/test_torch_ssd_plan.py models the order);
+//   * the mask is applied before exp (a masked entry's exponent is
+//     -inf, so exp gives 0): for s > t, cum_t - cum_s > 0 may overflow,
+//     and inf * 0 would be NaN. Rows past L are zero-filled and never
+//     stored;
 //   * every sum runs in a fixed order (no atomics): the same inputs give
 //     the same bits.
-// N may be up to 128 (padded to 16, 32, 64 or 128 in shared memory) and
-// P up to 64 (padded to 64).
+// N may be up to 128 (padded to 16, 32, 64 or 128) and P up to 64
+// (padded to 64).
 //
-// The kernel allocates nothing; the entry point returns the
-// cudaGetLastError() of its launch.
+// The entry point returns the cudaGetLastError() of its launches.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -54,12 +105,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kR = 64;        // steps per row / column tile
-constexpr int kRP = kR + 4;   // padded row of a transposed tile
-constexpr int kPT = 64;       // P padded to one tile width
+constexpr int kR = 64;            // steps a row / column tile
+constexpr int kPT = 64;           // P padded to one tile width
+constexpr int kXS = kPT + 8;      // row stride of x and h tiles, in elements
+constexpr int kCBS = kR + 4;      // row stride of the scores tile (4 mod 32)
+constexpr int kStateThreads = 256;
+constexpr int kMaxDevices = 64;
+constexpr float kLog2e = 1.4426950408889634f;
 
 enum DType : int64_t { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
@@ -67,307 +124,798 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
-// Shared-memory layout in floats; every array starts on 16 bytes.
-template <int NT>
-struct Smem {
-  static constexpr int CT = 0;                  // [NT][kRP] C of the row tile, transposed
-  static constexpr int BT = CT + NT * kRP;      // [NT][kRP] B of the column tile, transposed
-  static constexpr int XS = BT + NT * kRP;      // [kR][kPT] x of the column tile
-  static constexpr int WT = XS + kR * kPT;      // [kR][kRP] W transposed: WT[s][t]
-  static constexpr int HS = WT + kR * kRP;      // [NT][kPT] the carried state
-  static constexpr int CUM_R = HS + NT * kPT;   // [kR] cum of the row tile
-  static constexpr int CUM_C = CUM_R + kR;      // [kR] cum of the column tile
-  static constexpr int DEC = CUM_C + kR;        // [kR] exp(cum_last - cum_s)
-  static constexpr int FLOATS = DEC + kR;
-};
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// Row stride (elements) of a tile whose fragments are read along its rows
+// with 8 rows a warp (A fragments, and the scores' B operand): 4 mod 32
+// words for fp32, 4 mod 32 words of packed pairs for bf16 / fp16; each
+// row a multiple of 16 bytes.
+template <typename T, int NT>
+constexpr int row_stride() {
+  return sizeof(T) == 4 ? NT + 4 : NT + 8;
 }
 
-// grid (B * H); blockDim 256 = 16 row groups x 16 column groups. Thread
-// (ty, tx) owns steps ty*4 .. ty*4+3 of a row tile against steps
-// tx*4 .. tx*4+3 of a column tile (scores) and columns tx*4 .. tx*4+3 of
-// P (y), and state rows ty*NR .. ty*NR+NR-1 by columns tx*4 .. tx*4+3.
-template <typename T, int NT>
-__global__ void __launch_bounds__(kThreads)
-ssd_chunk_kernel(const float* __restrict__ lam, const T* __restrict__ Bm,
-                 const T* __restrict__ Cm, const T* __restrict__ x,
-                 float* __restrict__ y, float* cum_ws, int64_t T_len, int H,
-                 int N, int P, int64_t L) {
-  using S = Smem<NT>;
-  constexpr int NR = NT / 16;
-  extern __shared__ float4 smem_raw[];
-  float* sm = reinterpret_cast<float*>(smem_raw);
-  float* cT = sm + S::CT;
-  float* bT = sm + S::BT;
-  float* xs = sm + S::XS;
-  float* wT = sm + S::WT;
-  float* hs = sm + S::HS;
-  float* cum_r = sm + S::CUM_R;
-  float* cum_c = sm + S::CUM_C;
-  float* dec = sm + S::DEC;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int64_t g = blockIdx.x;               // lane = b * H + h
-  const int64_t b = g / H;
-  const int h = static_cast<int>(g % H);
-  float* cum = cum_ws + g * L;
-  const int64_t nc = T_len / L;
-  const int64_t n_tiles = (L + kR - 1) / kR;
+// global -> shared; src_bytes 0 zero-fills.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  for (int idx = tid; idx < NT * kPT; idx += kThreads) hs[idx] = 0.f;
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  for (int64_t c = 0; c < nc; ++c) {
-    const int64_t tc = b * T_len + c * L;     // row of step 0 in (B * T)
+// v = hi + lo to about 21 bits: hi is v rounded to TF32 (10-bit
+// mantissa, to nearest, ties away), lo the remainder rounded likewise.
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(v);
+  lo = tf32(v - __uint_as_float(hi));
+}
 
-    // cum over the chunk: 256 steps at a time are staged in shared
-    // memory (in wT, free here), then one thread adds them in float64
-    // and rounds each prefix to fp32 once, as the plain version does, so
-    // the two agree whatever order a scan would add the steps in
-    double run = 0.0;
-    for (int64_t i0 = 0; i0 < L; i0 += kThreads) {
-      const int64_t i = i0 + tid;
-      wT[tid] = i < L ? lam[(tc + i) * H + h] : 0.f;
-      __syncthreads();
-      if (tid == 0) {
-        const int n = static_cast<int>(L - i0 < kThreads ? L - i0 : kThreads);
-        for (int k = 0; k < n; ++k) {
-          run += static_cast<double>(wT[k]);
-          cum[i0 + k] = static_cast<float>(run);
-        }
-      }
-      __syncthreads();   // wT is reused; cum is visible to the block
+// d += a (16 x 8, row) . b (8 x 8, col), TF32 in, fp32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[i][j] += a[i] . b[j] for MI m-tiles by NJ n-tiles in three TF32
+// passes, the small terms first: lo.hi over every tile, then hi.lo, then
+// hi.hi, so that each accumulator's three products stand MI * NJ
+// instructions apart instead of waiting on each other.
+template <int MI, int NJ>
+__device__ __forceinline__ void mma3(float (&d)[MI][NJ][4], const uint32_t (&ah)[MI][4],
+                                     const uint32_t (&al)[MI][4], const uint32_t (&bh)[NJ][2],
+                                     const uint32_t (&bl)[NJ][2]) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) mma_tf32(d[i][j], al[i], bh[j][0], bh[j][1]);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) mma_tf32(d[i][j], ah[i], bl[j][0], bl[j][1]);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) mma_tf32(d[i][j], ah[i], bh[j][0], bh[j][1]);
+}
+
+// The same, skipping the m-tiles with live[i] false.
+template <int MI, int NJ>
+__device__ __forceinline__ void mma3(float (&d)[MI][NJ][4], const uint32_t (&ah)[MI][4],
+                                     const uint32_t (&al)[MI][4], const uint32_t (&bh)[NJ][2],
+                                     const uint32_t (&bl)[NJ][2], const bool (&live)[MI]) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (live[i]) mma_tf32(d[i][j], al[i], bh[j][0], bh[j][1]);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (live[i]) mma_tf32(d[i][j], ah[i], bl[j][0], bl[j][1]);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (live[i]) mma_tf32(d[i][j], ah[i], bh[j][0], bh[j][1]);
+}
+
+// Copy a (ROWS x COLS) tile whose row r starts at src + r * ld elements
+// into shared memory at dst (row stride SS elements), in its own type;
+// rows at or past vr and columns at or past vc are zero-filled. By
+// cp.async, 16 bytes a copy when `vec` (vc and ld multiples of 16
+// bytes, src 16-byte aligned), else 4 bytes a copy (fp32 only: the
+// wrapper pads bf16 / fp16 rows to 16 bytes).
+template <typename T, int NTH, int ROWS, int COLS, int SS>
+__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, int64_t ld, int vr,
+                                      int vc, bool vec, int tid) {
+  if (vec) {
+    constexpr int EPC = 16 / sizeof(T);   // elements a copy
+    constexpr int CPR = COLS / EPC;
+#pragma unroll 4
+    for (int i = tid; i < ROWS * CPR; i += NTH) {
+      const int r = i / CPR, c = (i % CPR) * EPC;
+      const bool ok = r < vr && c < vc;
+      cp_async16(smem_u32(dst + r * SS + c), ok ? src + r * ld + c : src, ok ? 16 : 0);
     }
-    const float cum_last = cum[L - 1];
-
-    for (int64_t rt = 0; rt < n_tiles; ++rt) {
-      const int64_t t0 = rt * kR;
-      const bool last = rt == n_tiles - 1;
-      __syncthreads();   // the previous row tile is done with cT, cum_r
-      for (int idx = tid; idx < kR * NT; idx += kThreads) {
-        const int r = idx / NT, n = idx % NT;
-        const int64_t t = t0 + r;
-        float v = 0.f;
-        if (t < L && n < N) v = to_f32(Cm[(tc + t) * N + n]);
-        cT[n * kRP + r] = v;
-      }
-      if (tid < kR) cum_r[tid] = t0 + tid < L ? cum[t0 + tid] : 0.f;
-
-      float acc[4][4], sacc[NR][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll
-      for (int i = 0; i < NR; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sacc[i][j] = 0.f;
-
-      for (int64_t kt = 0; kt <= rt; ++kt) {
-        const int64_t s0 = kt * kR;
-        __syncthreads();   // the previous column tile is fully read
-        for (int idx = tid; idx < kR * NT; idx += kThreads) {
-          const int r = idx / NT, n = idx % NT;
-          const int64_t s = s0 + r;
-          float v = 0.f;
-          if (s < L && n < N) v = to_f32(Bm[(tc + s) * N + n]);
-          bT[n * kRP + r] = v;
-        }
-        for (int idx = tid; idx < kR * kPT; idx += kThreads) {
-          const int r = idx / kPT, p = idx % kPT;
-          const int64_t s = s0 + r;
-          float v = 0.f;
-          if (s < L && p < P) v = to_f32(x[((tc + s) * H + h) * P + p]);
-          xs[r * kPT + p] = v;
-        }
-        if (tid < kR) {
-          const int64_t s = s0 + tid;
-          const float cs = s < L ? cum[s] : cum_last;
-          cum_c[tid] = cs;
-          dec[tid] = s < L ? expf(cum_last - cs) : 0.f;
-        }
-        __syncthreads();
-
-        // scores: sc[i][j] = C_t . B_s
-        float sc[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-        for (int n = 0; n < NT; ++n) {
-          const float4 a = ld4(cT + n * kRP + ty * 4);
-          const float4 bb = ld4(bT + n * kRP + tx * 4);
-          const float av[4] = {a.x, a.y, a.z, a.w};
-          const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(av[i], bv[j], sc[i][j]);
-        }
-        // W = scores * exp(cum_t - cum_s) where s <= t, else 0: the mask
-        // selects before exp is taken, so no inf ever meets a 0
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float w[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int64_t t = t0 + ty * 4 + i;
-            const int64_t s = s0 + tx * 4 + j;
-            w[i] = (s <= t && t < L)
-                       ? sc[i][j] * expf(cum_r[ty * 4 + i] - cum_c[tx * 4 + j])
-                       : 0.f;
-          }
-          *reinterpret_cast<float4*>(wT + (tx * 4 + j) * kRP + ty * 4) =
-              make_float4(w[0], w[1], w[2], w[3]);
-        }
-        __syncthreads();
-
-        // y += W x
-#pragma unroll 4
-        for (int s = 0; s < kR; ++s) {
-          const float4 wv = ld4(wT + s * kRP + ty * 4);
-          const float4 xv = ld4(xs + s * kPT + tx * 4);
-          const float wa[4] = {wv.x, wv.y, wv.z, wv.w};
-          const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(wa[i], xa[j], acc[i][j]);
-        }
-        // the last row tile walks every column tile: accumulate the
-        // chunk's state increment sum_s exp(cum_last - cum_s) B_s^T x_s
-        if (last) {
-#pragma unroll 4
-          for (int s = 0; s < kR; ++s) {
-            const float d = dec[s];
-            const float4 xv = ld4(xs + s * kPT + tx * 4);
-            const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-            for (int i = 0; i < NR; ++i) {
-              const float bd = bT[(ty * NR + i) * kRP + s] * d;
-#pragma unroll
-              for (int j = 0; j < 4; ++j) sacc[i][j] = fmaf(bd, xa[j], sacc[i][j]);
-            }
-          }
-        }
-      }
-
-      // the carried state: y += exp(cum_t) (C_t . h)
-      {
-        float ch[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) ch[i][j] = 0.f;
-#pragma unroll 8
-        for (int n = 0; n < NT; ++n) {
-          const float4 a = ld4(cT + n * kRP + ty * 4);
-          const float4 hv = ld4(hs + n * kPT + tx * 4);
-          const float av[4] = {a.x, a.y, a.z, a.w};
-          const float hv4[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) ch[i][j] = fmaf(av[i], hv4[j], ch[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float e = expf(cum_r[ty * 4 + i]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(e, ch[i][j], acc[i][j]);
-        }
-      }
-
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int64_t t = t0 + ty * 4 + i;
-        if (t >= L) continue;
-        float* row = y + ((tc + t) * H + h) * P;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int p = tx * 4 + j;
-          if (p < P) row[p] = acc[i][j];
-        }
-      }
-
-      if (last) {
-        __syncthreads();   // every thread has read the old state
-        const float e_last = expf(cum_last);
-#pragma unroll
-        for (int i = 0; i < NR; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float* hp = hs + (ty * NR + i) * kPT + tx * 4 + j;
-            *hp = fmaf(*hp, e_last, sacc[i][j]);
-          }
-        __syncthreads();   // the new state, before the next chunk reads it
-      }
+    return;
+  }
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll 1
+    for (int i = tid; i < ROWS * COLS; i += NTH) {
+      const int r = i / COLS, c = i % COLS;
+      const bool ok = r < vr && c < vc;
+      cp_async4(smem_u32(dst + r * SS + c), ok ? src + r * ld + c : src, ok ? 4 : 0);
     }
   }
 }
 
-template <typename T, int NT>
-cudaError_t launch(const float* lam, const void* Bm, const void* Cm,
-                   const void* x, float* y, float* ws, int64_t B,
-                   int64_t T_len, int64_t H, int64_t N, int64_t P, int64_t L,
-                   cudaStream_t st) {
-  const size_t smem = sizeof(float) * Smem<NT>::FLOATS;
-  auto kern = ssd_chunk_kernel<T, NT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// cum[i] = lam[0] + ... + lam[i] over one chunk of one head (lam read
+// `stride` floats apart), summed in float64 and rounded to fp32 once, by
+// the NTH threads (tid 0 .. NTH - 1) of one group of the block: each
+// thread sums a run of ceil(L / NTH) steps, a warp scans its runs with
+// shuffles (Hillis-Steele), the warps' totals (wtot, one a warp of the
+// group) are added in warp order, and each thread re-walks its run from
+// its exclusive prefix. cum[L .. Lpad) get cum[L - 1]. Every thread of
+// the group gets cum[L - 1]. With tile0 / tile1 set, the first two 64-step
+// tiles of cum also go there. Every group of the block calls it together
+// (it holds block-wide barriers).
+template <int NTH>
+__device__ float chunk_scan(const float* __restrict__ lam, int64_t stride, int L, int Lpad,
+                            float* __restrict__ cum, double* wtot, float* last, float* tile0,
+                            float* tile1, int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  const int seg = (L + NTH - 1) / NTH;
+  const int i0 = min(tid * seg, L), i1 = min(i0 + seg, L);
+  double s = 0.0;
+  for (int i = i0; i < i1; ++i) s += static_cast<double>(lam[i * stride]);
+  double incl = s;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  double ex = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) ex = 0.0;
+  if (lane == 31) wtot[warp] = incl;
+  __syncthreads();
+  double run = 0.0;
+  for (int w = 0; w < warp; ++w) run += wtot[w];
+  run += ex;
+  auto put = [&](int i, float v) {
+    cum[i] = v;
+    if (tile0 != nullptr && i < kR) tile0[i] = v;
+    if (tile1 != nullptr && i >= kR && i < 2 * kR) tile1[i - kR] = v;
+  };
+  for (int i = i0; i < i1; ++i) {
+    run += static_cast<double>(lam[i * stride]);
+    put(i, static_cast<float>(run));
+  }
+  if (i0 < L && i1 == L) *last = static_cast<float>(run);
+  __syncthreads();
+  const float cl = *last;
+  for (int i = L + tid; i < Lpad; i += NTH) put(i, cl);
+  __syncthreads();   // cum is visible to the block; *last is free
+  return cl;
+}
+
+// ---------------------------------------------------------------------------
+// ssd_state_kernel: the prefix sums, the scores and each chunk's state
+// increment
+// ---------------------------------------------------------------------------
+
+template <typename T, int NT, int KH>
+struct StateCfg {
+  static constexpr int BSS = NT + 8;                // B tile row stride (read along columns)
+  static constexpr int CSS = row_stride<T, NT>();   // C / B row stride for the scores
+  static constexpr int MTOT = NT / 16;              // m-tiles of the state's rows
+  static constexpr int WM = MTOT < 2 ? MTOT : 2;    // warps along the rows
+  static constexpr int WN = 8 / WM;                 // warps along P
+  static constexpr int MT = MTOT / WM;              // m-tiles a warp
+  static constexpr int NW = 8 / WN;                 // 8-column n-tiles a warp, a head
+  static constexpr int B_BYTES = kR * BSS * sizeof(T);
+  static constexpr int X_BYTES = KH * kR * kXS * sizeof(T);
+  static constexpr int STAGE = B_BYTES + X_BYTES + KH * kR * 4;   // B, x and cum of KH heads
+  // float64 warp totals, `last` of each head, then the two-stage ring
+  static constexpr int BYTES = 96 + 2 * STAGE;
+};
+
+// grid (nc, H / KH, B), 256 threads: one block per (batch b, chunk c,
+// KH heads h0 ..), each head's prefix sum taken by 256 / KH threads.
+//  1. the float64 prefix sum of the chunk into cum_ws (B, H, nc, Lpad);
+//  2. but for the lane's last chunk, the state increments S_c = B^T
+//     (dec x) (dec_s = exp(cum_last - cum_s)) of the KH heads over
+//     64-step tiles, into slot c of h_ws (B, nc - 1, H, N_pad, 64); the
+//     first two tiles' B and x copy while the prefix sum runs. Warp w
+//     holds state rows of m-tiles (w % WM) * MT .. and P columns of
+//     n-tiles (w / WM) * NW .. of every head, so its B^T fragments serve
+//     all KH heads;
+//  3. the scores C B^T of the chunk's (row tile, column tile <= row tile)
+//     pairs, shared by every head: pair p falls to the block of head tile
+//     p % (H / KH), into cb_ws (B, nc, RT (RT + 1) / 2, 64, 64).
+template <typename T, int NT, int KH>
+__global__ void __launch_bounds__(kStateThreads)
+    ssd_state_kernel(const float* __restrict__ lam, const T* __restrict__ Bm,
+                     const T* __restrict__ Cm, const T* __restrict__ x,
+                     float* __restrict__ cum_ws, float* __restrict__ cb_ws,
+                     float* __restrict__ h_ws, int T_len, int H, int N, int P, int L, int nc,
+                     bool vec_b, bool vec_x) {
+  using S = StateCfg<T, NT, KH>;
+  constexpr int GT = kStateThreads / KH;   // threads of a head's prefix sum
+  extern __shared__ float4 smem_raw[];
+  char* base = reinterpret_cast<char*>(smem_raw);
+  double* wtot = reinterpret_cast<double*>(base);        // [8]
+  float* last = reinterpret_cast<float*>(base + 64);     // [KH]
+  char* ring = base + 96;
+  auto bst = [&](int st) { return reinterpret_cast<T*>(ring + (st & 1) * S::STAGE); };
+  auto xst = [&](int st, int j) {
+    return reinterpret_cast<T*>(ring + (st & 1) * S::STAGE + S::B_BYTES) + j * kR * kXS;
+  };
+  auto cst = [&](int st, int j) {
+    return reinterpret_cast<float*>(ring + (st & 1) * S::STAGE + S::B_BYTES + S::X_BYTES) +
+           j * kR;
+  };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int c = blockIdx.x, hq = blockIdx.y, b = blockIdx.z;
+  const int h0 = hq * KH;
+  const int wm = warp % S::WM, wn = warp / S::WM;
+  const int tpc = (L + kR - 1) / kR;                       // tiles a chunk
+  const int Lpad = tpc * kR;
+  const int64_t row0 = static_cast<int64_t>(b) * T_len + static_cast<int64_t>(c) * L;
+  // cum of head h0 + j of this chunk starts at cum0 + j * nc * Lpad
+  float* cum0 = cum_ws + ((static_cast<int64_t>(b) * H + h0) * nc + c) * Lpad;
+  const int64_t cum_head = static_cast<int64_t>(nc) * Lpad;
+  const int64_t xld = static_cast<int64_t>(H) * P;
+  const bool state = c < nc - 1;   // the last chunk's increment is never needed
+
+  auto issue = [&](int st, bool with_cum) {   // B, x (and cum) of tile st
+    const int s0 = st * kR;
+    const int64_t r = row0 + s0;
+    const int vr = min(kR, L - s0);
+    stage<T, kStateThreads, kR, NT, S::BSS>(bst(st), Bm + r * N, N, vr, N, vec_b, tid);
+#pragma unroll
+    for (int j = 0; j < KH; ++j) {
+      stage<T, kStateThreads, kR, kPT, kXS>(xst(st, j), x + r * xld + (h0 + j) * P, xld, vr, P,
+                                           vec_x, tid);
+      if (with_cum)
+        stage<float, kStateThreads, 1, kR, kR>(cst(st, j), cum0 + j * cum_head + s0, 0, 1, kR,
+                                               true, tid);
+    }
+    cp_async_commit();
+  };
+
+  if (state) {
+    issue(0, false);
+    if (tpc > 1) issue(1, false);
+  }
+  const int js = tid / GT;   // the head this thread's group sums
+  chunk_scan<GT>(lam + row0 * H + h0 + js, H, L, Lpad, cum0 + js * cum_head,
+                 wtot + js * (GT / 32), last + js, state ? cst(0, js) : nullptr,
+                 state && tpc > 1 ? cst(1, js) : nullptr, tid % GT);
+
+  if (state) {
+    float acc[S::MT][KH * S::NW][4];
+#pragma unroll
+    for (int mi = 0; mi < S::MT; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < KH * S::NW; ++nj)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mi][nj][q] = 0.f;
+    for (int st = 0; st < tpc; ++st) {
+      if (st + 1 < tpc) cp_async_wait<1>();
+      else cp_async_wait<0>();
+      __syncthreads();   // tile st landed
+      const T* bt = bst(st);
+      if (tid < KH * kR) {   // cum of the tile, made dec_s in place
+        const int j = tid / kR, sl = tid % kR;
+        float* d = cst(st, j) + sl;
+        *d = st * kR + sl < L ? expf(last[j] - *d) : 0.f;   // last: cum_last of head j
+      }
+      __syncthreads();
+#pragma unroll 2
+      for (int kk = 0; kk < kR / 8; ++kk) {
+        const int sa = kk * 8 + t4, sb = sa + 4;
+        uint32_t ah[S::MT][4], al[S::MT][4], bh[KH * S::NW][2], bl[KH * S::NW][2];
+#pragma unroll
+        for (int mi = 0; mi < S::MT; ++mi) {   // A = B^T: A[n][s] = B[s][n]
+          const int n = (wm * S::MT + mi) * 16 + g;
+          split(to_f32(bt[sa * S::BSS + n]), ah[mi][0], al[mi][0]);
+          split(to_f32(bt[sa * S::BSS + n + 8]), ah[mi][1], al[mi][1]);
+          split(to_f32(bt[sb * S::BSS + n]), ah[mi][2], al[mi][2]);
+          split(to_f32(bt[sb * S::BSS + n + 8]), ah[mi][3], al[mi][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < KH; ++j) {
+          const T* xt = xst(st, j);
+          const float* dec = cst(st, j);
+          const float da = dec[sa], db = dec[sb];
+#pragma unroll
+          for (int nj = 0; nj < S::NW; ++nj) {
+            const int p = (wn * S::NW + nj) * 8 + g;
+            split(to_f32(xt[sa * kXS + p]) * da, bh[j * S::NW + nj][0], bl[j * S::NW + nj][0]);
+            split(to_f32(xt[sb * kXS + p]) * db, bh[j * S::NW + nj][1], bl[j * S::NW + nj][1]);
+          }
+        }
+        mma3(acc, ah, al, bh, bl);
+      }
+      __syncthreads();   // every warp is done with stage st
+      if (st + 2 < tpc) issue(st + 2, true);
+    }
+#pragma unroll
+    for (int j = 0; j < KH; ++j) {
+      float* hp = h_ws + ((static_cast<int64_t>(b) * (nc - 1) + c) * H + h0 + j) * (NT * kPT);
+#pragma unroll
+      for (int mi = 0; mi < S::MT; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < S::NW; ++nj) {
+          const int n = (wm * S::MT + mi) * 16 + g, p = (wn * S::NW + nj) * 8 + 2 * t4;
+          const float* v = acc[mi][j * S::NW + nj];
+          *reinterpret_cast<float2*>(hp + n * kPT + p) = make_float2(v[0], v[1]);
+          *reinterpret_cast<float2*>(hp + (n + 8) * kPT + p) = make_float2(v[2], v[3]);
+        }
+    }
+  }
+
+  // the scores; the ring is free once every warp is past the last tile
+  const int pairs = tpc * (tpc + 1) / 2;
+  T* ct = reinterpret_cast<T*>(ring);
+  T* bt = reinterpret_cast<T*>(ring + S::STAGE);
+  for (int pr = hq; pr < pairs; pr += H / KH) {
+    int rt = 0;
+    while ((rt + 1) * (rt + 2) / 2 <= pr) ++rt;
+    const int kt = pr - rt * (rt + 1) / 2;
+    __syncthreads();
+    stage<T, kStateThreads, kR, NT, S::CSS>(ct, Cm + (row0 + rt * kR) * N, N,
+                                            min(kR, L - rt * kR), N, vec_b, tid);
+    stage<T, kStateThreads, kR, NT, S::CSS>(bt, Bm + (row0 + kt * kR) * N, N,
+                                            min(kR, L - kt * kR), N, vec_b, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    const int m0 = (warp & 3) * 16, n0 = (warp >> 2) * 4;   // 4 n-tiles a warp
+    float sacc[1][4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[0][j][e] = 0.f;
+#pragma unroll 2
+    for (int k = 0; k < NT / 8; ++k) {
+      const int ka = k * 8 + t4, kb = ka + 4;
+      uint32_t ah[1][4], al[1][4], bh[4][2], bl[4][2];
+      split(to_f32(ct[(m0 + g) * S::CSS + ka]), ah[0][0], al[0][0]);
+      split(to_f32(ct[(m0 + g + 8) * S::CSS + ka]), ah[0][1], al[0][1]);
+      split(to_f32(ct[(m0 + g) * S::CSS + kb]), ah[0][2], al[0][2]);
+      split(to_f32(ct[(m0 + g + 8) * S::CSS + kb]), ah[0][3], al[0][3]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int sr = (n0 + j) * 8 + g;
+        split(to_f32(bt[sr * S::CSS + ka]), bh[j][0], bl[j][0]);
+        split(to_f32(bt[sr * S::CSS + kb]), bh[j][1], bl[j][1]);
+      }
+      mma3(sacc, ah, al, bh, bl);
+    }
+    float* out = cb_ws + ((static_cast<int64_t>(b) * nc + c) * pairs + pr) * (kR * kR);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = (n0 + j) * 8 + 2 * t4;
+      *reinterpret_cast<float2*>(out + (m0 + g) * kR + col) =
+          make_float2(sacc[0][j][0], sacc[0][j][1]);
+      *reinterpret_cast<float2*>(out + (m0 + g + 8) * kR + col) =
+          make_float2(sacc[0][j][2], sacc[0][j][3]);
+    }
+  }
+}
+
+// grid (N_pad * 64 / 256, H, B), 256 threads: the hand-off of the state
+// from chunk to chunk, one thread per state element of a lane, in chunk
+// order and in place: slot c of h_ws holds S_c and becomes h_{c+1} =
+// h_c exp(cum_last of chunk c) + S_c, from h_0 = 0.
+__global__ void __launch_bounds__(kStateThreads)
+    ssd_handoff_kernel(const float* __restrict__ cum_ws, float* __restrict__ h_ws, int H,
+                       int L, int nc, int elems) {
+  const int i = blockIdx.x * kStateThreads + threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int Lpad = (L + kR - 1) / kR * kR;
+  const float* cum = cum_ws + (static_cast<int64_t>(b) * H + h) * nc * Lpad + L - 1;
+  float* hp = h_ws + (static_cast<int64_t>(b) * (nc - 1) * H + h) * elems + i;
+  const int64_t slot = static_cast<int64_t>(H) * elems;
+  float state = 0.f;
+  for (int c = 0; c + 1 < nc; ++c) {
+    state = fmaf(state, expf(cum[static_cast<int64_t>(c) * Lpad]), hp[c * slot]);
+    hp[c * slot] = state;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// ssd_out_kernel: y for a 64-row tile of one chunk and HT heads
+// ---------------------------------------------------------------------------
+
+template <typename T, int NT, int HT>
+struct OutCfg {
+  static constexpr int NTH = 128;                  // 4 warps
+  static constexpr int MPW = HT;                   // m-tiles (16 rows) a warp
+  static constexpr int CSS = row_stride<T, NT>();  // C tile row stride
+  static constexpr int C_BYTES = kR * CSS * sizeof(T);
+  static constexpr int CB_STAGE = kR * kCBS * 4;   // scores of a column tile
+  static constexpr int X_STAGE = HT * kR * kXS * sizeof(T);   // x of a column tile
+  static constexpr int H_BYTES = HT * NT * kXS * 4;           // h_c, fp32
+  // the x ring, which C and h_c take over once the last tile is read
+  static constexpr int U_BYTES =
+      2 * X_STAGE > C_BYTES + H_BYTES ? 2 * X_STAGE : C_BYTES + H_BYTES;
+  static constexpr int CUM_STAGE = HT * kR * 4;
+  static constexpr int BYTES = 2 * CB_STAGE + U_BYTES + 2 * CUM_STAGE;
+  // C fits the scores stage and h_c the x stage that the last column tile
+  // leaves free (fp32, N_pad <= 64): both copy while that tile is used
+  static constexpr bool EARLY = C_BYTES <= CB_STAGE && H_BYTES <= X_STAGE;
+};
+
+// The m-tile (16 rows of the 64-row tile) of warp i of a one-head block:
+// 0, 1, 3, 2, so that warps 0 and 2 (and 1 and 3) hold m-tiles whose
+// causal work on the diagonal tile adds up the same.
+__device__ __forceinline__ int warp_mtile(int i) { return i < 2 ? i : 5 - i; }
+
+// grid (RT * HG * B * nc), HG = H / HT, 128 threads; the RT row tiles of
+// one (chunk, batch, head tile) are neighbours, the last first, so that
+// they read each column tile's x from L2. Warp w owns head h0 + w % HT
+// and HT m-tiles of the row tile: for one head the m-tile warp_mtile(w),
+// for two the pair {0, 3} or {1, 2} (w / 2 = 0 or 1), an even share of
+// the causal triangle, whose B fragments (x) it then reuses twice. It
+// owns all 64 (padded) P columns: lane l holds accumulator rows g = l / 4
+// and g + 8 of each m-tile, columns 2 (l % 4) and + 1 of each 8-wide
+// n-tile (the m16n8 C layout). Column tiles (the scores from the state
+// kernel, x, cum) run through a two-stage ring: tile kt + 1 copies while
+// tile kt is multiplied; on the diagonal tile a warp skips the k-steps
+// wholly above its rows. C and h_c copy into the stages the last column
+// tile leaves free where they fit (OutCfg::EARLY), else into the ring
+// once it is done.
+template <typename T, int NT, int HT>
+__global__ void __launch_bounds__(128, 1)
+    ssd_out_kernel(const T* __restrict__ Cm, const T* __restrict__ x,
+                   const float* __restrict__ cum_ws, const float* __restrict__ cb_ws,
+                   const float* __restrict__ h_ws, float* __restrict__ y, int B, int T_len,
+                   int H, int N, int P, int L, int nc, bool vec_b, bool vec_x) {
+  using S = OutCfg<T, NT, HT>;
+  extern __shared__ float4 smem_raw[];
+  char* base = reinterpret_cast<char*>(smem_raw);
+  float* cbring = reinterpret_cast<float*>(base);                    // [2][kR][kCBS] scores
+  char* u = base + 2 * S::CB_STAGE;                                  // [2][HT][kR][kXS] x
+  float* cring = reinterpret_cast<float*>(u + S::U_BYTES);           // [2][HT][kR] cum
+  auto xst = [&](int st) { return reinterpret_cast<T*>(u + st * S::X_STAGE); };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int HG = H / HT;
+  const int RT = (L + kR - 1) / kR, Lpad = RT * kR;
+  const int pairs = RT * (RT + 1) / 2;
+  int64_t lin = blockIdx.x;
+  const int rt = RT - 1 - static_cast<int>(lin % RT);
+  lin /= RT;
+  const int hg = static_cast<int>(lin % HG);
+  lin /= HG;
+  const int b = static_cast<int>(lin % B);
+  const int c = static_cast<int>(lin / B);
+  const int h0 = hg * HT, t0 = rt * kR;
+  const int64_t row0 = static_cast<int64_t>(b) * T_len + static_cast<int64_t>(c) * L;
+  const int64_t xld = static_cast<int64_t>(H) * P;
+  const int hh = warp % HT, wi = warp / HT;
+  // the warp's m-tiles, and its rows in the tile: [i][e] = 16 mt[i] + 8 e + g
+  int mt[S::MPW], rows[S::MPW][2];
+  bool ok[S::MPW][2];
+  float ct[S::MPW][2];
+  // cum of (b, head h0 + j, chunk c) starts at cum_c + j * nc * Lpad
+  const float* cum_c = cum_ws + (static_cast<int64_t>(b) * H + h0) * nc * Lpad +
+                       static_cast<int64_t>(c) * Lpad;
+  const int64_t cum_head = static_cast<int64_t>(nc) * Lpad;
+  const float* cb_c = cb_ws + (static_cast<int64_t>(b) * nc + c) * pairs * (kR * kR);
+#pragma unroll
+  for (int i = 0; i < S::MPW; ++i) {
+    mt[i] = S::MPW == 1 ? warp_mtile(wi) : (i == 0 ? wi : 3 - wi);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      rows[i][e] = 16 * mt[i] + 8 * e + g;
+      ok[i][e] = t0 + rows[i][e] < L;
+      ct[i][e] = cum_c[hh * cum_head + t0 + rows[i][e]];   // padded rows hold cum_last
+    }
+  }
+
+  auto issue = [&](int kt) {   // scores, x and cum of column tile kt into stage kt % 2
+    const int s0 = kt * kR;
+    const int vr = min(kR, L - s0);
+    const int st = kt & 1;
+    stage<float, S::NTH, kR, kR, kCBS>(cbring + st * kR * kCBS,
+                                       cb_c + (rt * (rt + 1) / 2 + kt) * (kR * kR), kR, kR, kR,
+                                       true, tid);
+#pragma unroll
+    for (int j = 0; j < HT; ++j) {
+      stage<T, S::NTH, kR, kPT, kXS>(xst(st) + j * kR * kXS, x + (row0 + s0) * xld + (h0 + j) * P,
+                                     xld, vr, P, vec_x, tid);
+      stage<float, S::NTH, 1, kR, kR>(cring + (st * HT + j) * kR, cum_c + j * cum_head + s0, 0,
+                                      1, kR, true, tid);
+    }
+    cp_async_commit();
+  };
+
+  // C [kR][CSS] and h_c [HT][NT][kXS]: in stage (rt + 1) % 2 of the
+  // scores and x rings when they fit, else in the ring after the loop
+  T* cs = S::EARLY ? reinterpret_cast<T*>(cbring + ((rt + 1) & 1) * kR * kCBS)
+                   : reinterpret_cast<T*>(u);
+  float* hbuf = S::EARLY ? reinterpret_cast<float*>(xst((rt + 1) & 1))
+                         : reinterpret_cast<float*>(u + S::C_BYTES);
+  auto issue_ch = [&]() {
+    if (c > 0) {
+      const float* hsrc =
+          h_ws + ((static_cast<int64_t>(b) * (nc - 1) + c - 1) * H + h0) * (NT * kPT);
+#pragma unroll
+      for (int j = 0; j < HT; ++j)
+        stage<float, S::NTH, NT, kPT, kXS>(hbuf + j * NT * kXS, hsrc + j * (NT * kPT), kPT, NT,
+                                           kPT, true, tid);
+      stage<T, S::NTH, kR, NT, S::CSS>(cs, Cm + (row0 + t0) * N, N, min(kR, L - t0), N, vec_b,
+                                       tid);
+    }
+    cp_async_commit();   // empty for chunk 0, which starts from h = 0
+  };
+
+  issue(0);
+  if (rt >= 1) issue(1);
+  else if (S::EARLY) issue_ch();
+
+  float acc[S::MPW][8][4];
+#pragma unroll
+  for (int i = 0; i < S::MPW; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  for (int kt = 0; kt <= rt; ++kt) {
+    const int st = kt & 1;
+    if (kt < rt || S::EARLY) cp_async_wait<1>();   // a later group may fly
+    else cp_async_wait<0>();
+    __syncthreads();   // column tile kt landed
+    // y += W x, W = scores * exp(cum_t - cum_s), s <= t
+    const float* cbt = cbring + st * kR * kCBS;
+    const T* xt = xst(st) + hh * kR * kXS;
+    const float* cst = cring + (st * HT + hh) * kR;
+    // one k-step of 8 columns; on the diagonal tile the causal mask
+    auto kstep = [&](int kk, auto diag_tag) {
+      constexpr bool kDiag = decltype(diag_tag)::value;
+      const int sa = kk * 8 + t4, sb = sa + 4;
+      const float csa = cst[sa], csb = cst[sb];
+      uint32_t ah[S::MPW][4], al[S::MPW][4], bh[8][2], bl[8][2];
+      bool live[S::MPW];
+#pragma unroll
+      for (int i = 0; i < S::MPW; ++i) {
+        // on the diagonal tile, an m-tile wholly above this k-step adds nothing
+        live[i] = !kDiag || kk * 8 <= 16 * mt[i] + 15;
+        // the mask selects the exponent before exp: a masked entry's is -inf
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = rows[i][e & 1], sc = e < 2 ? sa : sb;
+          const float d = ok[i][e & 1] && (!kDiag || sc <= r)
+                              ? (ct[i][e & 1] - (e < 2 ? csa : csb)) * kLog2e
+                              : -INFINITY;
+          split(cbt[r * kCBS + sc] * exp2_approx(d), ah[i][e], al[i][e]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int p = j * 8 + g;
+        split(to_f32(xt[sa * kXS + p]), bh[j][0], bl[j][0]);
+        split(to_f32(xt[sb * kXS + p]), bh[j][1], bl[j][1]);
+      }
+      if constexpr (kDiag && S::MPW > 1) mma3(acc, ah, al, bh, bl, live);
+      else mma3(acc, ah, al, bh, bl);
+    };
+    if (kt < rt) {
+#pragma unroll 2
+      for (int kk = 0; kk < kR / 8; ++kk) kstep(kk, std::false_type());
+    } else {   // k-steps past this warp's last row add nothing
+      for (int kk = 0; kk < 2 * mt[S::MPW - 1] + 2; ++kk) kstep(kk, std::true_type());
+    }
+    __syncthreads();   // every warp is done with stage st
+    if (kt + 2 <= rt) issue(kt + 2);
+    else if (S::EARLY && kt + 1 == rt) issue_ch();
+  }
+
+  if (c > 0) {   // y += exp(cum_t) C_t . h_c
+    if (!S::EARLY) issue_ch();
+    cp_async_wait<0>();
+    __syncthreads();
+    float ex[S::MPW][2];
+#pragma unroll
+    for (int i = 0; i < S::MPW; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) ex[i][e] = expf(ct[i][e]);
+    const float* ht = hbuf + hh * NT * kXS;
+#pragma unroll 1
+    for (int k = 0; k < NT / 8; ++k) {
+      const int ka = k * 8 + t4, kb = ka + 4;
+      uint32_t ah[S::MPW][4], al[S::MPW][4], bh[8][2], bl[8][2];
+#pragma unroll
+      for (int i = 0; i < S::MPW; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split(to_f32(cs[rows[i][e & 1] * S::CSS + (e < 2 ? ka : kb)]) * ex[i][e & 1],
+                ah[i][e], al[i][e]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int p = j * 8 + g;
+        split(ht[ka * kXS + p], bh[j][0], bl[j][0]);
+        split(ht[kb * kXS + p], bh[j][1], bl[j][1]);
+      }
+      mma3(acc, ah, al, bh, bl);
+    }
+  }
+
+  const int h = h0 + hh;
+#pragma unroll
+  for (int i = 0; i < S::MPW; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (!ok[i][e]) continue;
+      float* yr = y + ((row0 + t0 + rows[i][e]) * H + h) * static_cast<int64_t>(P);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int p = j * 8 + 2 * t4;
+        if (p >= P) continue;
+        const float v0 = acc[i][j][2 * e], v1 = acc[i][j][2 * e + 1];
+        if ((P & 1) == 0) {
+          *reinterpret_cast<float2*>(yr + p) = make_float2(v0, v1);
+        } else {
+          yr[p] = v0;
+          if (p + 1 < P) yr[p + 1] = v1;
+        }
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const float* lam;
+  const void *Bm, *Cm, *x;
+  float *y, *cum_ws, *cb_ws, *h_ws;
+  int B, T, H, N, P, L, nc;
+  bool vec_b, vec_x;
+  cudaStream_t st;
+};
+
+// Raise a kernel's dynamic shared memory limit once per device and
+// template instance (the flags and results are the caller's statics);
+// later launches take the first call's result without a driver call.
+template <typename K>
+cudaError_t allow_smem(K kern, int smem, std::once_flag* flags, cudaError_t* results) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(B * H));
-  kern<<<grid, kThreads, smem, st>>>(
-      lam, static_cast<const T*>(Bm), static_cast<const T*>(Cm),
-      static_cast<const T*>(x), y, ws, T_len, static_cast<int>(H),
-      static_cast<int>(N), static_cast<int>(P), L);
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::call_once(flags[dev], [&] {
+    results[dev] = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  });
+  return results[dev];
+}
+
+template <typename T, int NT, int HT>
+cudaError_t launch_out(const Args& a) {
+  using S = OutCfg<T, NT, HT>;
+  static std::once_flag flags[kMaxDevices];
+  static cudaError_t results[kMaxDevices];
+  auto kern = ssd_out_kernel<T, NT, HT>;
+  cudaError_t err = allow_smem(kern, S::BYTES, flags, results);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = static_cast<int64_t>((a.L + kR - 1) / kR) * a.nc * a.B * (a.H / HT);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kern<<<static_cast<unsigned>(blocks), S::NTH, S::BYTES, a.st>>>(
+      static_cast<const T*>(a.Cm), static_cast<const T*>(a.x), a.cum_ws, a.cb_ws, a.h_ws, a.y,
+      a.B, a.T, a.H, a.N, a.P, a.L, a.nc, a.vec_b, a.vec_x);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_n(const float* lam, const void* Bm, const void* Cm,
-                       const void* x, float* y, float* ws, int64_t B,
-                       int64_t T_len, int64_t H, int64_t N, int64_t P,
-                       int64_t L, cudaStream_t st) {
-  if (N <= 16) return launch<T, 16>(lam, Bm, Cm, x, y, ws, B, T_len, H, N, P, L, st);
-  if (N <= 32) return launch<T, 32>(lam, Bm, Cm, x, y, ws, B, T_len, H, N, P, L, st);
-  if (N <= 64) return launch<T, 64>(lam, Bm, Cm, x, y, ws, B, T_len, H, N, P, L, st);
-  return launch<T, 128>(lam, Bm, Cm, x, y, ws, B, T_len, H, N, P, L, st);
+template <typename T, int NT, int KH>
+cudaError_t launch_state(const Args& a) {
+  using S = StateCfg<T, NT, KH>;
+  static std::once_flag flags[kMaxDevices];
+  static cudaError_t results[kMaxDevices];
+  auto kern = ssd_state_kernel<T, NT, KH>;
+  cudaError_t err = allow_smem(kern, S::BYTES, flags, results);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(static_cast<unsigned>(a.nc), static_cast<unsigned>(a.H / KH),
+              static_cast<unsigned>(a.B)),
+         kStateThreads, S::BYTES, a.st>>>(
+      a.lam, static_cast<const T*>(a.Bm), static_cast<const T*>(a.Cm),
+      static_cast<const T*>(a.x), a.cum_ws, a.cb_ws, a.h_ws, a.T, a.H, a.N, a.P, a.L, a.nc,
+      a.vec_b, a.vec_x);
+  return cudaGetLastError();
 }
+
+// The three kernels; the state kernel and the output kernel take the same
+// head tile (2 heads a block, or 1).
+template <typename T, int NT>
+cudaError_t launch(const Args& a, int head_tile) {
+  cudaError_t err = head_tile == 2 ? launch_state<T, NT, 2>(a) : launch_state<T, NT, 1>(a);
+  if (err != cudaSuccess) return err;
+  if (a.nc > 1) {
+    constexpr int elems = NT * kPT;
+    ssd_handoff_kernel<<<dim3(elems / kStateThreads, static_cast<unsigned>(a.H),
+                              static_cast<unsigned>(a.B)),
+                         kStateThreads, 0, a.st>>>(a.cum_ws, a.h_ws, a.H, a.L, a.nc, elems);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return head_tile == 2 ? launch_out<T, NT, 2>(a) : launch_out<T, NT, 1>(a);
+}
+
+template <typename T>
+cudaError_t dispatch_n(const Args& a, int head_tile) {
+  if (a.N <= 16) return launch<T, 16>(a, head_tile);
+  if (a.N <= 32) return launch<T, 32>(a, head_tile);
+  if (a.N <= 64) return launch<T, 64>(a, head_tile);
+  return launch<T, 128>(a, head_tile);
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
 extern "C" {
 
 // lam (B, T, H) fp32; Bm, Cm (B, T, N) and x (B, T, H, P) row-major of
-// `dtype`; y (B, T, H, P) fp32; ws (B * H, L) fp32 scratch. 1 <= N <= 128,
-// 1 <= P <= 64, T a multiple of the chunk length L.
-int ssd_chunk_fwd(const void* lam, const void* Bm, const void* Cm,
-                  const void* x, void* y, void* ws, int64_t B, int64_t T_len,
-                  int64_t H, int64_t N, int64_t P, int64_t L, int64_t dtype,
+// `dtype`; y (B, T, H, P) fp32. Workspaces, fp32, 16-byte aligned, with
+// nc = T / L chunks, Lpad = L rounded up to 64, RT = Lpad / 64 and N_pad
+// = N rounded up to 16, 32, 64 or 128: cum_ws (B, H, nc, Lpad), cb_ws
+// (B, nc, RT (RT + 1) / 2, 64, 64) and, when nc > 1, h_ws (B, nc - 1, H,
+// N_pad, 64). 1 <= N <= 128, 1 <= P <= 64, head_tile 1 or 2 dividing
+// H (at most 2 when N > 64). Three kernels on `stream` (two when nc = 1).
+int ssd_chunk_fwd(const void* lam, const void* Bm, const void* Cm, const void* x, void* y,
+                  void* cum_ws, void* cb_ws, void* h_ws, int64_t B, int64_t T_len, int64_t H,
+                  int64_t N, int64_t P, int64_t L, int64_t head_tile, int64_t dtype,
                   void* stream) {
-  if (B <= 0 || T_len <= 0 || H <= 0 || N < 1 || N > 128 || P < 1 ||
-      P > kPT || L <= 0 || T_len % L != 0 || B * H > 0x7fffffffLL)
+  if (B <= 0 || B > 65535 || T_len <= 0 || T_len > 0x7fffffffLL || H <= 0 || H > 65535 ||
+      N < 1 || N > 128 || P < 1 || P > kPT || L <= 0 || T_len % L != 0 ||
+      T_len / L > 0x7fffffffLL || (head_tile != 1 && head_tile != 2) ||
+      H % head_tile != 0 || !aligned16(cum_ws) || !aligned16(cb_ws) ||
+      (T_len > L && (h_ws == nullptr || !aligned16(h_ws))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const float* l = static_cast<const float*>(lam);
-  float* yo = static_cast<float*>(y);
-  float* w = static_cast<float*>(ws);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t elem = dtype == kF32 ? 4 : 2;
+  const int64_t epc = 16 / elem;   // elements a 16-byte copy
+  const bool vec_b = N % epc == 0 && aligned16(Bm) && aligned16(Cm);
+  const bool vec_x = P % epc == 0 && aligned16(x);
+  if (elem == 2 && !(vec_b && vec_x)) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{static_cast<const float*>(lam),
+         Bm,
+         Cm,
+         x,
+         static_cast<float*>(y),
+         static_cast<float*>(cum_ws),
+         static_cast<float*>(cb_ws),
+         static_cast<float*>(h_ws),
+         static_cast<int>(B),
+         static_cast<int>(T_len),
+         static_cast<int>(H),
+         static_cast<int>(N),
+         static_cast<int>(P),
+         static_cast<int>(L),
+         static_cast<int>(T_len / L),
+         vec_b,
+         vec_x,
+         static_cast<cudaStream_t>(stream)};
+  const int ht = static_cast<int>(head_tile);
   switch (dtype) {
-    case kF32:
-      return static_cast<int>(
-          dispatch_n<float>(l, Bm, Cm, x, yo, w, B, T_len, H, N, P, L, st));
-    case kBF16:
-      return static_cast<int>(dispatch_n<__nv_bfloat16>(l, Bm, Cm, x, yo, w, B,
-                                                        T_len, H, N, P, L, st));
-    case kF16:
-      return static_cast<int>(
-          dispatch_n<__half>(l, Bm, Cm, x, yo, w, B, T_len, H, N, P, L, st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case kF32: return static_cast<int>(dispatch_n<float>(a, ht));
+    case kBF16: return static_cast<int>(dispatch_n<__nv_bfloat16>(a, ht));
+    case kF16: return static_cast<int>(dispatch_n<__half>(a, ht));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

@@ -17,7 +17,6 @@ the card.
 from __future__ import annotations
 
 import ctypes
-import functools
 import threading
 from typing import Dict
 
@@ -25,6 +24,7 @@ import torch
 
 from repro_torch.kernels._build import load_library
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.utils.device import sm_count
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 _COUNT_LOCK = threading.Lock()
@@ -40,11 +40,6 @@ def fp32_query_tile(B: int, T: int, nq: int, sm_count: int) -> int:
     (Gemma3's hd-256 local layer: 80 blocks on 132 SMs). A row's
     arithmetic is the same for both."""
     return 64 if -(-T // 64) * nq * B >= 2 * sm_count else 32
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def reset_launches() -> None:
@@ -124,7 +119,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention needs at least one key")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention needs 16-byte aligned q, k, v")
-    block_q = (fp32_query_tile(B, T, nq, _sm_count(q.device))
+    block_q = (fp32_query_tile(B, T, nq, sm_count(q.device))
                if q.dtype == torch.float32 else HALF_BLOCK_Q)
     lib = _library()
     with torch.cuda.device(q.device):

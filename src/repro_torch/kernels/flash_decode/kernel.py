@@ -23,9 +23,9 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels._build import load_library
-from repro_torch.kernels.flash_attention.kernel import (DTYPE_CODES, _sm_count,
-                                                        check_heads)
+from repro_torch.kernels.flash_attention.kernel import DTYPE_CODES, check_heads
 from repro_torch.kernels.flash_decode.ref import Pos, flash_decode_ref, pos_tensor
+from repro_torch.utils.device import sm_count
 
 LAUNCHES: Dict[str, int] = {"flash_decode": 0}
 _COUNT_LOCK = threading.Lock()
@@ -134,10 +134,10 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
-    sm_count = _sm_count(q.device)
-    splits = split_plan(S, B * nkv, sm_count)
+    sms = sm_count(q.device)
+    splits = split_plan(S, B * nkv, sms)
     group = nq // nkv
-    tile = head_tile(group, splits * B * nkv, sm_count)
+    tile = head_tile(group, splits * B * nkv, sms)
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.flash_decode_fwd(

@@ -1,16 +1,24 @@
-"""Hopper kernel for the SSD (Mamba2) chunked scan.
+"""Hopper kernels for the SSD (Mamba2) chunked scan.
 
 ``ssd_chunk`` replaces ``repro/kernels/ssd_chunk/kernel.py``
 ``ssd_chunk_pallas`` with its wrapper ``ops.py`` ``ssd_scan``. It is CUDA
 C++ in ``csrc/ssd_chunk.cu`` (its header says what bounds it and what
-the design does about it), built by ``kernels/_build.py`` at first use:
-one block per (batch, head) lane carries the state over the chunks.
+the design does about it), built by ``kernels/_build.py`` at first use.
+A call runs :func:`device_kernels` device kernels: one block per (batch,
+chunk, tile of :func:`head_tile` heads) takes the float64 prefix sums of
+the log-decays, the chunk's state increment and its share of the scores
+C·Bᵀ (``ssd_state_kernel``); a thread per state element hands the (N, P)
+state from chunk to chunk (``ssd_handoff_kernel``); one block per
+(64-row tile, chunk, batch, head tile) computes its rows of y
+(``ssd_out_kernel``). Every product runs on the tensor cores in three
+TF32 passes. The wrapper allocates the fp32 workspaces (prefix sums,
+scores, chunk-start states) with ``torch.empty`` and pads bf16 / fp16
+rows to 16 bytes.
 
 On a CPU tensor the wrapper returns its plain version from ``ref.py``; on
-a CUDA tensor it launches the kernel on the current stream or raises. It
+a CUDA tensor it launches the kernels on the current stream or raises. It
 checks device, dtype, shape and contiguity first, on either device.
-``LAUNCHES`` counts kernel launches, one per wrapper call that reached
-the card.
+``LAUNCHES`` counts wrapper calls that reached the card, one per call.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch
 
 from repro_torch.kernels._build import load_library
 from repro_torch.kernels.ssd_chunk.ref import chunk_len, ssd_scan_ref
+from repro_torch.utils.device import sm_count
 
 LAUNCHES: Dict[str, int] = {"ssd_chunk": 0}
 _COUNT_LOCK = threading.Lock()
@@ -29,6 +38,7 @@ _COUNT_LOCK = threading.Lock()
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_STATE = 128      # N, padded to 16 / 32 / 64 / 128 in shared memory
 MAX_HEAD_DIM = 64    # P, padded to 64
+ROW_TILE = 64        # steps a block of the output kernel takes
 
 
 def reset_launches() -> None:
@@ -46,7 +56,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("ssd_chunk")
     if lib.ssd_chunk_fwd.argtypes is None:
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.ssd_chunk_fwd.argtypes = [ptr] * 6 + [i64] * 7 + [ptr]
+        lib.ssd_chunk_fwd.argtypes = [ptr] * 8 + [i64] * 8 + [ptr]
         lib.ssd_chunk_fwd.restype = ctypes.c_int
     return lib
 
@@ -54,6 +64,32 @@ def _library() -> ctypes.CDLL:
 def build() -> None:
     """Build and load the kernel library now instead of at first launch."""
     _library()
+
+
+def device_kernels(T: int, chunk: int = 256) -> int:
+    """Device kernels one call runs: the prefix sums and state increments,
+    the hand-off of the state from chunk to chunk (when there are two
+    chunks or more), and the output."""
+    return 3 if T // chunk_len(T, chunk) > 1 else 2
+
+
+def state_pad(N: int) -> int:
+    """N padded to the kernels' state tile: 16, 32, 64 or 128."""
+    pad = 16
+    while pad < N:
+        pad *= 2
+    return pad
+
+
+def head_tile(batch: int, chunks: int, row_tiles: int, heads: int,
+              sm_count: int) -> int:
+    """Heads a block of the state and output kernels takes (2 or 1): two
+    when they divide ``heads`` and the output grid still gives every one
+    of the card's ``sm_count`` SMs a block. A state block shares each B
+    tile between its heads, an output block each column tile's scores."""
+    if heads % 2 == 0 and batch * chunks * row_tiles * heads // 2 >= sm_count:
+        return 2
+    return 1
 
 
 def check_inputs(lam: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
@@ -92,6 +128,17 @@ def check_inputs(lam: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                          f"{lam.device}")
 
 
+def _rows16(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 / fp16 tensor whose rows (last dimension) the kernels copy
+    16 bytes at a time: padded with zeros to a multiple of 8 elements,
+    and copied when its data is not 16-byte aligned. Zero columns of B, C
+    and x add nothing to y; y's padded columns are dropped."""
+    pad = -t.shape[-1] % 8
+    if pad:
+        return torch.nn.functional.pad(t, (0, pad))
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def ssd_chunk(lam: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
               xdt: torch.Tensor, *, chunk: int = 256) -> torch.Tensor:
     """The SSD scan: lam (B, T, H) log-decays, Bm / Cm (B, T, N) shared
@@ -103,21 +150,36 @@ def ssd_chunk(lam: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     if lam.device.type == "cpu":
         return ssd_scan_ref(lam, Bm, Cm, xdt, chunk=chunk)
     B, T, H = lam.shape
+    P_out = xdt.shape[3]
+    if B == 0 or T == 0 or H == 0:
+        return torch.empty((B, T, H, P_out), dtype=torch.float32,
+                           device=lam.device)
+    if Bm.dtype != torch.float32:
+        Bm, Cm, xdt = (_rows16(t) for t in (Bm, Cm, xdt))
     N, P = Bm.shape[2], xdt.shape[3]
     y = torch.empty((B, T, H, P), dtype=torch.float32, device=lam.device)
-    if B == 0 or T == 0 or H == 0:
-        return y
+    nc, row_tiles = T // L, -(-L // ROW_TILE)
+    n_pad = state_pad(N)
+    tile = head_tile(B, nc, row_tiles, H, sm_count(lam.device))
     lam32 = lam.float()
-    ws = torch.empty((B * H, L), dtype=torch.float32, device=lam.device)
+    cum = torch.empty((B, H, nc, row_tiles * ROW_TILE), dtype=torch.float32,
+                      device=lam.device)
+    pairs = row_tiles * (row_tiles + 1) // 2
+    scores = torch.empty((B, nc, pairs, ROW_TILE, ROW_TILE),
+                         dtype=torch.float32, device=lam.device)
+    states = (torch.empty((B, nc - 1, H, n_pad, MAX_HEAD_DIM),
+                          dtype=torch.float32, device=lam.device)
+              if nc > 1 else None)
     lib = _library()
     with torch.cuda.device(lam.device):
         err = lib.ssd_chunk_fwd(
             lam32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), xdt.data_ptr(),
-            y.data_ptr(), ws.data_ptr(), B, T, H, N, P, L,
-            DTYPE_CODES[Bm.dtype],
+            y.data_ptr(), cum.data_ptr(), scores.data_ptr(),
+            None if states is None else states.data_ptr(),
+            B, T, H, N, P, L, tile, DTYPE_CODES[Bm.dtype],
             torch.cuda.current_stream(lam.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"ssd_chunk_fwd launch failed: CUDA error {err}")
     _count("ssd_chunk")
-    return y
+    return y if P == P_out else y[..., :P_out].contiguous()

@@ -1,6 +1,7 @@
 """Where the port runs: on the card unless the caller asks for the CPU."""
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -30,3 +31,10 @@ def synchronize(device: Optional[torch.device]) -> None:
     the CPU, whose tensor ops finish before they return)."""
     if device is not None and device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of CUDA ``device``, asked once; the
+    kernels' wrappers size their grids by it."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -11,10 +11,15 @@ instructions in its SASS, and the decode library's 16-byte loads and
 copies and cluster barriers, its registers and spills (``ptxas -v``) and
 how many 8-CTA clusters fit on the card, and the SSD library's TF32
 tensor-core products and asynchronous copies, its registers and spills
-(none allowed). Phase 1
+(none allowed), and each carve and dequant instance's registers and
+spills (none allowed), the dequant's stores and the carve's integer min
+/ max in their SASS. Phase 1
 holds each kernel against its plain PyTorch version on the card at the
 shapes the main path gives it and at edge shapes, and times kernel,
-plain version, library call and one block's host-to-device copy. Phase 2
+plain version, library call and one block's host-to-device copy; each
+carve case prints the share of warps its data keep on the fast route,
+and the dequant's Resnet50 case the time of the fold's carry add that
+follows it. Phase 2
 drives the main path — synchronous FedAvg store rounds through
 ``AggregationService`` at Table-I widths (Resnet50 x 48 fp32 and
 int8-compressed, CNN4.6 x 256, an in-memory CNN4.6 x 64 round, and the
@@ -176,9 +181,12 @@ def phase_kernels(dev, hbm_bw, resnet_p, cnn_p, host_row):
         print(f"[phase1] weighted_sum {json.dumps(cases['weighted_sum'][-1])}",
               flush=True)
         del u, w, wl, out, want
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for n, pq, blk, label in [
         (2, -(-resnet_p // BLOCK) * BLOCK, BLOCK, "compressed Resnet50 block"),
         (65, 384, 128, "row split + small block"),
+        (3, 100 * 1001, 100, "Pq not a multiple of 16, a scale a vector"),
+        (3, 6 * 50_001, 6, "block not a multiple of 4: a scale an element"),
     ]:
         q = torch.randint(-127, 128, (n, pq), generator=g, device=dev,
                           dtype=torch.int8)
@@ -192,8 +200,9 @@ def phase_kernels(dev, hbm_bw, resnet_p, cnn_p, host_row):
         bound_ms, bound_by = _bound(
             n * pq + 4 * n * (pq // blk) + 4 * n + 4 * pq,
             2.0 * n * pq + n * (pq // blk), hbm_bw)
-        cases["weighted_sum_dequant"].append({
+        case = {
             "shape": [n, pq], "block": blk, "what": label,
+            "plan": kernel.dequant_plan(n, pq, blk, sms)._asdict(),
             "max_abs_err": err, "rtol": TOL["fp32"],
             "ms": _ms_median(
                 lambda: kernel.weighted_sum_dequant(q, s, w, block=blk)),
@@ -201,7 +210,15 @@ def phase_kernels(dev, hbm_bw, resnet_p, cnn_p, host_row):
                 lambda: ref.weighted_sum_dequant_ref(q, s, w, block=blk)),
             "library_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by,
-        })
+        }
+        if n == 2:
+            # the reducible fold's carry add after each launch
+            # (core/fusion/base.py: state[0] + wsum[:dim]), not fused
+            carry = torch.zeros((resnet_p,), device=dev)
+            case["fold_add_ms"] = _ms_median(lambda: carry + out[:resnet_p])
+            case["fold_add_bound_ms"] = _bound(12 * resnet_p, resnet_p,
+                                               hbm_bw)[0]
+        cases["weighted_sum_dequant"].append(case)
         print("[phase1] weighted_sum_dequant "
               f"{json.dumps(cases['weighted_sum_dequant'][-1])}", flush=True)
         del q, s, w, out, want
@@ -270,19 +287,21 @@ def _route_text(route) -> str:
     return "warp select, each pass from device memory"
 
 
-def phase_robust_kernels(dev, hbm_bw, resnet_p, cnn_p):
-    """The order-statistic kernels against their plain versions: carve
-    buffers bit for bit, the dense statistics to the reference's
-    tolerances; times kernel, plain version and library yardstick."""
+_NAMES = {"torch.float32": "fp32", "torch.bfloat16": "bf16",
+          "torch.float16": "fp16"}
+
+
+def phase_carve_kernel(dev, hbm_bw, resnet_p, cnn_p):
+    """The carve against its plain version, buffers bit for bit; times
+    kernel, plain version and library yardstick, and says which share of
+    the register route's warps the data keep on the fast route."""
     import torch
 
     from repro_torch.kernels.robust_fusion import kernel as rk
     from repro_torch.kernels.robust_fusion import ref as rref
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    names = {torch.float32: "fp32", torch.bfloat16: "bf16",
-             torch.float16: "fp16"}
-    cases = {"topk_carve": [], "trimmed_mean": [], "coord_median": []}
+    cases = {"topk_carve": []}
     for c, p, k, dt, label in [
         (1, resnet_p, 4, torch.float32, "Resnet50 x 48 TrimmedMean block"),
         (14, cnn_p, 23, torch.float32, "CNN4.6 x 48 CoordMedian block"),
@@ -292,10 +311,18 @@ def phase_robust_kernels(dev, hbm_bw, resnet_p, cnn_p):
         (7, 1029, 3, torch.float16, "fp16"),
         (8, 2000, 5, torch.float32, "inf, NaN, signed zeros, ties"),
         (12, 1000, 40, torch.float32, "K > 32 with specials, ragged"),
+        (14, cnn_p, 23, torch.float32,
+         "1% of values -0: the exact route"),
+        (14, cnn_p, 24, torch.float32, "K = 24, the window full"),
+        (14, cnn_p, 32, torch.float32, "K = 32, the largest window"),
+        (33, 100_003, 16, torch.float32,
+         "c = 33: the last row group holds one row"),
     ]:
         u = torch.randn((c, p), generator=g, device=dev)
         if "specials" in label or "NaN" in label:
             _special(u, c)
+        if "-0" in label:
+            u[torch.rand((c, p), generator=g, device=dev) < 0.01] = -0.0
         u = u.to(dt)
         valid = torch.ones((c,), device=dev)
         if "ragged" in label:
@@ -320,8 +347,11 @@ def phase_robust_kernels(dev, hbm_bw, resnet_p, cnn_p):
             c * p * u.element_size() + 8 * p + 16 * k * p + 4 * c,
             3.0 * rows * p, hbm_bw)
         stacked = torch.cat([topk, u.float()])   # the yardstick's input
+        routes = rk.carve_routes(u, valid, topk, botk) \
+            if rk.carve_window(k) else "K > 32: merge in device memory"
         cases["topk_carve"].append({
-            "shape": [c, p], "K": k, "dtype": names[dt], "what": label,
+            "shape": [c, p], "K": k, "dtype": _NAMES[str(dt)], "what": label,
+            "routes": routes,
             "max_abs_err": err, "buffers": "bit-equal", "rtol": 1e-5,
             "ms": _ms_median(lambda: rk.topk_carve(u, valid, ssum, topk, botk)),
             "plain_ms": _ms_median(
@@ -333,6 +363,20 @@ def phase_robust_kernels(dev, hbm_bw, resnet_p, cnn_p):
         print(f"[phase1] topk_carve {json.dumps(cases['topk_carve'][-1])}",
               flush=True)
         del u, valid, topk, botk, ssum, stacked
+    return cases
+
+
+def phase_robust_kernels(dev, hbm_bw, resnet_p, cnn_p):
+    """The dense order statistics against their plain versions, to the
+    reference's tolerances, on both routes; times kernel, plain version
+    and library yardstick."""
+    import torch
+
+    from repro_torch.kernels.robust_fusion import kernel as rk
+    from repro_torch.kernels.robust_fusion import ref as rref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    cases = {"trimmed_mean": [], "coord_median": []}
     if rk.dense_route(REG_MAX, dev).route != "register" \
             or rk.dense_route(REG_MAX + 1, dev).route == "register":
         raise AssertionError(f"the register route does not end at n = "
@@ -425,7 +469,8 @@ def phase_robust_kernels(dev, hbm_bw, resnet_p, cnn_p):
                                     float(p) * (_sort_compares(n) + adds),
                                     hbm_bw)
         cases[name].append({
-            "shape": [n, p], "trim": trim, "dtype": names[dt], "what": label,
+            "shape": [n, p], "trim": trim, "dtype": _NAMES[str(dt)],
+            "what": label,
             "path": _route_text(rk.dense_route(n, dev)),
             "max_abs_err": err, "rtol": tol,
             "ms": _ms_median(run), "plain_ms": _ms_median(plain),
@@ -822,34 +867,99 @@ def _attention_sass():
 _PTX_TYPES = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
 
 
-def _ptxas_report(name: str, entry: str):
-    """{(dtype, *int template arguments): (registers, spill store bytes,
-    spill load bytes)} of the kernels named ``entry`` in the ``ptxas -v``
-    report of the build of ``lib<name>.so`` (for the decode kernel the
-    arguments are hd and the head tile)."""
+def _ptxas_entries(name: str):
+    """{mangled kernel name: [registers, spill store bytes, spill load
+    bytes]} from the ``ptxas -v`` report of the build of ``lib<name>.so``."""
     from repro_torch.kernels import _build
 
     report, cur = {}, None
     for line in _build.build_log(name).read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            m = re.search(entry + r"I(\w+?)((?:Li\d+E)+)E", m.group(1))
-            cur = (_PTX_TYPES.get(m.group(1), m.group(1)),
-                   *(int(v) for v in re.findall(r"Li(\d+)E", m.group(2)))
-                   ) if m else None
-            if cur:
-                report[cur] = [0, 0, 0]
+            cur = report.setdefault(m.group(1), [0, 0, 0])
             continue
         if cur is None:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
-            report[cur][1:] = [int(m.group(1)), int(m.group(2))]
+            cur[1:] = [int(m.group(1)), int(m.group(2))]
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            report[cur][0] = int(m.group(1))
-    return {key: tuple(v) for key, v in report.items()}
+            cur[0] = int(m.group(1))
+    return report
+
+
+def _ptxas_report(name: str, entry: str):
+    """{(dtype, *int template arguments): (registers, spill store bytes,
+    spill load bytes)} of the kernels named ``entry`` in the ``ptxas -v``
+    report of the build of ``lib<name>.so`` (for the decode kernel the
+    arguments are hd and the head tile)."""
+    report = {}
+    for fn, v in _ptxas_entries(name).items():
+        m = re.search(entry + r"I(\w+?)((?:Li\d+E)+)E", fn)
+        if m:
+            report[(_PTX_TYPES.get(m.group(1), m.group(1)),
+                    *(int(a) for a in re.findall(r"Li(\d+)E", m.group(2))))
+                   ] = tuple(v)
+    return report
+
+
+def _template_label(fn: str, entry: str) -> str:
+    """``carve_reg_kernel<float, 24>`` as "fp32 24", from its mangled
+    name."""
+    args = re.search(entry + r"I(.*?)EEv", fn).group(1)
+    for mangled, short in _PTX_TYPES.items():
+        args = re.sub(rf"^{mangled}(?=L|$)", short + " ", args)
+    return re.sub(r"Li(\d+)E", r"\1 ", args).strip()
+
+
+def _sass_sections(sass: str):
+    """{mangled kernel name: its SASS text}."""
+    parts = re.split(r"\s+Function : (\S+)", sass)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def _fusion_build():
+    """What the builds of the carve and the dequant show: each instance's
+    registers and spills from ``ptxas -v`` (no spill allowed), the
+    stores of each dequant instance (the vector routes' only 16-byte
+    STG.E.128), and the integer min / max (IMNMX, VIMNMX) of the fp32
+    carve with a 24-slot window, in their SASS."""
+    regs, spills = {}, {}
+    for lib, entry, count in (("robust_fusion", "carve_reg_kernel", 21),
+                              ("robust_fusion", "carve_mem_kernel", 3),
+                              ("fused_fusion", "wsum_dequant_kernel", 3)):
+        found = {f"{entry} {_template_label(fn, entry)}": v
+                 for fn, v in _ptxas_entries(lib).items() if entry in fn}
+        if len(found) != count:
+            raise AssertionError(f"{lib}: {len(found)} {entry} instances, "
+                                 f"expected {count}")
+        for label, (r, st, ld) in sorted(found.items()):
+            regs[label] = r
+            if st or ld:
+                spills[label] = [st, ld]
+    stores = {}
+    for fn, text in _sass_sections(_sass("fused_fusion")).items():
+        if "wsum_dequant_kernel" in fn:
+            ops = re.findall(r"\b(STG\.[\w.]+)", text)
+            stores[f"scale {_template_label(fn, 'wsum_dequant_kernel')}"] = {
+                op: ops.count(op) for op in sorted(set(ops))}
+    carve = next(text for fn, text in
+                 _sass_sections(_sass("robust_fusion")).items()
+                 if "carve_reg_kernelIfLi24E" in fn)
+    minmax = {"VIMNMX": carve.count("VIMNMX"),
+              "IMNMX": carve.count("IMNMX") - carve.count("VIMNMX")}
+    print(f"[phase0] carve / dequant ptxas registers {regs}; spills (store, "
+          f"load bytes) {spills or 'none'}; dequant stores {stores} "
+          f"(scale 0 a thread, 1 a vector, 2 an element); fp32 KM 24 carve "
+          f"integer min / max {minmax}", flush=True)
+    # the vector routes store only whole float4s: 512 bytes a warp store
+    partial = {k: v for k, v in stores.items()
+               if k != "scale 2" and any(".128" not in op for op in v)}
+    if spills or partial or len(stores) != 3 or not sum(minmax.values()):
+        raise AssertionError(f"carve / dequant build: spills {spills}, "
+                             f"stores {stores}, min / max {minmax}")
 
 
 def _decode_build():
@@ -1222,14 +1332,16 @@ def _ssd_work(B, T, H, N, P, L, elem):
     return nbytes, flops
 
 
-def _device_kernels(fn, expect, tag="ssd_", tries=3):
+def _device_kernels(fn, expect, tag="ssd_", tries=5):
     """{name: (launches, device ms)} of the device kernels whose name holds
     ``tag`` in one call of ``fn``, from torch.profiler tracing host and
     device together, as ``_profile`` does (tracing the device alone has
-    returned sessions short of its records on the H100). A profile whose
-    count is not ``expect`` is taken again, up to ``tries`` times, and
-    said so; the caller checks the count it gets, so a call that runs
-    other kernels than planned still fails."""
+    returned sessions short of its records on the H100). The session
+    opens with a spin kernel and a synchronize before the call, since
+    sessions have also lost the first kernels launched in them. A
+    profile whose count is not ``expect`` is taken again, up to ``tries``
+    times, and said so; the caller checks the count it gets, so a call
+    that runs other kernels than planned still fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1238,6 +1350,8 @@ def _device_kernels(fn, expect, tag="ssd_", tries=3):
     for attempt in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES // 10)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
         found = {e.key: (e.count, e.self_device_time_total / 1e3)
@@ -1857,6 +1971,7 @@ def main() -> int:
     _attention_sass()
     _decode_build()
     _ssd_build()
+    _fusion_build()
     mma_peak = _mma_peak(dev, hw.sm_count)
 
     # -- data, made from the seed on the card ---------------------------
@@ -1884,6 +1999,7 @@ def main() -> int:
     # -- phase 1 ---------------------------------------------------------
     t0 = time.perf_counter()
     cases = phase_kernels(dev, hw.hbm_bw, resnet_p, cnn_p, U[0])
+    cases.update(phase_carve_kernel(dev, hw.hbm_bw, resnet_p, cnn_p))
     cases.update(phase_robust_kernels(dev, hw.hbm_bw, resnet_p, cnn_p))
     cases.update(phase_attention_kernels(dev, hw.hbm_bw))
     cases.update(phase_decode_kernel(dev, hw.hbm_bw))

@@ -9,11 +9,13 @@
 // Bound: device-memory bytes. Each element read feeds 2 FLOPs, far below
 // the card's ~20 FLOP/byte fp32 knee, so the least time is the bytes of
 // one pass over the inputs at the HBM rate. What the design does about
-// it: one pass over the input, 16-byte coalesced loads (neighbouring
-// threads own neighbouring 16-byte column vectors of a row) and 16-byte
-// stores of the sums, the fp32 accumulator in registers, and no padded
-// copy of the input: rows at or beyond n are never read and the ragged
-// column tail takes a scalar path.
+// it: one pass over the input, coalesced loads and 16-byte stores of
+// the sums, the fp32 accumulator in registers, and no padded copy of the
+// input: rows at or beyond n are never read and the ragged column tail
+// takes a scalar path. fused_wsum: neighbouring threads own neighbouring
+// 16-byte column vectors of a row. fused_wsum_dequant, whose fp32 output
+// is 4x its int8 input: every warp store writes 512 contiguous bytes
+// (whole sectors) and every warp load reads 128 (see kDqVec below).
 //
 // When the column tiles alone give too few blocks to fill the card, the
 // wrapper splits the rows over gridDim.y: each split writes its partial
@@ -102,37 +104,78 @@ wsum_kernel(const T* __restrict__ u, const float* __restrict__ w,
                           acc);
 }
 
-// 16 int8 codes per thread. VECTOR: Pq % 16 == 0 and q is 16-byte
-// aligned. UNIFORM: blk % 16 == 0, so the thread's 16
-// columns share one quantization block and w[i] * s[i, b] is formed once
-// per row; otherwise the scale is looked up per element.
-template <bool VECTOR, bool UNIFORM>
+// The dequant kernel's layout: a lane owns kDqVec adjacent columns per
+// vector (one 4-byte load of codes, one 16-byte store of sums) and
+// kDqVectors such vectors, 32 * kDqVec columns apart, so every warp load
+// reads 128 contiguous bytes, every warp store writes 512 (whole 32-byte
+// sectors), and a thread has kDqVectors independent loads a row in
+// flight. A warp covers kDqWarpCols columns, a block kDqBlockCols.
+constexpr int kDqVec = 4;
+constexpr int kDqVectors = 4;
+constexpr int kDqWarpCols = 32 * kDqVec * kDqVectors;
+constexpr int kDqBlockCols = kThreads / 32 * kDqWarpCols;
+
+// Where w[i] * s[i, b] is formed: once per row for the thread (blk a
+// multiple of kDqWarpCols, so a warp's columns share one quantization
+// block), once per row and vector (blk a multiple of kDqVec), or per
+// element (any blk, codes read a byte at a time).
+enum DqScale : int { kScaleThread = 0, kScaleVector = 1, kScaleElement = 2 };
+
+// One 16-byte store. Written as a float4 assignment, the first vector's
+// store left the compiler as four 4-byte stores (its sums did not sit in
+// an aligned register quad); a PTX vector store cannot be split.
+__device__ __forceinline__ void store_float4(float* p, const float (&v)[4]) {
+  asm volatile("st.global.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(p),
+               "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3])
+               : "memory");
+}
+
+template <int SCALE>
 __global__ void __launch_bounds__(kThreads)
 wsum_dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
                     const float* __restrict__ w, float* __restrict__ out,
                     int64_t n, int64_t Pq, int64_t blk,
                     int64_t rows_per_split) {
-  constexpr int VEC = 16;
-  const int64_t c0 =
-      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * VEC;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kDqBlockCols +
+                     (threadIdx.x / 32) * kDqWarpCols +
+                     (threadIdx.x % 32) * kDqVec;
   if (c0 >= Pq) return;
   const int64_t nb = Pq / blk;
   const int64_t r0 = static_cast<int64_t>(blockIdx.y) * rows_per_split;
   const int64_t r1 = min(n, r0 + rows_per_split);
-  float acc[VEC];
+  float acc[kDqVectors][kDqVec];
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+  for (int v = 0; v < kDqVectors; ++v)
+#pragma unroll
+    for (int e = 0; e < kDqVec; ++e) acc[v][e] = 0.f;
 
-  if (VECTOR && UNIFORM && c0 + VEC <= Pq) {
-    const int64_t b = c0 / blk;
-#pragma unroll 4
-    for (int64_t i = r0; i < r1; ++i) {
-      const float ws = w[i] * s[i * nb + b];
-      const int4 raw = __ldg(reinterpret_cast<const int4*>(q + i * Pq + c0));
-      const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+  if (SCALE != kScaleElement) {
+    // Pq is a multiple of kDqVec here, so a vector is whole or past Pq;
+    // one past Pq reads no codes and takes the last block's scale
+    int64_t b[kDqVectors];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k)
-        acc[k] = fmaf(ws, static_cast<float>(v[k]), acc[k]);
+    for (int v = 0; v < kDqVectors; ++v)
+      b[v] = SCALE == kScaleThread ? c0 / blk
+                                   : min((c0 + v * 32 * kDqVec) / blk, nb - 1);
+    for (int64_t i = r0; i < r1; ++i) {
+      const float wi = w[i];
+      const int8_t* row = q + i * Pq + c0;
+      const float* srow = s + i * nb;
+      char4 code[kDqVectors];
+#pragma unroll
+      for (int v = 0; v < kDqVectors; ++v)
+        code[v] = c0 + v * 32 * kDqVec < Pq
+                      ? __ldg(reinterpret_cast<const char4*>(row) + v * 32)
+                      : make_char4(0, 0, 0, 0);
+      const float ws0 = wi * srow[b[0]];
+#pragma unroll
+      for (int v = 0; v < kDqVectors; ++v) {
+        const float ws = SCALE == kScaleThread ? ws0 : wi * srow[b[v]];
+        acc[v][0] = fmaf(ws, static_cast<float>(code[v].x), acc[v][0]);
+        acc[v][1] = fmaf(ws, static_cast<float>(code[v].y), acc[v][1]);
+        acc[v][2] = fmaf(ws, static_cast<float>(code[v].z), acc[v][2]);
+        acc[v][3] = fmaf(ws, static_cast<float>(code[v].w), acc[v][3]);
+      }
     }
   } else {
     for (int64_t i = r0; i < r1; ++i) {
@@ -140,15 +183,28 @@ wsum_dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
       const int8_t* row = q + i * Pq;
       const float* srow = s + i * nb;
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        const int64_t c = c0 + k;
-        if (c < Pq)
-          acc[k] = fmaf(wi * srow[c / blk], static_cast<float>(row[c]), acc[k]);
-      }
+      for (int v = 0; v < kDqVectors; ++v)
+#pragma unroll
+        for (int e = 0; e < kDqVec; ++e) {
+          const int64_t c = c0 + v * 32 * kDqVec + e;
+          if (c < Pq)
+            acc[v][e] = fmaf(wi * srow[c / blk], static_cast<float>(row[c]),
+                             acc[v][e]);
+        }
     }
   }
-  store_sums<VEC, VECTOR>(out + static_cast<int64_t>(blockIdx.y) * Pq, c0,
-                          Pq, acc);
+  float* dst = out + static_cast<int64_t>(blockIdx.y) * Pq;
+#pragma unroll
+  for (int v = 0; v < kDqVectors; ++v) {
+    const int64_t c = c0 + v * 32 * kDqVec;
+    if (SCALE != kScaleElement) {
+      if (c < Pq) store_float4(dst + c, acc[v]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kDqVec; ++e)
+        if (c + e < Pq) dst[c + e] = acc[v][e];
+    }
+  }
 }
 
 // out[p] = sum_{k < splits} ws[k, p], in split order.
@@ -229,7 +285,7 @@ int fused_wsum(const void* u, const void* w, void* out, void* ws, int64_t n,
 // q (n, Pq) int8 row-major; s (n, Pq / blk) fp32; w (n,) fp32; out (Pq,)
 // fp32; ws (splits, Pq) fp32 scratch, unused when splits == 1; out and
 // ws 16-byte aligned.
-// `vectorized` promises Pq % 16 == 0 and a 16-byte aligned q.
+// `vectorized` promises Pq % 4 == 0 and a 4-byte aligned q.
 int fused_wsum_dequant(const void* q, const void* s, const void* w, void* out,
                        void* ws, int64_t n, int64_t Pq, int64_t blk,
                        int64_t splits, int64_t rows_per_split,
@@ -241,12 +297,15 @@ int fused_wsum_dequant(const void* q, const void* s, const void* w, void* out,
   float* outp = static_cast<float*>(out);
   float* wsp = static_cast<float*>(ws);
   float* dst = splits == 1 ? outp : wsp;
-  const dim3 grid = grid_for(Pq, 16, splits);
-  if (vectorized && blk % 16 == 0)
-    wsum_dequant_kernel<true, true><<<grid, kThreads, 0, st>>>(
+  const dim3 grid = grid_for(Pq, kDqVec * kDqVectors, splits);
+  if (vectorized && blk % kDqWarpCols == 0)
+    wsum_dequant_kernel<kScaleThread><<<grid, kThreads, 0, st>>>(
+        qp, sp, wp, dst, n, Pq, blk, rows_per_split);
+  else if (vectorized && blk % kDqVec == 0)
+    wsum_dequant_kernel<kScaleVector><<<grid, kThreads, 0, st>>>(
         qp, sp, wp, dst, n, Pq, blk, rows_per_split);
   else
-    wsum_dequant_kernel<false, false><<<grid, kThreads, 0, st>>>(
+    wsum_dequant_kernel<kScaleElement><<<grid, kThreads, 0, st>>>(
         qp, sp, wp, dst, n, Pq, blk, rows_per_split);
   return static_cast<int>(finish_splits(wsp, outp, splits, Pq, st));
 }

@@ -33,7 +33,16 @@
 //     and K bottom values live in registers, in a window of KM >= K slots
 //     (compile-time KM, so the insertion merge is unrolled and branch
 //     free; topk's K slots sit at the top of the window over -inf, botk's
-//     at the bottom over +inf, and only those K are written back). For
+//     at the bottom over +inf, and only those K are written back). Each
+//     thread loads 4 rows before it inserts them, and the next 4 while
+//     it inserts, so several rows are in flight. The windows hold order
+//     keys, and a value enters with two integer min / max a slot (t[j] =
+//     max(t[j], min(x, t[j + 1]))), in place of the ~10 instructions of
+//     an fp32 compare in jnp.sort's order. The key is one-to-one except
+//     that -0 shares +0's key and all NaNs share one, which a stable sort
+//     tells apart by input order; so a warp that meets a -0 or a NaN, in
+//     its carry or its valid rows, takes the exact route of fp32 compares
+//     from that row group on. For
 //     K > 32 the merge works in the (K, P) buffers themselves, in place.
 //     The carry is updated in place: the caller must not alias it.
 //   * Dense, register route (n <= 128): one thread per column, so every
@@ -110,56 +119,189 @@ __device__ __forceinline__ float key_value(uint32_t k) {
 
 // ---------------------------------------------------------------- carve
 
-// Insert x into the ascending top window t and drop its smallest value.
-// x goes after the kept values equal to it, as in a stable sort of
-// [topk; block] whose last KM values are kept.
+constexpr uint32_t kFull = 0xFFFFFFFFu;
+constexpr int kCarveGroup = 4;   // rows a thread loads before it inserts them
+
+// The values order keys cannot carry through the carve exactly: -0 shares
+// +0's key and every NaN one key, while the carve keeps their bits in
+// input order, as a stable sort does.
+__device__ __forceinline__ bool keyless(float f) {
+  return is_nan(f) || __float_as_uint(f) == 0x80000000u;
+}
+
+// order_key and key_value for the values keyless() passes (no -0, no
+// NaN): the key's unsigned order is their fp32 order.
+__device__ __forceinline__ uint32_t plain_key(uint32_t bits) {
+  return bits ^
+         (static_cast<uint32_t>(static_cast<int32_t>(bits) >> 31) | 0x80000000u);
+}
+
+__device__ __forceinline__ uint32_t plain_bits(uint32_t k) {
+  return k ^
+         (static_cast<uint32_t>(static_cast<int32_t>(~k) >> 31) | 0x80000000u);
+}
+
+// The exact route. Insert x into the ascending top window t (fp32 bits)
+// and drop its smallest value. x goes after the kept values equal to it,
+// as in a stable sort of [topk; block] whose last KM values are kept.
 template <int KM>
-__device__ __forceinline__ void top_insert(float (&t)[KM], float x) {
+__device__ __forceinline__ void top_insert(uint32_t (&t)[KM], float x) {
 #pragma unroll
-  for (int j = 0; j < KM - 1; ++j)
-    t[j] = !before(x, t[j + 1]) ? t[j + 1] : (!before(x, t[j]) ? x : t[j]);
-  t[KM - 1] = !before(x, t[KM - 1]) ? x : t[KM - 1];
+  for (int j = 0; j < KM - 1; ++j) {
+    const float a = __uint_as_float(t[j]), b = __uint_as_float(t[j + 1]);
+    t[j] = __float_as_uint(!before(x, b) ? b : (!before(x, a) ? x : a));
+  }
+  const float a = __uint_as_float(t[KM - 1]);
+  t[KM - 1] = __float_as_uint(!before(x, a) ? x : a);
 }
 
 // Insert x into the ascending bottom window b and drop its largest value
 // (the first KM values of a stable sort of [botk; block]).
 template <int KM>
-__device__ __forceinline__ void bot_insert(float (&b)[KM], float x) {
+__device__ __forceinline__ void bot_insert(uint32_t (&b)[KM], float x) {
 #pragma unroll
-  for (int j = KM - 1; j > 0; --j)
-    b[j] = before(x, b[j - 1]) ? b[j - 1] : (before(x, b[j]) ? x : b[j]);
-  b[0] = before(x, b[0]) ? x : b[0];
+  for (int j = KM - 1; j > 0; --j) {
+    const float a = __uint_as_float(b[j - 1]), c = __uint_as_float(b[j]);
+    b[j] = __float_as_uint(before(x, a) ? a : (before(x, c) ? x : c));
+  }
+  const float c = __uint_as_float(b[0]);
+  b[0] = __float_as_uint(before(x, c) ? x : c);
 }
 
-// K <= KM: the column's buffers in registers.
+// The fast route: the same insertions on order keys, two integer min /
+// max a slot. Exact when no key stands for two values.
+template <int KM>
+__device__ __forceinline__ void top_insert_key(uint32_t (&t)[KM], uint32_t x) {
+#pragma unroll
+  for (int j = 0; j < KM - 1; ++j) t[j] = max(t[j], min(x, t[j + 1]));
+  t[KM - 1] = max(t[KM - 1], x);
+}
+
+template <int KM>
+__device__ __forceinline__ void bot_insert_key(uint32_t (&b)[KM], uint32_t x) {
+#pragma unroll
+  for (int j = KM - 1; j > 0; --j) b[j] = min(b[j], max(x, b[j - 1]));
+  b[0] = min(b[0], x);
+}
+
+// plain_key is one-to-one on all 32-bit patterns and plain_bits undoes
+// it, so a window turned into keys and back keeps its bits, -0 and NaN
+// payloads included.
+template <int KM>
+__device__ __forceinline__ void to_keys(uint32_t (&t)[KM]) {
+#pragma unroll
+  for (int j = 0; j < KM; ++j) t[j] = plain_key(t[j]);
+}
+
+template <int KM>
+__device__ __forceinline__ void to_bits(uint32_t (&t)[KM]) {
+#pragma unroll
+  for (int j = 0; j < KM; ++j) t[j] = plain_bits(t[j]);
+}
+
+// Issue the loads of rows [i0, i0 + kCarveGroup) of column p (those
+// below `rows`); returns the rows' validity, bit g for row i0 + g. Nothing
+// here waits for the row values.
+template <typename T>
+__device__ __forceinline__ unsigned load_rows(const T* __restrict__ u,
+                                              const float* __restrict__ valid,
+                                              int64_t rows, int64_t P,
+                                              int64_t p, int64_t i0,
+                                              float (&x)[kCarveGroup]) {
+  unsigned in = 0;
+#pragma unroll
+  for (int g = 0; g < kCarveGroup; ++g) {
+    const int64_t i = i0 + g;
+    x[g] = i < rows ? to_f32(u[i * P + p]) : 0.f;
+    if (i < rows && __ldg(valid + i) > 0.f) in |= 1u << g;
+  }
+  return in;
+}
+
+// K <= KM: the column's buffers in registers, KM slots a window, held as
+// order keys. A warp inserts on the fast route until a lane meets a
+// keyless value in its carry or, group by group, among its valid rows;
+// it then turns its windows back into fp32 bits and takes the exact
+// route for the rest of the block. Every choice is warp-wide
+// (__any_sync), so the warp never diverges on it. The loads of the first
+// row group are issued with the carry's, and each later group's while
+// the one before it is inserted. Two blocks an SM bound the registers at
+// 128: with no bound ptxas holds KM = 16 to 64 registers and spills.
 template <typename T, int KM>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 carve_reg_kernel(const T* __restrict__ u, const float* __restrict__ valid,
                  float* __restrict__ ssum, float* __restrict__ topk,
                  float* __restrict__ botk, int64_t rows, int64_t P,
                  int64_t K) {
   const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const unsigned lanes = __ballot_sync(kFull, p < P);
   if (p >= P) return;
   const int pad = KM - static_cast<int>(K);
-  float t[KM], b[KM];
+  uint32_t t[KM], b[KM];   // order keys on the fast route, fp32 bits on the exact
 #pragma unroll
   for (int j = 0; j < KM; ++j) {
-    t[j] = j >= pad ? topk[(j - pad) * P + p] : -INFINITY;
-    b[j] = j < K ? botk[j * P + p] : INFINITY;
+    t[j] = __float_as_uint(j >= pad ? topk[(j - pad) * P + p] : -INFINITY);
+    b[j] = __float_as_uint(j < K ? botk[j * P + p] : INFINITY);
   }
+  float x[kCarveGroup];
+  unsigned in = load_rows<T>(u, valid, rows, P, p, 0, x);
+  bool odd = false;
+#pragma unroll
+  for (int j = 0; j < KM; ++j)
+    odd |= keyless(__uint_as_float(t[j])) | keyless(__uint_as_float(b[j]));
+  to_keys<KM>(t);
+  to_keys<KM>(b);
+  bool exact = false;
   float acc = 0.f;
-  for (int64_t i = 0; i < rows; ++i) {
-    if (!(__ldg(valid + i) > 0.f)) continue;
-    const float x = to_f32(u[i * P + p]);
-    acc += x;
-    top_insert<KM>(t, x);
-    bot_insert<KM>(b, x);
+  for (int64_t i0 = 0; i0 < rows; i0 += kCarveGroup) {
+#pragma unroll
+    for (int g = 0; g < kCarveGroup; ++g)
+      odd |= ((in >> g) & 1u) && keyless(x[g]);
+    if (!exact && __any_sync(lanes, odd)) {
+      exact = true;
+      to_bits<KM>(t);
+      to_bits<KM>(b);
+    }
+    odd = false;
+    float xn[kCarveGroup];
+    const unsigned in_next =
+        load_rows<T>(u, valid, rows, P, p, i0 + kCarveGroup, xn);
+    if (exact) {
+      // a row at a time from the front of the group, so that the long
+      // insertion is not unrolled kCarveGroup times
+#pragma unroll 1
+      for (; in; in >>= 1) {
+        if (in & 1u) {
+          acc += x[0];
+          top_insert<KM>(t, x[0]);
+          bot_insert<KM>(b, x[0]);
+        }
+#pragma unroll
+        for (int k = 0; k < kCarveGroup - 1; ++k) x[k] = x[k + 1];
+      }
+    } else {
+#pragma unroll
+      for (int g = 0; g < kCarveGroup; ++g) {
+        if (!((in >> g) & 1u)) continue;
+        acc += x[g];
+        const uint32_t k = plain_key(__float_as_uint(x[g]));
+        top_insert_key<KM>(t, k);
+        bot_insert_key<KM>(b, k);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kCarveGroup; ++g) x[g] = xn[g];
+    in = in_next;
   }
   ssum[p] = ssum[p] + acc;
+  if (!exact) {
+    to_bits<KM>(t);
+    to_bits<KM>(b);
+  }
 #pragma unroll
   for (int j = 0; j < KM; ++j) {
-    if (j >= pad) topk[(j - pad) * P + p] = t[j];
-    if (j < K) botk[j * P + p] = b[j];
+    if (j >= pad) topk[(j - pad) * P + p] = __uint_as_float(t[j]);
+    if (j < K) botk[j * P + p] = __uint_as_float(b[j]);
   }
 }
 
@@ -231,7 +373,6 @@ void launch_carve(const void* u, const float* v, float* s, float* t,
 
 // ---------------------------------------------------------------- dense
 
-constexpr uint32_t kFull = 0xFFFFFFFFu;
 constexpr int kRegMax = 128;                // largest n of the register route
 constexpr int kRegThreads = 128;
 constexpr int kWarps = 8;                   // columns (a warp each) per block

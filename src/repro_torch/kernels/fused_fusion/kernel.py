@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -25,13 +25,19 @@ from repro_torch.kernels.fused_fusion.ref import (
     weighted_sum_dequant_ref,
     weighted_sum_ref,
 )
+from repro_torch.utils.device import sm_count
 
 LAUNCHES: Dict[str, int] = {"weighted_sum": 0, "weighted_sum_dequant": 0}
 _COUNT_LOCK = threading.Lock()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _THREADS = 256          # threads per block, as in the CUDA source
-_SM_COUNT: Dict[int, int] = {}
+# the dequant kernel's layout, as in the CUDA source: a lane's vector of
+# DQ_VEC codes, DQ_VECTORS of them a thread, 32 * DQ_VEC columns apart
+DQ_VEC = 4
+DQ_VECTORS = 4
+DQ_WARP_COLS = 32 * DQ_VEC * DQ_VECTORS
+DQ_BLOCK_COLS = _THREADS // 32 * DQ_WARP_COLS
 
 
 def reset_launches() -> None:
@@ -78,23 +84,44 @@ def _contiguous(**tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _row_splits(n: int, cols: int, vec: int,
-                device: torch.device) -> Tuple[int, int]:
+def _row_splits(n: int, tiles: int, sms: int) -> Tuple[int, int]:
     """(splits, rows per split): split the rows over a second grid
-    dimension when the column tiles alone give fewer than about two
-    blocks per SM."""
-    tiles = -(-cols // (_THREADS * vec))
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    sms = _SM_COUNT.get(idx)
-    if sms is None:
-        sms = _SM_COUNT[idx] = \
-            torch.cuda.get_device_properties(idx).multi_processor_count
+    dimension when the ``tiles`` column tiles alone give fewer than about
+    two blocks per SM."""
     target = 2 * sms
     if n <= 1 or tiles >= target:
         return 1, max(n, 1)
     rows = -(-n // min(n, -(-target // tiles)))
     return -(-n // rows), rows
+
+
+class DequantPlan(NamedTuple):
+    """The launch of ``weighted_sum_dequant``. ``scale`` says where the
+    kernel forms w[i] * s[i, b]: ``"thread"`` once a row (a warp's
+    DQ_WARP_COLS columns share one quantization block), ``"vector"`` once
+    a row and vector, ``"element"`` per element, codes read a byte at a
+    time (the block or the codes' alignment is not a multiple of DQ_VEC).
+    Column tile x of split y covers columns [x * DQ_BLOCK_COLS, (x + 1) *
+    DQ_BLOCK_COLS) of rows [y * rows_per_split, (y + 1) * rows_per_split)
+    (both cut at the edge); more than one split adds the splits' partial
+    sums in a second launch."""
+    scale: str
+    blocks: int
+    splits: int
+    rows_per_split: int
+
+
+def dequant_plan(n: int, Pq: int, blk: int, sm_count: int,
+                 aligned: bool = True) -> DequantPlan:
+    """The plan for (n, Pq) codes in quantization blocks of ``blk`` on a
+    card of ``sm_count`` SMs; ``aligned``: the codes start 4-byte
+    aligned."""
+    if not (aligned and Pq % DQ_VEC == 0 and blk % DQ_VEC == 0):
+        scale = "element"
+    else:
+        scale = "thread" if blk % DQ_WARP_COLS == 0 else "vector"
+    blocks = -(-Pq // DQ_BLOCK_COLS)
+    return DequantPlan(scale, blocks, *_row_splits(n, blocks, sm_count))
 
 
 def _check(err: int, entry: str) -> None:
@@ -124,7 +151,7 @@ def weighted_sum(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
         return out
     vec = 16 // updates.element_size()
     vectorized = P % vec == 0 and updates.data_ptr() % 16 == 0
-    splits, rows = _row_splits(n, P, vec, dev)
+    splits, rows = _row_splits(n, -(-P // (_THREADS * vec)), sm_count(dev))
     ws = torch.empty((splits, P), dtype=torch.float32, device=dev) \
         if splits > 1 else None
     with torch.cuda.device(dev):
@@ -169,15 +196,16 @@ def weighted_sum_dequant(codes: torch.Tensor, scales: torch.Tensor,
     out = torch.empty((Pq,), dtype=torch.float32, device=dev)
     if Pq == 0:
         return out
-    vectorized = Pq % 16 == 0 and codes.data_ptr() % 16 == 0
-    splits, rows = _row_splits(n, Pq, 16, dev)
-    ws = torch.empty((splits, Pq), dtype=torch.float32, device=dev) \
-        if splits > 1 else None
+    plan = dequant_plan(n, Pq, block, sm_count(dev),
+                        aligned=codes.data_ptr() % DQ_VEC == 0)
+    ws = torch.empty((plan.splits, Pq), dtype=torch.float32, device=dev) \
+        if plan.splits > 1 else None
     with torch.cuda.device(dev):
         err = lib.fused_wsum_dequant(
             codes.data_ptr(), scales.data_ptr(), weights.data_ptr(),
             out.data_ptr(), ws.data_ptr() if ws is not None else None,
-            n, Pq, block, splits, rows, int(vectorized),
+            n, Pq, block, plan.splits, plan.rows_per_split,
+            int(plan.scale != "element"),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _check(err, "fused_wsum_dequant")

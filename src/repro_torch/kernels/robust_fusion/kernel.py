@@ -15,7 +15,10 @@ the card.
 
 ``topk_carve`` updates the carry IN PLACE on the card (and returns the
 same three tensors), which saves writing a second 2*K*P fp32 carry per
-block; on the CPU it returns fresh tensors, as the reference does.
+block; on the CPU it returns fresh tensors, as the reference does. For
+K <= 32 a warp of 32 columns inserts with integer min / max on order keys
+(the fast route) until it meets a -0 or a NaN, then with fp32 compares
+(the exact route); ``carve_routes`` says which the data take.
 
 ``trimmed_mean`` and ``coord_median`` take one of two routes by n (see
 ``dense_route``): a register sorting network per column for n <= 128, a
@@ -42,6 +45,11 @@ LAUNCHES: Dict[str, int] = {"topk_carve": 0, "trimmed_mean": 0,
 _COUNT_LOCK = threading.Lock()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the carve's register route, as in the CUDA source: its window sizes KM
+# (the smallest that holds K) and the rows a thread loads before it
+# inserts them; K past the last window merges in device memory
+CARVE_WINDOWS = (1, 2, 4, 8, 16, 24, 32)
+CARVE_GROUP = 4
 
 
 def reset_launches() -> None:
@@ -127,6 +135,38 @@ def _check_updates(updates: torch.Tensor, what: str) -> None:
 def _check(err: int, entry: str) -> None:
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+
+
+def carve_window(K: int) -> int:
+    """The register window KM that ``topk_carve`` gives K, or 0 when K
+    goes to the merge in device memory."""
+    return next((km for km in CARVE_WINDOWS if K <= km), 0)
+
+
+def _keyless(x: torch.Tensor) -> torch.Tensor:
+    """The values an order key cannot carry exactly: -0 and NaN."""
+    return torch.isnan(x) | ((x == 0) & torch.signbit(x))
+
+
+def carve_routes(block: torch.Tensor, valid: torch.Tensor,
+                 topk: torch.Tensor, botk: torch.Tensor) -> Dict[str, float]:
+    """Which route the register carve takes on these inputs (a block of
+    at least one row), by warp (32 adjacent columns) and group of
+    CARVE_GROUP rows: ``fast_warps``, the share of warps that insert
+    every row on the fast route, and ``fast_groups``, the share of (warp,
+    row group) steps on it. A warp leaves the fast route for good at its
+    carry or at the first group in which a column holds a -0 or a NaN in
+    a valid row. On any device; nothing is launched."""
+    c, P = block.shape
+    W, G = -(-P // 32), -(-c // CARVE_GROUP)
+    pad = torch.nn.functional.pad
+    carry = pad(_keyless(topk).any(0) | _keyless(botk).any(0), (0, W * 32 - P))
+    odd = pad(_keyless(block.float()) & (valid > 0)[:, None],
+              (0, W * 32 - P, 0, G * CARVE_GROUP - c))
+    groups = odd.reshape(G, CARVE_GROUP, W, 32).any(3).any(1)      # (G, W)
+    fast = ~(carry.reshape(W, 32).any(1) | (groups.cumsum(0) > 0))
+    return {"fast_warps": fast[-1].float().mean().item(),
+            "fast_groups": fast.float().mean().item()}
 
 
 def topk_carve(block: torch.Tensor, valid: torch.Tensor, ssum: torch.Tensor,

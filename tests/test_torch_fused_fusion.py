@@ -15,6 +15,7 @@ from repro.kernels.fused_fusion import ops as jops
 from repro.kernels.fused_fusion import ref as jref
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_fusion import kernel, ops, ref
+from repro_torch.utils import device
 
 TOL = {np.float32: 2e-5, "bfloat16": 2e-2, np.float16: 2e-2}
 
@@ -160,6 +161,74 @@ def test_weighted_sum_dequant_rejects_bad_inputs(case):
         kernel.weighted_sum_dequant(q, s, w, block=block)
 
 
+def _dequant_cover(plan, n, Pq):
+    """The kernel's index map under ``plan``: the rows of each split, and
+    for each thread of the grid (one row per (tile, thread)) the columns
+    of its DQ_VECTORS vectors of DQ_VEC, -1 where past Pq."""
+    splits = [np.arange(y * plan.rows_per_split,
+                        min(n, (y + 1) * plan.rows_per_split))
+              for y in range(plan.splits)]
+    x = np.arange(plan.blocks)[:, None, None, None]
+    t = np.arange(256)[None, :, None, None]
+    v = np.arange(kernel.DQ_VECTORS)[None, None, :, None]
+    e = np.arange(kernel.DQ_VEC)[None, None, None, :]
+    cols = (x * kernel.DQ_BLOCK_COLS + t // 32 * kernel.DQ_WARP_COLS
+            + v * 32 * kernel.DQ_VEC + t % 32 * kernel.DQ_VEC + e)
+    cols = cols.reshape(plan.blocks * 256, kernel.DQ_VECTORS, kernel.DQ_VEC)
+    return splits, np.where(cols < Pq, cols, -1)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 48, 65])
+@pytest.mark.parametrize("Pq,blk", [
+    (384, 128), (2048 * 37, 2048), (2048 * 3, 2048), (16 * 7, 16),
+    (128 * 37, 128), (6 * 1001, 6), (3 * 5, 3), (16, 16)])
+@pytest.mark.parametrize("sms,aligned", [(132, True), (8, True),
+                                         (132, False)])
+def test_dequant_plan_covers_each_row_and_column_once(n, Pq, blk, sms,
+                                                      aligned):
+    plan = kernel.dequant_plan(n, Pq, blk, sms, aligned=aligned)
+    splits, cols = _dequant_cover(plan, n, Pq)
+    # rows: the splits partition [0, n), none empty
+    assert all(len(r) for r in splits)
+    np.testing.assert_array_equal(np.concatenate(splits), np.arange(n))
+    # columns: every column of [0, Pq) once, nothing past it stored
+    live = cols[cols >= 0]
+    np.testing.assert_array_equal(np.sort(live), np.arange(Pq))
+    # a vector is whole or past Pq on the vector routes
+    whole = (cols >= 0).all(2) | (cols < 0).all(2)
+    assert plan.scale == "element" or whole.all()
+    # where the scale is formed once, its columns share one block
+    if plan.scale == "thread":
+        b = np.where(cols >= 0, cols // blk, -1).reshape(len(cols), -1)
+        first = b[:, :1]
+        assert ((b == first) | (b < 0)).all()
+    if plan.scale == "vector":
+        b = np.where(cols >= 0, cols // blk, -1)
+        assert ((b == b[:, :, :1]) | (b < 0)).all()
+    want = ("element" if not aligned or blk % kernel.DQ_VEC
+            else "thread" if blk % kernel.DQ_WARP_COLS == 0 else "vector")
+    assert plan.scale == want
+    # thin grids split rows towards two blocks an SM
+    assert plan.blocks == -(-Pq // kernel.DQ_BLOCK_COLS)
+    if plan.blocks >= 2 * sms or n == 1:
+        assert plan.splits == 1
+    else:
+        assert 2 * plan.blocks * plan.splits >= min(2 * sms, plan.blocks * n)
+
+
+def test_dequant_plan_of_the_compressed_resnet50_block():
+    """The main path's shape: one tile per 4096 columns, no split, the
+    scale formed once a row for a thread."""
+    assert kernel.dequant_plan(2, 22_751_232, 2048, 132) == (
+        "thread", 5555, 1, 2)
+    assert kernel.dequant_plan(65, 384, 128, 132) == ("vector", 1, 65, 1)
+
+
+def test_wrappers_read_the_sm_count_of_utils_device():
+    assert kernel.sm_count is device.sm_count
+    assert not hasattr(kernel, "_SM_COUNT")
+
+
 def test_nvcc_command_targets_hopper_without_running():
     out = _build.library_path("fused_fusion")
     cmd = _build.nvcc_command("fused_fusion", out)
@@ -181,3 +250,11 @@ def test_cuda_source_is_64bit_and_atomic_free():
     assert "atomic" not in code
     assert "int64_t n, int64_t P" in code and "i * P + c0" in code
     assert "weighted_sum_pallas" in src and "weighted_sum_dequant_pallas" in src
+    # the dequant kernel: 64-bit row offsets, one 4-byte code load and one
+    # 16-byte store a vector, in the layout dequant_plan assumes
+    assert "int64_t n, int64_t Pq" in code and "i * Pq + c0" in code
+    assert "reinterpret_cast<const char4*>(row) + v * 32" in code
+    assert "st.global.v4.f32" in code and "store_float4(dst + c, acc[v])" in code
+    for name, value in (("kDqVec", kernel.DQ_VEC),
+                        ("kDqVectors", kernel.DQ_VECTORS)):
+        assert f"constexpr int {name} = {value};" in code

@@ -52,7 +52,16 @@ checked against float64 Eq. 1 a parameter at a time, a 4 x 1024 prefill
 flash-decode launches a step, each one device kernel in the profiler);
 fp32 Zamba2-1.2B (12 of its 38 layers)
 prefills of 2 x 512 and 1 x 300 checked against teacher-forced decoding
-and the plain SSD and attention; and the generate CLI. Phases 2-5 each
+and the plain SSD and attention; and the generate CLI. Phase 6, run
+right after phase 3 on the same data, drives the async and adaptive
+rounds while writer threads land the clients: two Resnet50 x 48 rounds
+with a staleness discount of 0.5 whose second folds the first's
+stragglers on its discounted carry, an async and a serialized round
+over one writer (their walls side by side), int8 and CoordMedian
+async rounds, adaptive CNN4.6 rounds of a fleet where some clients
+never write (the learned gate must close them before the timeout, and
+a service that loads the saved controller must resume its gate), and
+the async adaptive CLI. Phases 2-6 each
 start with the launch counts at 0, and every serving run must launch
 exactly what its prefills, decode steps and fusions take. The
 second-to-last line is ``{"kernels": [...]}`` and the last
@@ -127,16 +136,29 @@ def _check_close(got, want, rtol, atol, what):
     return float(np.max(np.abs(got - want)))
 
 
+def _wsum_f64(rows, weights):
+    """(sum_i w_i * u_i, sum_i w_i) in float64 numpy over an iterable of
+    rows, one row at a time, accumulated in place."""
+    import numpy as np
+
+    acc = tmp = None
+    tot = 0.0
+    for r, w in zip(rows, weights):
+        r = np.asarray(r)
+        if acc is None:
+            acc, tmp = np.zeros(r.shape, np.float64), np.empty(r.shape,
+                                                               np.float64)
+        np.multiply(r, float(w), out=tmp, dtype=np.float64)
+        acc += tmp
+        tot += float(w)
+    return acc, tot
+
+
 def _eq1_f64(rows, weights):
     """Paper Eq. (1) in float64 numpy over an iterable of rows, one row
     at a time."""
-    import numpy as np
-
-    acc = None
-    for r, w in zip(rows, weights):
-        term = float(w) * np.asarray(r, np.float64)
-        acc = term if acc is None else acc + term
-    return acc / (float(np.sum(np.asarray(weights, np.float64))) + 1e-6)
+    acc, tot = _wsum_f64(rows, weights)
+    return acc / (tot + 1e-6)
 
 
 def phase_kernels(dev, hbm_bw, resnet_p, cnn_p, host_row):
@@ -805,6 +827,267 @@ def phase_robust_path(dev, U, Uc, cu_rows):
           flush=True)
     if delta["topk_carve"] < 1:
         raise AssertionError(f"CLI robust round launched no carve: {delta}")
+
+def _writer(store, rows, weights, ids, spread):
+    """Start a thread that writes ``rows[i]`` as client ``ids[i]`` at
+    ``weights[i]``, one every ``spread / len(ids)`` seconds — the fleet
+    landing while a round is open."""
+    import threading
+
+    def run():
+        pause = spread / max(len(ids), 1)
+        for cid, row, w in zip(ids, rows, weights):
+            time.sleep(pause)
+            store.write(cid, row, weight=float(w))
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th
+
+
+def _open_round(svc, what, **kw):
+    """One store round while a writer runs: (fused, report, launches,
+    wall), with the wall, phases and overlap printed."""
+    from repro_torch.launch.aggregate import _report_line
+
+    before = _all_launches()
+    t0 = time.perf_counter()
+    fused, report = svc.aggregate(from_store=True, **kw)
+    wall = time.perf_counter() - t0
+    delta = {k: v for k, v in _launch_delta(before).items() if v}
+    print(f"[phase6] {what}: wall={wall:.3f}s "
+          f"overlap_seconds={report.overlap_seconds:.4f} "
+          f"phase_seconds={report.phase_seconds} launches={delta}",
+          flush=True)
+    print(f"[phase6] {_report_line(report)}", flush=True)
+    if report.empty:
+        raise AssertionError(f"{what}: empty round {report}")
+    return fused, report, delta, wall
+
+
+def _folded(ids, store, before=()):
+    """Indices of ``ids`` a consuming round folded: written, no longer in
+    the store, and not folded by an earlier round."""
+    left = set(store.client_ids())
+    return [i for i, c in enumerate(ids) if c not in left and i not in before]
+
+
+def phase_async_rounds(dev, U, W, Uc, Wc, cu_rows):
+    """Async and adaptive rounds at Table-I widths through the entry
+    points a user calls, with writer threads landing the clients while
+    each round is open; every fused vector against float64 numpy."""
+    import numpy as np
+
+    from repro_torch.core.service import AggregationService
+    from repro_torch.core.store import UpdateStore
+    from repro_torch.launch import aggregate as cli
+
+    out = {}
+    n, P = U.shape
+    ids = [f"client{i:05d}" for i in range(n)]
+    gamma, spread = 0.5, 1.5
+
+    # (a) Resnet50 x 48 fp32, gamma 0.5: round 1 closes on the static
+    # gate at 24 of 48 while the writer is still landing rows 0-39; rows
+    # 40-47 land after the stream closed and before the consume (written
+    # from the store's arrival snapshot, which the round takes between
+    # the two), so they are stragglers of age 1. Round 2 folds every row
+    # round 1 left at gamma^age on top of round 1's carry times gamma
+    store = UpdateStore()
+    svc = AggregationService(store=store, staleness_discount=gamma,
+                             threshold_frac=0.5, monitor_timeout=30.0)
+    chunk = svc._chunk_rows(n, 4 * P)   # 1 row a block at Resnet50
+    snapshot, tail = store.arrival_times, range(40, n)
+
+    def land_stragglers(tenant=None):
+        for i in tail:
+            store.write(ids[i], U[i], weight=float(W[i]))
+        store.arrival_times = snapshot
+        return snapshot(tenant)
+
+    store.arrival_times = land_stragglers
+    th = _writer(store, U[:tail[0]], W, ids[:tail[0]], spread)
+    fused1, rep1, d1, wall1 = _open_round(
+        svc, "Resnet50 x 48 async round 1 (gamma 0.5)", expected_clients=n,
+        async_round=True)
+    th.join()
+    f1 = _folded(ids, store)
+    ages = dict(svc._stale_ages["default"])
+    late = [i for i in range(n) if i not in f1]
+    if not (rep1.async_round and rep1.overlap_seconds > 0 and late
+            and rep1.n_clients == len(f1)
+            and d1["weighted_sum"] >= -(-len(f1) // chunk)
+            and all(ages.get(ids[i]) == 1 for i in tail)):
+        raise AssertionError(f"async round 1: {rep1} {d1} ages={ages}")
+    # float64 sums over round 1's rows and over the stragglers of each
+    # age: round 1 is Eq. 1 over the first, round 2 Eq. 1 over gamma
+    # times the first plus gamma^age times the rest, and the round over
+    # all 48 (below) Eq. 1 over the plain total
+    ws1, tot1 = _wsum_f64((U[i] for i in f1), W[f1])
+    by_age = {}
+    for i in late:
+        by_age.setdefault(ages.get(ids[i], 0), []).append(i)
+    sums = {a: _wsum_f64((U[i] for i in rows), W[rows])
+            for a, rows in by_age.items()}
+    err1 = _check_close(fused1.cpu().numpy(), ws1 / (tot1 + 1e-6), 2e-5,
+                        1e-6, "async round 1 vs float64 Eq. 1")
+    fused2, rep2, d2, wall2 = _open_round(
+        svc, "Resnet50 x 48 async round 2 (the stragglers and the carry)",
+        expected_clients=len(late), async_round=True)
+    if rep2.n_clients != len(late) or store.count() \
+            or d2["weighted_sum"] < -(-len(late) // chunk):
+        raise AssertionError(f"async round 2: {rep2} {d2}")
+    ws2 = gamma * ws1 + sum(gamma ** a * s[0] for a, s in sums.items())
+    tot2 = gamma * tot1 + sum(gamma ** a * s[1] for a, s in sums.items())
+    err2 = _check_close(fused2.cpu().numpy(), ws2 / (tot2 + 1e-6), 2e-5,
+                        1e-6, "async round 2 vs float64 discounted carry")
+    print(f"[phase6] gamma rounds: folded {len(f1)} + {len(late)}, ages "
+          f"{sorted(ages.get(ids[i], 0) for i in late)}, max_abs_err "
+          f"{err1} / {err2}", flush=True)
+    out["gamma_rounds"] = {"folded": [len(f1), len(late)],
+                           "walls": [wall1, wall2],
+                           "overlap_seconds": rep1.overlap_seconds}
+    del svc, store, fused1, fused2, ws2
+    for s in sums.values():
+        ws1 += s[0]
+        tot1 += s[1]
+    want = ws1 / (tot1 + 1e-6)
+    del ws1, sums
+
+    # the same writer schedule with a gate that waits for all 48: the
+    # async round folds under the wait, the serialized one after it
+    walls = {}
+    for mode in (True, False):
+        store = UpdateStore()
+        svc = AggregationService(store=store, threshold_frac=1.0,
+                                 monitor_timeout=30.0)
+        th = _writer(store, U, W, ids, spread)
+        fused, rep, delta, wall = _open_round(
+            svc, f"Resnet50 x 48 {'async' if mode else 'serialized'} "
+            "round, all 48", expected_clients=n, async_round=mode)
+        th.join()
+        if rep.n_clients != n or rep.async_round is not mode \
+                or delta["weighted_sum"] < -(-n // chunk):
+            raise AssertionError(f"{rep} {delta}")
+        _check_close(fused.cpu().numpy(), want, 2e-5, 1e-6,
+                     "all-48 round vs float64 Eq. 1")
+        walls["async" if mode else "serialized"] = {
+            "wall": wall, "overlap_seconds": rep.overlap_seconds,
+            "phase_seconds": rep.phase_seconds}
+        del svc, store, fused
+    print(f"[phase6] Resnet50 x 48 over a {spread} s writer: async wall "
+          f"{walls['async']['wall']:.3f}s, serialized wall "
+          f"{walls['serialized']['wall']:.3f}s", flush=True)
+    out["resnet50_walls"] = walls
+    del want
+
+    # (b) Resnet50 x 48 int8-compressed, one async round
+    store = UpdateStore()
+    svc = AggregationService(store=store, compress=True, threshold_frac=1.0,
+                             monitor_timeout=30.0)
+    th = _writer(store, cu_rows, W, ids, 0.5)
+    fused, rep, delta, wall = _open_round(
+        svc, "Resnet50 x 48 compressed async round", expected_clients=n,
+        async_round=True)
+    th.join()
+    blocks = -(-n // svc._chunk_rows(n, svc._row_bytes(P, np.int8)))
+    if rep.n_clients != n or not rep.async_round \
+            or delta.get("weighted_sum_dequant", 0) < blocks:
+        raise AssertionError(f"compressed async round: {rep} {delta}")
+    err = _check_close(
+        fused.cpu().numpy(),
+        _eq1_f64((cu.dequantize() for cu in cu_rows), W), 2e-5, 1e-6,
+        "compressed async round vs float64 dequantize-then-Eq. 1")
+    print(f"[phase6] compressed async: max_abs_err={err}", flush=True)
+    out["compressed_async"] = {"wall": wall, "launches": delta}
+    del svc, store, fused
+
+    # (c) CNN4.6 x 48 CoordMedian, one async round through the top-k
+    # carve; the first row is in before the round opens, so the carve
+    # can be sized and budgeted
+    Uc48 = Uc[:n]
+    (want_c,) = _order_stats_f64(Uc48, _median_f64)
+    store = UpdateStore()
+    store.write(ids[0], Uc48[0])
+    svc = AggregationService(fusion="coordmedian", store=store,
+                             threshold_frac=1.0, monitor_timeout=30.0,
+                             robust_state_budget=256 << 20)
+    th = _writer(store, Uc48[1:], np.ones(n - 1), ids[1:], 0.3)
+    fused, rep, delta, wall = _open_round(
+        svc, "CoordMedian CNN4.6 x 48 async round", expected_clients=n,
+        async_round=True)
+    th.join()
+    blocks = -(-n // svc._chunk_rows(n, 4 * Uc.shape[1]))
+    if rep.n_clients != n or not rep.async_round \
+            or delta.get("topk_carve", 0) < blocks:
+        raise AssertionError(f"async CoordMedian: {rep} {delta}")
+    err = _check_close(fused.cpu().numpy(), want_c, 1e-5, 1e-5,
+                       "async CoordMedian vs float64 median")
+    print(f"[phase6] CoordMedian async: max_abs_err={err}", flush=True)
+    out["coordmedian_async"] = {"wall": wall, "launches": delta}
+    del svc, store, fused, want_c
+
+    # (d) adaptive, CNN4.6 x 64 expected, 56 write a round and 8 never
+    # do: the static first round waits out its timeout, the learned
+    # gate closes at the 56th
+    expected, writers, timeout, rounds = 64, 56, 4.0, 5
+    store = UpdateStore()
+    svc = AggregationService(store=store, adaptive=True, cost_bias=0.5,
+                             threshold_frac=1.0, monitor_timeout=timeout)
+    all_ids, done, closes = [], set(), []
+    for r in range(rounds):
+        # client k of the run writes row k of Uc (mod its 256 rows)
+        rows = [k % Uc.shape[0] for k in range(r * writers, (r + 1) * writers)]
+        all_ids += [f"r{r}-c{i:02d}" for i in range(writers)]
+        th = _writer(store, Uc[rows], Wc[rows], all_ids[-writers:], 0.4)
+        fused, rep, delta, wall = _open_round(
+            svc, f"adaptive round {r}", expected_clients=expected,
+            async_round=True)
+        th.join()
+        folded = _folded(all_ids, store, done)
+        done.update(folded)
+        src = [k % Uc.shape[0] for k in folded]
+        err = _check_close(fused.cpu().numpy(), _eq1_f64(Uc[src], Wc[src]),
+                           2e-5, 1e-6, f"adaptive round {r} vs float64 Eq. 1")
+        pol = rep.close_policy
+        closes.append({"source": pol.source, "waited": rep.monitor.waited,
+                       "threshold": pol.threshold, "deadline": pol.deadline,
+                       "folded": len(folded), "wall": wall})
+        print(f"[phase6] adaptive round {r}: gate {pol.source} threshold "
+              f"{pol.threshold} deadline {pol.deadline:.3f}s closed after "
+              f"{rep.monitor.waited:.3f}s folded {len(folded)} "
+              f"max_abs_err={err}", flush=True)
+        if rep.n_clients != len(folded) or delta["weighted_sum"] < 1 \
+                or (r > 0 and (pol.source != "learned"
+                               or rep.monitor.waited >= timeout)):
+            raise AssertionError(f"adaptive round {r}: {rep} {delta}")
+    path = svc.save_controller(os.path.join(HERE, "build", "phase6",
+                                            "adaptive"))
+    fresh = AggregationService(adaptive=True, cost_bias=0.5,
+                               threshold_frac=1.0, monitor_timeout=timeout)
+    fresh.load_controller(path)
+    resumed = fresh.controller.policy("default", expected)
+    if resumed != svc.controller.policy("default", expected):
+        raise AssertionError(f"resumed gate {resumed}")
+    print(f"[phase6] controller saved to {os.path.relpath(path, HERE)} and "
+          f"resumed: {resumed}", flush=True)
+    out["adaptive"] = closes
+    del svc, fresh, store, fused
+
+    # (e) the CLI, as a user runs it
+    before = _all_launches()
+    t0 = time.perf_counter()
+    cli.main(["--model", "CNN4.6", "--clients", "16", "--async-rounds",
+              "--adaptive", "--rounds", "3", "--spread", "0.5", "--seed",
+              str(SEED)])
+    delta = _launch_delta(before)
+    print(f"[phase6] CLI async adaptive CNN4.6 x 16: "
+          f"wall={time.perf_counter() - t0:.3f}s launches={delta}",
+          flush=True)
+    if delta["weighted_sum"] < 1:
+        raise AssertionError(f"async CLI launched no kernel: {delta}")
+    return out
+
 
 # rtol, atol. Kernel 6 and its plain version both compute in fp32 and
 # round the output once, so at bf16 / fp16 they differ by about one ulp
@@ -2020,6 +2303,8 @@ def main() -> int:
 
     run_phase("phase2", phase_main_path, dev, U, W, Uc, Wc, cu_rows)  # FedAvg
     run_phase("phase3", phase_robust_path, dev, U, Uc, cu_rows)     # robust
+    # async and adaptive rounds, while the round data is still held
+    run_phase("phase6", phase_async_rounds, dev, U, W, Uc, Wc, cu_rows)
     del U, Uc, cu_rows
     run_phase("phase4", phase_serving, dev, cases)      # a fused decoder
     run_phase("phase5", phase_hybrid_serving, dev, cases)   # fused Zamba2
@@ -2027,7 +2312,9 @@ def main() -> int:
                 for k in _all_launches()}
     missing = [k for k, v in launches.items() if v == 0]
     if missing or by_phase["phase3"].get("topk_carve", 0) < 48 \
-            or by_phase["phase5"].get("ssd_chunk", 0) == 0:
+            or by_phase["phase5"].get("ssd_chunk", 0) == 0 \
+            or any(by_phase["phase6"].get(k, 0) == 0 for k in (
+                "weighted_sum", "weighted_sum_dequant", "topk_carve")):
         raise AssertionError(f"main path never launched {missing}: "
                              f"{by_phase}")
 

@@ -15,11 +15,21 @@ plan's time as
 and reports it as a feasible plan when S fits device memory or the fusion
 streams. The distributed and hierarchical plans of ``repro.core.planner``
 wait for the port of the distributed engine.
+
+Beyond engine choice the planner owns the round-timing economics, as in
+``repro.core.planner``: ``overlap_estimate`` / ``prefer_async`` cost the
+monitor-overlapped round against the serialized one
+(``async_round="auto"``), and ``round_objective`` is the cost-vs-staleness
+trade-off the adaptive controller minimizes. ``round_objective`` is the
+reference's arithmetic; ``prefer_async`` plans with this planner's
+``store_bw`` (the measured host-to-device rate), so on the same load an
+``"auto"`` decision may differ from the reference's, which models the
+store at 819 GB/s.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Collection, Dict, List
+from typing import Collection, Dict, List, Tuple
 
 from repro_torch.core.fusion.base import FusionAlgorithm
 from repro_torch.core.workload import HBM_HEADROOM, Workload, WorkloadClass, classify
@@ -49,6 +59,9 @@ class Planner:
     # pays the build (and, on the first kernel round, the nvcc build of
     # the library) before any byte moves, so warm engines cost less
     compile_overhead: float = 50e-3
+    # async-round residue: what cannot hide under the monitor wait — the
+    # close-time drain of the last partial block plus the final combine
+    overlap_drain_seconds: float = 5e-3
 
     def candidate_plans(self, load: Workload, fusion: FusionAlgorithm,
                         warm_engines: Collection[str] = ()) -> List[Plan]:
@@ -72,6 +85,58 @@ class Planner:
             feasible=s <= hbm_cap or fusion.streamable,
             reason="streams client chunks" if s > hbm_cap else "fits HBM",
         )]
+
+    # -- async overlap costing (Algorithm 1, straggler wait) -----------------
+    def overlap_estimate(
+        self, plan: Plan, expected_wait: float
+    ) -> Tuple[float, float]:
+        """(serialized_seconds, overlapped_seconds) for a store round whose
+        monitor is expected to wait ``expected_wait`` for stragglers.
+        Serialized: wait, then ingest and fuse — wait + est. Overlapped:
+        ingest and fold stream under the wait as arrivals land —
+        max(wait, est) plus the close-time drain residue."""
+        serialized = expected_wait + plan.est_seconds
+        overlapped = (
+            max(expected_wait, plan.est_seconds) + self.overlap_drain_seconds
+        )
+        return serialized, overlapped
+
+    def round_objective(
+        self,
+        expected_wait: float,
+        inclusion: float,
+        cost_bias: float,
+        horizon: float,
+        est_seconds: float = 0.0,
+    ) -> float:
+        """The cost-vs-efficiency trade-off the adaptive controller
+        minimizes (the paper's user-managed knob, §V): a convex blend of
+        the overlapped round wall-clock for closing after
+        ``expected_wait`` seconds (``max(wait, est_seconds)`` plus the
+        drain residue, normalized by ``horizon``, the static timeout) and
+        the staleness ``1 - inclusion``. ``cost_bias`` in [0, 1]: 0
+        optimizes wall-clock alone, 1 inclusion alone. Lower is better."""
+        overlapped = (
+            max(expected_wait, est_seconds) + self.overlap_drain_seconds
+        )
+        t_norm = min(overlapped, horizon) / max(horizon, 1e-9)
+        return (1.0 - cost_bias) * t_norm + cost_bias * (1.0 - inclusion)
+
+    def prefer_async(
+        self,
+        load: Workload,
+        fusion: FusionAlgorithm,
+        expected_wait: float,
+        warm_engines: Collection[str] = (),
+    ) -> bool:
+        """True when the overlapped round model beats the serialized one,
+        i.e. when the monitor wait dominates the drain residue. Only
+        streamable fusions can fold while stragglers write."""
+        if not fusion.streamable:
+            return False
+        plan = self.plan(load, fusion, warm_engines)
+        serialized, overlapped = self.overlap_estimate(plan, expected_wait)
+        return overlapped < serialized
 
     def plan(self, load: Workload, fusion: FusionAlgorithm,
              warm_engines: Collection[str] = ()) -> Plan:

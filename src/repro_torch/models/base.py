@@ -30,7 +30,7 @@ def lm_logits(h: torch.Tensor, embed: torch.Tensor,
 def next_token_loss(*args, **kwargs):
     raise NotImplementedError(
         "next_token_loss comes with the training slice (ROADMAP modules "
-        "item 16(c))")
+        "item 6)")
 
 
 class Model(nn.Module):
@@ -57,4 +57,4 @@ class Model(nn.Module):
     def loss(self, batch):
         raise NotImplementedError(
             "training losses come with the training slice (ROADMAP modules "
-            "item 16(c))")
+            "item 6)")

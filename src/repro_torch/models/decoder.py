@@ -85,7 +85,7 @@ class Decoder(Model):
         if cfg.moe is not None:
             raise NotImplementedError(
                 f"{cfg.arch_id}: MoE layers are not ported yet (ROADMAP "
-                "modules item 16(d))")
+                "modules item 9)")
         super().__init__(cfg)
         dtype = cfg.param_dtype
         self.embed = init_embedding(cfg.vocab, cfg.d_model, dtype,

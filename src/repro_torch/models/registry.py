@@ -9,7 +9,7 @@ from repro_torch.models.decoder import Decoder
 from repro_torch.models.zamba import Zamba
 from repro_torch.utils.device import DeviceLike, resolve_device
 
-_LATER = {"moe": "16(d)", "vlm": "16(d)", "audio": "16(d)", "ssm": "16(d)"}
+_LATER = {"moe": "9", "vlm": "9", "audio": "9", "ssm": "9"}
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None,
@@ -26,7 +26,7 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None,
             and cfg.xlstm is None:
         family = Zamba
     else:
-        item = _LATER.get(cfg.family, "16")
+        item = _LATER.get(cfg.family, "9")
         raise NotImplementedError(
             f"{cfg.arch_id}: the {cfg.family} family is not ported yet "
             f"(ROADMAP modules item {item})")

@@ -41,7 +41,10 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.models.decoder",
             "repro_torch.models.layers.mamba2",
             "repro_torch.models.zamba",
-            "repro_torch.launch.generate"} <= set(mods)
+            "repro_torch.launch.generate",
+            "repro_torch.core.adaptive",
+            "repro_torch.checkpoint",
+            "repro_torch.checkpoint.ckpt"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -54,6 +57,23 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
     res = _run(["-c", code])
     assert res.returncode == 0, res.stderr
     assert "BAD [] LOADED []" in res.stdout, res.stdout
+
+
+@pytest.mark.parametrize("module", ["repro_torch.core.adaptive",
+                                    "repro_torch.checkpoint"])
+def test_adaptive_and_checkpoint_load_no_jax(module):
+    """The adaptive controller and the controller checkpoint are numpy
+    and JSON copies of the JAX package's modules: importing either alone
+    loads neither JAX nor the JAX package (the reference's checkpoint
+    module imports JAX)."""
+    code = (
+        f"import {module}, sys\n"
+        "print('BAD', sorted(m for m in sys.modules if m.split('.')[0]\n"
+        "                    in ('jax', 'jaxlib', 'repro')))\n"
+    )
+    res = _run(["-c", code])
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
 
 
 def _imported_names(path: Path):

@@ -297,16 +297,62 @@ def test_cli_matches_reference_cli():
     assert "streamed=True" in ours.stdout and "device=cpu" in ours.stdout
 
 
+def test_async_adaptive_cli_matches_reference_cli():
+    """``--async-rounds --adaptive``: a writer thread spreads the clients
+    over 0.2 s while each round is open. Which rows a round folds depends
+    on thread timing, so both CLIs are held to the same gates: the static
+    one first, then the learned one, every round streamed."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu")
+    common = ["--model", "CNN4.6", "--clients", "8", "--async-rounds",
+              "--adaptive", "--rounds", "3", "--spread", "0.2"]
+    gates = {}
+    for name, cmd in (("ours", ["repro_torch.launch.aggregate", "--device",
+                                "cpu"]),
+                      ("theirs", ["repro.launch.aggregate"])):
+        res = subprocess.run([sys.executable, "-m", *cmd, *common], env=env,
+                             capture_output=True, text=True, timeout=300,
+                             cwd=REPO)
+        assert res.returncode == 0, res.stderr
+        lines = [ln for ln in res.stdout.splitlines() if "gate=" in ln]
+        assert len(lines) == 3, res.stdout
+        assert all("streamed=True" in ln for ln in lines)
+        overlaps = [float(re.search(r"overlap=([0-9.]+)s", ln).group(1))
+                    for ln in lines]
+        assert overlaps[0] > 0   # the first round opens on an empty store
+        heads = re.findall(r"fused\[:5\]=\[([^\]]*)\]", res.stdout)
+        assert len(heads) == 3 and all(
+            np.isfinite([float(x) for x in h.split()]).all() for h in heads)
+        gates[name] = [re.search(r"gate=(\w+)", ln).group(1)
+                       for ln in lines]
+    assert gates["ours"] == gates["theirs"] == ["static", "learned",
+                                                "learned"]
+    assert "adaptive(cost_bias=0.5)" in res.stdout
+
+
 def test_not_yet_ported_options_raise():
-    for kw, item in [({"adaptive": True}, "8"),
-                     ({"staleness_discount": 0.5}, "8"),
-                     ({"mesh": object()}, "11"),
-                     ({"secure": object()}, "12")]:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            AggregationService(device="cpu", **kw)
-    svc = AggregationService(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        svc.aggregate(from_store=True, async_round=True)
+    """The mesh and secure aggregation still raise, naming their ROADMAP
+    items; the async and adaptive options they once sat beside build."""
+    for kw, item in [({"mesh": object()}, "8"),
+                     ({"secure": object()}, "5")]:
+        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
+            AggregationService(device="cpu", adaptive=True,
+                               staleness_discount=0.5, **kw)
+    svc = AggregationService(device="cpu", adaptive=True, cost_bias=0.3,
+                             staleness_discount=0.5)
+    assert svc.controller is not None and svc.controller.cost_bias == 0.3
+    row = np.arange(7, dtype=np.float32)
+    svc.store.write("c0", row, weight=2.0)
+    fused, rep = svc.aggregate(from_store=True, async_round=True)
+    assert rep.async_round and rep.close_policy.source == "static"
+    # "auto" finds the row landed and 28 bytes to fold: it serializes
+    svc.store.write("c0", row, weight=2.0)
+    fused, rep = svc.aggregate(from_store=True, async_round="auto")
+    assert not rep.async_round and rep.close_policy.source == "learned"
+    for r in svc.history:
+        assert r.n_clients == 1
+    np.testing.assert_allclose(fused.numpy(), row * 2.0 / (2.0 + 1e-6),
+                               rtol=RTOL, atol=ATOL)
 
 
 def test_workload_classes_on_the_card():

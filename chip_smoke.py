@@ -61,7 +61,18 @@ over one writer (their walls side by side), int8 and CoordMedian
 async rounds, adaptive CNN4.6 rounds of a fleet where some clients
 never write (the learned gate must close them before the timeout, and
 a service that loads the saved controller must resume its gate), and
-the async adaptive CLI. Phases 2-6 each
+the async adaptive CLI. Phase 7, run after phase 6 on the same data,
+drives concurrent tenants on one service: four tenants' Resnet50
+rounds (three fp32, one int8) over 1.0 s writers through a
+``RoundScheduler`` at device concurrency 1 and 2, four serialized rounds
+and four separate services, walls side by side, shared against isolated
+vectors, and a profiled round printing the CUDA streams of the
+tenants' fold kernels; a ``FairRoundScheduler`` under a running cap, a
+tenant weight and a host-staging capacity; a ``secure=`` IterAvg round
+over rows masked on the card; a ``repro_torch.workload`` trace (three
+tenants of 32 CNN4.6 clients, a bursty regime with dropout from round
+4) replayed through the static and the learned gate; and the
+``--concurrent-tenants`` CLI. Phases 2-7 each
 start with the launch counts at 0, and every serving run must launch
 exactly what its prefills, decode steps and fusions take. The
 second-to-last line is ``{"kernels": [...]}`` and the last
@@ -828,17 +839,17 @@ def phase_robust_path(dev, U, Uc, cu_rows):
     if delta["topk_carve"] < 1:
         raise AssertionError(f"CLI robust round launched no carve: {delta}")
 
-def _writer(store, rows, weights, ids, spread):
-    """Start a thread that writes ``rows[i]`` as client ``ids[i]`` at
-    ``weights[i]``, one every ``spread / len(ids)`` seconds — the fleet
-    landing while a round is open."""
+def _writer(store, rows, weights, ids, spread, tenant="default"):
+    """Start a thread that writes ``rows[i]`` as ``tenant``'s client
+    ``ids[i]`` at ``weights[i]``, one every ``spread / len(ids)`` seconds
+    — the fleet landing while a round is open."""
     import threading
 
     def run():
         pause = spread / max(len(ids), 1)
         for cid, row, w in zip(ids, rows, weights):
             time.sleep(pause)
-            store.write(cid, row, weight=float(w))
+            store.write(cid, row, weight=float(w), tenant=tenant)
 
     th = threading.Thread(target=run, daemon=True)
     th.start()
@@ -1086,6 +1097,393 @@ def phase_async_rounds(dev, U, W, Uc, Wc, cu_rows):
           flush=True)
     if delta["weighted_sum"] < 1:
         raise AssertionError(f"async CLI launched no kernel: {delta}")
+    return out
+
+
+
+def _profile_streams(fn, tag="wsum"):
+    """{stream id: [(start_us, end_us), ...]} of the device kernels whose
+    name holds ``tag`` in one run of ``fn``, from ``torch.profiler``
+    (host and device traced together, as ``_device_kernels`` does)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_CYCLES // 10)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    streams = {}
+    for e in prof.events():
+        if tag in e.name and str(e.device_type).endswith("CUDA"):
+            streams.setdefault(e.device_resource_id, []).append(
+                (e.time_range.start, e.time_range.end))
+    return streams
+
+
+def _overlapped(streams) -> bool:
+    """Whether two kernel intervals on different streams intersect."""
+    spans = sorted((a, b, s) for s, ivs in streams.items() for a, b in ivs)
+    return any(spans[j][0] < spans[i][1] and spans[j][2] != spans[i][2]
+               for i in range(len(spans)) for j in range(i + 1, len(spans)))
+
+
+def _wfq_order(counts, weights):
+    """Admissions of ``counts`` rounds a tenant, all waiting and admitted
+    one at a time, by the weighted-fair rule: the smallest (virtual
+    time, name) goes next and its virtual time grows by 1 / weight."""
+    vt, left, order = {}, dict(counts), []
+    while any(left.values()):
+        t = min((vt.get(t, 0.0), t) for t, c in left.items() if c)[1]
+        vt[t] = vt.get(t, 0.0) + 1.0 / weights.get(t, 1.0)
+        left[t] -= 1
+        order.append(t)
+    return order
+
+
+def phase_concurrent(dev, U, W, cu_rows):
+    """Phase 7: concurrent tenants on one service, the fair scheduler,
+    secure aggregation and trace replay at Table-I widths through the
+    entry points a user calls; every fused vector against float64
+    numpy."""
+    import contextlib
+    import io
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.cnn_suite import CNN_SUITE
+    from repro_torch.core import (
+        AggregationService,
+        FairRoundScheduler,
+        RoundScheduler,
+        SecureMasking,
+        UpdateStore,
+    )
+    from repro_torch.launch import aggregate as cli
+    from repro_torch.launch.aggregate import _report_line
+    from repro_torch.workload import (
+        BurstyArrivals,
+        FixedSize,
+        Regime,
+        RegimeSchedule,
+        UniformArrivals,
+        WorkloadSpec,
+        start_writer,
+        trace_payload,
+    )
+
+    out = {}
+    n = 12   # rows a tenant writes a round in (a) and (b)
+    P = U.shape[1]
+    ids = [f"client{i:05d}" for i in range(n)]
+
+    # (a) four tenants, one compress=True FedAvg service: appA-appC write
+    # 12 fp32 Resnet50 rows each, appD 12 int8 rows, each over a 1.0 s
+    # writer; four deployments of the same rounds, walls side by side
+    tenants = ("appA", "appB", "appC", "appD")
+    part = {t: slice(n * k, n * (k + 1)) for k, t in enumerate(tenants)}
+    rows = {t: (cu_rows[part[t]] if t == "appD" else U[part[t]])
+            for t in tenants}
+    want = {t: (_eq1_f64((cu.dequantize() for cu in rows[t]), W[part[t]])
+                if t == "appD" else _eq1_f64(rows[t], W[part[t]]))
+            for t in tenants}
+    kw = dict(from_store=True, expected_clients=n, async_round=True)
+
+    def service(store, concurrency=1):
+        return AggregationService(store=store, compress=True,
+                                  threshold_frac=1.0, monitor_timeout=30.0,
+                                  device_concurrency=concurrency)
+
+    def writers(stores):
+        return [_writer(stores[t], rows[t], W[part[t]], ids, 1.0, tenant=t)
+                for t in tenants]
+
+    def concurrent(concurrency):
+        store = UpdateStore()
+        svc = service(store, concurrency)
+        ths = writers({t: store for t in tenants})
+        with RoundScheduler(svc) as sched:
+            res = sched.run_round(tenants, **kw)
+        for th in ths:
+            th.join()
+        return res, [svc]
+
+    def serialized():
+        store = UpdateStore()
+        svc = service(store)
+        res = {}
+        for t in tenants:   # each tenant's writer starts with its round
+            th = _writer(store, rows[t], W[part[t]], ids, 1.0, tenant=t)
+            res[t] = svc.aggregate(tenant=t, **kw)
+            th.join()
+        return res, [svc]
+
+    def separate():
+        stores = {t: UpdateStore() for t in tenants}
+        svcs = {t: service(stores[t]) for t in tenants}
+        ths = writers(stores)
+        with ThreadPoolExecutor(len(tenants)) as pool:
+            futs = {t: pool.submit(svcs[t].aggregate, tenant=t, **kw)
+                    for t in tenants}
+            res = {t: f.result() for t, f in futs.items()}
+        for th in ths:
+            th.join()
+        return res, list(svcs.values())
+
+    modes = {"concurrent": lambda: concurrent(1),
+             "concurrent_dc2": lambda: concurrent(2),
+             "serialized": serialized, "separate": separate}
+    buckets = 2   # the fp32 fold step and the int8 fold step
+    walls, shared = {}, {}
+    for mode, run in modes.items():
+        before = _all_launches()
+        t0 = time.perf_counter()
+        res, svcs = run()
+        wall = time.perf_counter() - t0
+        delta = {k: v for k, v in _launch_delta(before).items() if v}
+        builds = sum(s.local.cache.misses for s in svcs)
+        blocks = {t: -(-n // svcs[0]._chunk_rows(n, svcs[0]._row_bytes(
+            P, np.int8 if t == "appD" else np.float32))) for t in tenants}
+        errs = {}
+        for t in tenants:
+            fused, rep = res[t]
+            print(f"[phase7] {mode}: {_report_line(rep)}", flush=True)
+            if rep.empty or rep.n_clients != n:
+                raise AssertionError(f"{mode} {t}: included "
+                                     f"{rep.n_clients} of {n}: {rep}")
+            errs[t] = _check_close(fused.cpu().numpy(), want[t], 2e-5, 1e-6,
+                                   f"{mode} {t} vs float64 Eq. 1")
+            if mode == "concurrent":
+                shared[t] = fused.cpu().numpy()
+            elif mode == "separate":
+                _check_close(fused.cpu().numpy(), shared[t].astype(np.float64),
+                             2e-5, 1e-6, f"{t}: shared vs isolated service")
+        want_ws = sum(blocks[t] for t in tenants if t != "appD")
+        if delta.get("weighted_sum", 0) != want_ws \
+                or delta.get("weighted_sum_dequant", 0) != blocks["appD"] \
+                or (mode != "separate" and builds > buckets):
+            raise AssertionError(f"{mode}: launches {delta}, blocks {blocks}, "
+                                 f"step builds {builds}")
+        walls[mode] = {
+            "wall": wall, "launches": delta, "step_builds": builds,
+            "max_abs_err": errs,
+            "phase_seconds": {t: res[t][1].phase_seconds for t in tenants}}
+        print(f"[phase7] {mode}: wall={wall:.3f}s launches={delta} "
+              f"step_builds={builds} max_abs_err={errs}", flush=True)
+        del res, svcs
+    print("[phase7] four tenants, writers over 1.0 s: "
+          + ", ".join(f"{m} {w['wall']:.3f}s" for m, w in walls.items()),
+          flush=True)
+    out["four_tenants"] = walls
+
+    # one more concurrent round at device_concurrency 2, profiled: the
+    # streams the tenants' fold kernels ran on, and whether two of them
+    # ran at once (a fact, not a check)
+    streams = _profile_streams(lambda: concurrent(2))
+    overlap = _overlapped(streams)
+    print(f"[phase7] device_concurrency 2, profiled round: fold kernels by "
+          f"stream id {{{', '.join(f'{s}: {len(v)}' for s, v in sorted(streams.items()))}}}, "
+          f"kernel intervals overlapped: {overlap}", flush=True)
+    if len(streams) != len(tenants):
+        raise AssertionError(f"tenants' kernels on streams {sorted(streams)}")
+    out["dc2_streams"] = {"kernels_by_stream": {str(s): len(v) for s, v in
+                                                streams.items()},
+                          "overlapped": overlap}
+    del shared, want
+
+    # (b) FairRoundScheduler: 3 rounds each of appA-appC (Resnet50 x 12)
+    # under max_running 2, appA at weight 2 and a capacity of 1.5 x one
+    # tenant's footprint. A round lands its tenant's next rows before it
+    # ends, so a waiting round's footprint is always live
+    fair = ("appA", "appB", "appC")
+    rounds_b = 3
+    store = UpdateStore()
+    svc = AggregationService(store=store, threshold_frac=1.0,
+                             monitor_timeout=30.0)
+    footprint = 2 * svc._chunk_rows(n, 4 * P) * 4 * P
+    capacity = int(1.5 * footprint)
+
+    def rows_of(k, r):
+        return [(n * k + 4 * r + i) % U.shape[0] for i in range(n)]
+
+    def land(k, r):
+        for cid, j in zip(ids, rows_of(k, r)):
+            store.write(cid, U[j], weight=float(W[j]), tenant=fair[k])
+
+    for k in range(len(fair)):
+        land(k, 0)
+    lock = threading.Lock()
+    samples, done, fused_b = [], {t: 0 for t in fair}, {}
+    inner = svc.aggregate
+    sched = FairRoundScheduler(svc, max_running=2, weights={"appA": 2.0},
+                               capacity_bytes=capacity)
+
+    def sampled(tenant, **akw):
+        samples.append(sched.running())
+        fused, rep = inner(tenant=tenant, **akw)
+        with lock:
+            r = done[tenant]
+            done[tenant] += 1
+        fused_b[tenant, r] = (fused, rep)
+        if r + 1 < rounds_b:
+            land(fair.index(tenant), r + 1)
+        samples.append(sched.running())
+        return fused, rep
+
+    svc.aggregate = sampled
+    t0 = time.perf_counter()
+    try:
+        futs = [sched.submit(t, **kw) for _ in range(rounds_b) for t in fair]
+        for f in futs:
+            f.result()
+    finally:
+        sched.shutdown()
+    wall_b = time.perf_counter() - t0
+    order = sched.admission_order()
+    wfq = _wfq_order({t: rounds_b for t in fair}, {"appA": 2.0})
+    peak = max(len(s) for s in samples)
+    if peak > 2 or any(len(s) > 1 and len(s) * footprint > capacity
+                       for s in samples) or order != wfq:
+        raise AssertionError(f"fair scheduler: running {samples}, admitted "
+                             f"{order}, WFQ {wfq}")
+    errs = []
+    for (t, r), (fused, rep) in sorted(fused_b.items()):
+        sl = rows_of(fair.index(t), r)
+        if rep.n_clients != n:
+            raise AssertionError(f"fair {t} round {r}: {rep}")
+        errs.append(_check_close(fused.cpu().numpy(), _eq1_f64(U[sl], W[sl]),
+                                 2e-5, 1e-6, f"fair {t} round {r}"))
+    print(f"[phase7] fair scheduler: wall={wall_b:.3f}s admitted {order} "
+          f"(WFQ replay {wfq}), running at most {peak}, footprint "
+          f"{footprint} B, capacity {capacity} B, max_abs_err={max(errs)}",
+          flush=True)
+    out["fair"] = {"wall": wall_b, "admitted": order, "peak_running": peak,
+                   "phase_seconds": {f"{t}/{r}": rep.phase_seconds for
+                                     (t, r), (_, rep) in fused_b.items()}}
+    del svc, store, fused_b, inner
+
+    # (c) secure aggregation: 8 Resnet50 rows masked on the card, written,
+    # fused by an IterAvg service; the masks cancel in the plain sum
+    sm = SecureMasking(n_clients=8, seed=SEED)
+    store = UpdateStore()
+    svc = AggregationService(fusion="iteravg", store=store, secure=sm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    masked = [sm.mask_update(i, U[i]) for i in range(8)]
+    torch.cuda.synchronize()
+    mask_s = time.perf_counter() - t0
+    for i, m in enumerate(masked):
+        store.write(ids[i], m)
+    del masked
+    fused, rep, delta = _store_round(svc, 8, "secure IterAvg Resnet50 x 8",
+                                     phase="phase7")
+    ws, tot = _wsum_f64(U[:8], np.ones(8))
+    err = _check_close(fused.cpu().numpy(), ws / tot, 1e-3, 1e-3,
+                       "secure IterAvg vs float64 unmasked mean")
+    print(f"[phase7] secure: mask 8 rows {mask_s:.3f}s on the card, "
+          f"max_abs_err={err}", flush=True)
+    out["secure"] = {"mask_seconds": mask_s, "max_abs_err": err,
+                     "phase_seconds": rep.phase_seconds}
+    del svc, store, fused, ws
+
+    # (d) a trace of 3 tenants x 32 clients at CNN4.6's width over 8
+    # rounds, uniform then bursty with 25% dropout from round 4, replayed
+    # through a RoundScheduler with the static gate and the learned one
+    spec = WorkloadSpec(
+        tenants=fair, n_clients=32, rounds=8,
+        regimes=RegimeSchedule([
+            Regime("uniform", UniformArrivals(spread=0.5), 0),
+            Regime("bursty", BurstyArrivals(spread=0.5, arrive_frac=0.75),
+                   4)]),
+        sizes=FixedSize(dim=CNN_SUITE["CNN4.6"].num_params))
+    trace = spec.build(SEED)
+    payload_bytes = 4 * spec.sizes.dim * spec.n_clients * len(fair)
+    gates = {}
+    for gate in ("static", "adaptive"):
+        store = UpdateStore()
+        svc = AggregationService(store=store, threshold_frac=1.0,
+                                 monitor_timeout=2.0,
+                                 adaptive=gate == "adaptive", cost_bias=0.5)
+        per_round, walls_d = [], []
+        with RoundScheduler(svc) as rsched:
+            for rt in trace.rounds:
+                t0 = time.perf_counter()
+                ths = [start_writer(store, tr, SEED) for tr in rt.tenants]
+                res = rsched.run_round(list(fair), from_store=True,
+                                       expected_clients=spec.n_clients,
+                                       async_round=True)
+                walls_d.append(time.perf_counter() - t0)
+                for th in ths:
+                    th.join()
+                for tr in rt.tenants:
+                    fused, rep = res[tr.tenant]
+                    left = set(store.client_ids(tr.tenant))
+                    folded = [ev for ev in tr.events
+                              if ev.client_id not in left]
+                    src = rep.close_policy.source if rep.close_policy \
+                        else "static"
+                    if rep.n_clients != len(folded) or (
+                            gate == "adaptive" and rt.index > 0
+                            and src == "static"):
+                        raise AssertionError(f"{gate} round {rt.index} "
+                                             f"{tr.tenant}: {rep}")
+                    _check_close(
+                        fused.cpu().numpy(),
+                        _eq1_f64((trace_payload(SEED, tr.tenant, ev.client_id,
+                                                tr.dim) for ev in folded),
+                                 [ev.weight for ev in folded]),
+                        2e-5, 1e-6, f"{gate} round {rt.index} {tr.tenant}")
+                    store.clear(tenant=tr.tenant)   # late rows: next trace
+                    per_round.append({
+                        "round": rt.index, "tenant": tr.tenant,
+                        "regime": tr.regime, "gate": src,
+                        "folded": len(folded), "expected": spec.n_clients,
+                        "waited": rep.monitor.waited})
+                print(f"[phase7] trace {gate} round {rt.index} "
+                      f"({rt.tenants[0].regime}): wall={walls_d[-1]:.3f}s "
+                      + ", ".join(f"{p['tenant']} {p['gate']} folded "
+                                  f"{p['folded']} after {p['waited']:.3f}s"
+                                  for p in per_round[-len(fair):]),
+                      flush=True)
+        gates[gate] = {"wall": sum(walls_d), "walls": walls_d,
+                       "inclusion": sum(p["folded"] for p in per_round)
+                       / sum(p["expected"] for p in per_round),
+                       "rounds": per_round}
+        del svc, store
+    print(f"[phase7] trace_hash={trace.trace_hash()} payloads "
+          f"{payload_bytes} B; static wall {gates['static']['wall']:.3f}s "
+          f"inclusion {gates['static']['inclusion']:.4f}, adaptive wall "
+          f"{gates['adaptive']['wall']:.3f}s inclusion "
+          f"{gates['adaptive']['inclusion']:.4f}", flush=True)
+    out["trace"] = {"trace_hash": trace.trace_hash(),
+                    "payload_bytes": payload_bytes,
+                    **{g: {k: v[k] for k in ("wall", "inclusion")}
+                       for g, v in gates.items()}}
+
+    # (e) the CLI, as a user runs it
+    before = _all_launches()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rounds = cli.main(["--model", "CNN4.6", "--clients", "16",
+                           "--async-rounds", "--concurrent-tenants", "3",
+                           "--device-concurrency", "2", "--rounds", "2",
+                           "--seed", str(SEED)])
+    print(buf.getvalue(), end="", flush=True)
+    delta = _launch_delta(before)
+    labels = sorted(re.search(r"tenant=(\w+)", ln).group(1)
+                    for ln in buf.getvalue().splitlines() if "engine=" in ln)
+    paid = [rep.phase_seconds.get("compile", 0.0) for _, rep in rounds[0]]
+    print(f"[phase7] CLI CNN4.6 x 16, 3 concurrent tenants: "
+          f"wall={time.perf_counter() - t0:.3f}s launches={delta} "
+          f"round-0 compile seconds {paid}", flush=True)
+    if labels != sorted(f"app{i}" for i in range(3) for _ in range(2)) \
+            or sum(c > 0 for c in paid) != 1 or delta["weighted_sum"] < 1:
+        raise AssertionError(f"concurrent CLI: {labels} {paid} {delta}")
     return out
 
 
@@ -2289,7 +2687,7 @@ def main() -> int:
     cases.update(phase_ssd_kernel(dev, hw.hbm_bw, mma_peak))
     print(f"[phase1] seconds={time.perf_counter() - t0:.3f}", flush=True)
 
-    # -- phases 2-5: each path with the counts set to 0 just before it --
+    # -- phases 2-7: each path with the counts set to 0 just before it --
     by_phase = {}
 
     def run_phase(name, fn, *args):
@@ -2305,6 +2703,8 @@ def main() -> int:
     run_phase("phase3", phase_robust_path, dev, U, Uc, cu_rows)     # robust
     # async and adaptive rounds, while the round data is still held
     run_phase("phase6", phase_async_rounds, dev, U, W, Uc, Wc, cu_rows)
+    # concurrent tenants, fair admission, secure rounds, trace replay
+    run_phase("phase7", phase_concurrent, dev, U, W, cu_rows)
     del U, Uc, cu_rows
     run_phase("phase4", phase_serving, dev, cases)      # a fused decoder
     run_phase("phase5", phase_hybrid_serving, dev, cases)   # fused Zamba2
@@ -2314,7 +2714,9 @@ def main() -> int:
     if missing or by_phase["phase3"].get("topk_carve", 0) < 48 \
             or by_phase["phase5"].get("ssd_chunk", 0) == 0 \
             or any(by_phase["phase6"].get(k, 0) == 0 for k in (
-                "weighted_sum", "weighted_sum_dequant", "topk_carve")):
+                "weighted_sum", "weighted_sum_dequant", "topk_carve")) \
+            or any(by_phase["phase7"].get(k, 0) == 0 for k in (
+                "weighted_sum", "weighted_sum_dequant")):
         raise AssertionError(f"main path never launched {missing}: "
                              f"{by_phase}")
 

@@ -38,19 +38,34 @@ static threshold/timeout gate is replaced per round by the
 fed by the store's write timestamps at each close. ``save_controller`` /
 ``load_controller`` persist it as the reference's ``.controller.json``.
 
-Rounds for different tenants may run concurrently on one service; rounds
-for the SAME tenant serialize on a per-tenant lock, and device execution
-is bounded by the ``device_concurrency`` semaphore, which the engine
-holds around each block's copy and fold and waits for under it.
+CONCURRENT ROUND EXECUTION, as in ``repro.core.service``: rounds for
+different tenants run concurrently on one service (``RoundScheduler``
+keeps one worker thread a tenant; ``FairRoundScheduler`` admits rounds
+by weighted-fair virtual time under a running cap and a host-staging
+capacity gate); rounds for the SAME tenant serialize on a per-tenant
+lock, and device execution is bounded by the ``device_concurrency``
+semaphore, which the engine holds around each block's copy and fold and
+waits for under it. On the card each tenant's rounds run on the
+tenant's own CUDA stream, so two tenants' folds may overlap on the
+device (``device_concurrency`` > 1) and one tenant's wait never waits
+for another tenant's kernels. The round's stream waits for the
+caller's stream before it starts, and the caller's stream waits for
+the round's work before ``aggregate`` returns.
 
-Not yet ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): the distributed engines over a mesh and secure aggregation.
+SECURE AGGREGATION: ``secure=SecureMasking(...)`` declares that clients
+write pairwise-masked updates; the masks cancel only under a plain sum,
+so it needs a sum-reducible fusion.
+
+Not yet ported (raises ``NotImplementedError`` naming its ROADMAP item):
+the distributed engines over a mesh.
 """
 from __future__ import annotations
 
 import dataclasses
+import queue
 import threading
 import time
+from concurrent.futures import Future
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,7 +91,11 @@ from repro_torch.core.workload import Workload, WorkloadClass, classify
 from repro_torch.utils.device import DeviceLike, resolve_device, synchronize
 from repro_torch.utils.dtypes import host_array, host_dtype, updates_to_device
 from repro_torch.utils.mem import HardwareSpec, hardware_spec
-from repro_torch.utils.pytree import flat_vector_to_tree, tree_to_flat_vector
+from repro_torch.utils.pytree import (
+    flat_vector_to_tree,
+    tree_leaves,
+    tree_to_flat_vector,
+)
 
 PyTree = Any
 
@@ -169,13 +188,17 @@ class AggregationService:
           adaptive / cost_bias: learn per-tenant arrival curves and close
             rounds on the controller's policy (``self.controller``);
             ``cost_bias`` 0 optimizes round wall-clock, 1 inclusion.
-          mesh / secure: not yet ported; each raises
-            ``NotImplementedError``.
+          device_concurrency: how many rounds may execute on the device
+            at once (a bounded semaphore the engine takes per fold step);
+            each tenant's rounds run on the tenant's own CUDA stream, so
+            raising it lets tenants' folds overlap on the card.
+          secure: a ``repro_torch.core.secure.SecureMasking`` declaring
+            that clients write pairwise-masked updates; needs a
+            sum-reducible fusion (``ValueError`` otherwise).
+          mesh: not yet ported; raises ``NotImplementedError``.
         """
         if mesh is not None:
             raise _not_ported("the distributed engine over a mesh", "8")
-        if secure is not None:
-            raise _not_ported("secure aggregation", "5")
         if staleness_discount is not None and not 0 < staleness_discount <= 1:
             raise ValueError("staleness_discount must be in (0, 1] or None")
         self.staleness_discount = staleness_discount
@@ -194,9 +217,12 @@ class AggregationService:
         self.poll_interval = poll_interval
         if device_concurrency < 1:
             raise ValueError("device_concurrency must be >= 1")
+        self.device_concurrency = device_concurrency
         self.device_sem = threading.BoundedSemaphore(device_concurrency)
         self._state_lock = threading.Lock()
         self._tenant_locks: Dict[str, threading.Lock] = {}  # guarded-by: _state_lock
+        # tenant -> the CUDA stream its rounds run on (the card only)
+        self._streams: Dict[str, torch.cuda.Stream] = {}  # guarded-by: _state_lock
         # per-tenant round continuity: tenant -> (wsum, tot) carry on the
         # service's device, tenant -> {straggler id -> rounds late}, and
         # tenant -> last monitor wait (async_round="auto"'s projection)
@@ -226,6 +252,13 @@ class AggregationService:
                 f"fold runs inside the streamed step); {self.fusion.name} "
                 "is not streamable"
             )
+        if secure is not None and not self.fusion.reducible:
+            raise ValueError(
+                "SecureMasking requires a sum-reducible fusion — pairwise "
+                "masks only cancel under summation — and "
+                f"{self.fusion.name} is not reducible"
+            )
+        self.secure = secure
         if staleness_discount is not None and not self.fusion.weighted:
             raise ValueError(
                 "staleness_discount requires a weighted fusion; "
@@ -329,6 +362,18 @@ class AggregationService:
                 lock = self._tenant_locks[tenant] = threading.Lock()
             return lock
 
+    def _tenant_stream(self, tenant: str) -> Optional[torch.cuda.Stream]:
+        """The tenant's CUDA stream (created on first use); None on the
+        CPU."""
+        if self.device.type != "cuda":
+            return None
+        with self._state_lock:
+            stream = self._streams.get(tenant)
+            if stream is None:
+                stream = self._streams[tenant] = torch.cuda.Stream(
+                    self.device)
+            return stream
+
     # -- Algorithm 1 ----------------------------------------------------------
     def aggregate(
         self,
@@ -361,10 +406,30 @@ class AggregationService:
         ``adaptive=True`` on the service the gate is the controller's
         learned policy for ``tenant`` (``report.close_policy``)."""
         with self._round_lock(tenant):
-            return self._aggregate_impl(
-                updates, weights, template, expected_clients, from_store,
-                async_round, tenant, val_grad,
-            )
+            stream = self._tenant_stream(tenant)
+            if stream is None:
+                return self._aggregate_impl(
+                    updates, weights, template, expected_clients,
+                    from_store, async_round, tenant, val_grad,
+                )
+            # the round's device work runs on the tenant's stream: it
+            # starts after what the caller queued (its inputs), and the
+            # caller's stream waits for it before the result is read
+            caller = torch.cuda.current_stream(self.device)
+            stream.wait_stream(caller)
+            with torch.cuda.stream(stream):
+                fused, report = self._aggregate_impl(
+                    updates, weights, template, expected_clients,
+                    from_store, async_round, tenant, val_grad,
+                )
+            caller.wait_stream(stream)
+            # the result's memory was allocated on the tenant's stream:
+            # the caching allocator must not hand it to the next round
+            # before the caller's stream is done with it
+            for leaf in tree_leaves(fused):
+                if isinstance(leaf, torch.Tensor):
+                    leaf.record_stream(caller)
+            return fused, report
 
     def _aggregate_impl(
         self,
@@ -827,3 +892,313 @@ class AggregationService:
                 "(AggregationService(adaptive=True))"
             )
         load_controller_state(path, self.controller)
+
+
+class RoundScheduler:
+    """Concurrent round execution for N tenants on ONE service, as
+    ``repro.core.service.RoundScheduler``.
+
+    One daemon worker thread a tenant (created on first ``submit``);
+    same-tenant rounds queue FIFO behind it, so the service's per-tenant
+    round lock never blocks a worker. Rounds for different tenants
+    overlap their monitor waits and host staging, each on its tenant's
+    CUDA stream, while device execution is bounded by the service's
+    ``device_concurrency`` semaphore. Starvation control is the store's
+    per-tenant quota (``store.set_quota``).
+
+    Use as a context manager::
+
+        with RoundScheduler(service) as sched:
+            futs = [sched.submit(t, from_store=True, async_round=True,
+                                 expected_clients=48)
+                    for t in ("appA", "appB", "appC")]
+            results = [f.result() for f in futs]   # (fused, report)
+
+    or one fan-out-and-wait cycle with ``run_round([...])``. Futures
+    carry an ``aggregate`` failure as their exception; shutdown drains
+    queued rounds before the workers exit, and joins them."""
+
+    def __init__(self, service: AggregationService):
+        self.service = service
+        self._lock = threading.Lock()
+        self._queues: Dict[str, "queue.Queue"] = {}  # guarded-by: _lock
+        self._threads: Dict[str, threading.Thread] = {}  # guarded-by: _lock
+        self._closed = False  # guarded-by: _lock
+
+    def submit(
+        self, tenant: str = DEFAULT_TENANT, **aggregate_kwargs
+    ) -> "Future":
+        """Enqueue one ``service.aggregate(tenant=..., **kwargs)`` round
+        on the tenant's worker; returns a ``concurrent.futures.Future``
+        resolving to ``(fused, RoundReport)``."""
+        fut: Future = Future()
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("RoundScheduler is shut down")
+            q = self._queues.get(tenant)
+            if q is None:
+                q = self._queues[tenant] = queue.Queue()
+                t = threading.Thread(
+                    target=self._worker, args=(q,),
+                    name=f"round-scheduler:{tenant}", daemon=True,
+                )
+                self._threads[tenant] = t
+                t.start()
+            # enqueue under the lock: a put after shutdown()'s None
+            # sentinel would land on a queue no worker reads and the
+            # future would never resolve
+            q.put((fut, tenant, aggregate_kwargs))
+        return fut
+
+    def run_round(
+        self, tenants: Sequence[str], **aggregate_kwargs
+    ) -> Dict[str, Tuple[PyTree, RoundReport]]:
+        """One concurrent fan-out: submit a round for every tenant, wait
+        for all, return ``{tenant: (fused, report)}``."""
+        futs = {t: self.submit(t, **aggregate_kwargs) for t in tenants}
+        return {t: f.result() for t, f in futs.items()}
+
+    def _worker(self, q: "queue.Queue") -> None:
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            fut, tenant, kwargs = item
+            if not fut.set_running_or_notify_cancel():
+                continue
+            try:
+                fut.set_result(
+                    self.service.aggregate(tenant=tenant, **kwargs)
+                )
+            except BaseException as exc:
+                fut.set_exception(exc)
+
+    def tenants(self) -> List[str]:
+        """Tenants with a live worker."""
+        with self._lock:
+            return sorted(self._threads)
+
+    def shutdown(self, wait: bool = True) -> None:
+        """Stop accepting rounds; each worker drains its queue and
+        exits. With ``wait`` (default) blocks until they have."""
+        with self._lock:
+            if not self._closed:
+                self._closed = True
+                for q in self._queues.values():
+                    q.put(None)
+            threads = list(self._threads.values())
+        if wait:
+            for t in threads:
+                t.join()
+
+    def __enter__(self) -> "RoundScheduler":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.shutdown()
+
+
+class FairRoundScheduler:
+    """Waiting / running round admission for N tenants on ONE service,
+    as ``repro.core.service.FairRoundScheduler``: submitted rounds join a
+    per-tenant WAITING queue, and one admission loop moves them to
+    RUNNING under a concurrency cap.
+
+      * ``max_running`` bounds rounds in flight;
+      * the next tenant is picked by weighted fair queuing: each tenant's
+        virtual time advances by ``1 / weight`` an admitted round, the
+        eligible tenant with the smallest (vtime, name) goes next, and an
+        idle tenant's vtime is clamped forward to the running tenants'
+        minimum on admission (the WFQ no-credit rule);
+      * capacity: a round whose projected host-staging footprint (two
+        streamed chunks, from the store partition's live ``meta``) does
+        not fit ``capacity_bytes`` beside the running rounds' waits,
+        EXCEPT when nothing runs (a too-big round runs alone rather than
+        deadlock);
+      * one round a tenant in flight: same-tenant submissions queue FIFO.
+
+    Use exactly like ``RoundScheduler``."""
+
+    def __init__(
+        self,
+        service: AggregationService,
+        max_running: int = 2,
+        weights: Optional[Dict[str, float]] = None,
+        capacity_bytes: Optional[int] = None,
+    ):
+        if max_running < 1:
+            raise ValueError("max_running must be >= 1")
+        self.service = service
+        self.max_running = int(max_running)
+        self.capacity_bytes = capacity_bytes
+        self._weights = dict(weights or {})
+        self._lock = threading.Lock()
+        self._wake = threading.Condition(self._lock)
+        self._waiting: Dict[str, "queue.SimpleQueue"] = {}  # guarded-by: _lock
+        self._waiting_count: Dict[str, int] = {}  # guarded-by: _lock
+        self._running: Dict[str, int] = {}  # guarded-by: _lock
+        self._vtime: Dict[str, float] = {}  # guarded-by: _lock
+        self._closed = False  # guarded-by: _lock
+        self._drained = False  # guarded-by: _lock
+        self._admission_order: List[str] = []  # guarded-by: _lock
+        self._workers: List[threading.Thread] = []  # guarded-by: _lock
+        self._loop = threading.Thread(
+            target=self._admission_loop, name="fair-scheduler",
+            daemon=True,
+        )
+        self._loop.start()
+
+    # -- submission ----------------------------------------------------------
+    def submit(
+        self, tenant: str = DEFAULT_TENANT, **aggregate_kwargs
+    ) -> "Future":
+        """Queue one round; returns a Future resolving to
+        ``(fused, RoundReport)`` once the round is admitted AND run."""
+        fut: Future = Future()
+        with self._wake:
+            if self._closed:
+                raise RuntimeError("FairRoundScheduler is shut down")
+            q = self._waiting.get(tenant)
+            if q is None:
+                q = self._waiting[tenant] = queue.SimpleQueue()
+            q.put((fut, aggregate_kwargs))
+            self._waiting_count[tenant] = (
+                self._waiting_count.get(tenant, 0) + 1
+            )
+            self._wake.notify_all()
+        return fut
+
+    def run_round(
+        self, tenants: Sequence[str], **aggregate_kwargs
+    ) -> Dict[str, Tuple[PyTree, RoundReport]]:
+        """One fair fan-out: submit a round per tenant, wait for all."""
+        futs = {t: self.submit(t, **aggregate_kwargs) for t in tenants}
+        return {t: f.result() for t, f in futs.items()}
+
+    # -- admission -----------------------------------------------------------
+    def _footprint(self, tenant: str) -> int:
+        """Projected host-staging bytes of the tenant's next round: two
+        streamed chunks (double buffering), sized from the LIVE store
+        partition; an empty partition projects 0."""
+        store = getattr(self.service, "store", None)
+        if store is None:
+            return 0
+        try:
+            n, p, dtype = store.meta(tenant)
+        except LookupError:
+            return 0
+        row = self.service._row_bytes(p, dtype)
+        rows = self.service._chunk_rows(n, row)
+        return 2 * rows * row
+
+    def _eligible_locked(self) -> Optional[str]:
+        """The weighted-fair pick among tenants with waiting rounds,
+        honoring the running cap, one-in-flight-per-tenant and the
+        capacity gate. Caller holds ``self._lock``."""
+        if len(self._running) >= self.max_running:
+            return None
+        used = sum(self._running.values())
+        best: Optional[Tuple[float, str]] = None
+        for tenant, count in self._waiting_count.items():
+            if count <= 0 or tenant in self._running:
+                continue
+            vt = self._vtime.get(tenant, 0.0)
+            if best is None or (vt, tenant) < best:
+                # only the current best is probed: the footprint reads
+                # the store index
+                fp = self._footprint(tenant)
+                if self.capacity_bytes is not None and self._running \
+                        and used + fp > self.capacity_bytes:
+                    continue
+                best = (vt, tenant)
+        return best[1] if best else None
+
+    def _admission_loop(self) -> None:
+        while True:
+            with self._wake:
+                tenant = self._eligible_locked()
+                while tenant is None:
+                    if self._closed and not any(
+                        c > 0 for c in self._waiting_count.values()
+                    ) and not self._running:
+                        self._drained = True
+                        self._wake.notify_all()
+                        return
+                    self._wake.wait(timeout=0.5)
+                    tenant = self._eligible_locked()
+                fut, kwargs = self._waiting[tenant].get_nowait()
+                self._waiting_count[tenant] -= 1
+                self._running[tenant] = self._footprint(tenant)
+                # WFQ no-credit rule: an idle tenant resumes at the
+                # current virtual time, not at zero
+                floor = min(
+                    (self._vtime[t] for t in self._running
+                     if t in self._vtime), default=0.0,
+                )
+                vt = max(self._vtime.get(tenant, 0.0), floor)
+                weight = max(self._weights.get(tenant, 1.0), 1e-9)
+                self._vtime[tenant] = vt + 1.0 / weight
+                self._admission_order.append(tenant)
+            worker = threading.Thread(
+                target=self._run_one, args=(tenant, fut, kwargs),
+                name=f"fair-round:{tenant}", daemon=True,
+            )
+            # tracked so shutdown() can join them: a drained queue only
+            # means each worker left _running, not that it has exited
+            with self._wake:
+                self._workers = [w for w in self._workers if w.is_alive()]
+                self._workers.append(worker)
+            worker.start()
+
+    def _run_one(self, tenant: str, fut: "Future", kwargs: dict) -> None:
+        try:
+            if fut.set_running_or_notify_cancel():
+                try:
+                    fut.set_result(
+                        self.service.aggregate(tenant=tenant, **kwargs)
+                    )
+                except BaseException as exc:
+                    fut.set_exception(exc)
+        finally:
+            with self._wake:
+                self._running.pop(tenant, None)
+                self._wake.notify_all()
+
+    # -- introspection / shutdown --------------------------------------------
+    def running(self) -> List[str]:
+        """Tenants with an admitted round in flight."""
+        with self._lock:
+            return sorted(self._running)
+
+    def waiting(self) -> Dict[str, int]:
+        """Waiting round count per tenant."""
+        with self._lock:
+            return {t: c for t, c in self._waiting_count.items() if c}
+
+    def admission_order(self) -> List[str]:
+        """Tenants in admission order (the fairness audit trail)."""
+        with self._lock:
+            return list(self._admission_order)
+
+    def shutdown(self, wait: bool = True) -> None:
+        """Stop accepting submissions; drain waiting rounds, then stop
+        the admission loop. ``wait`` blocks until drained and joins the
+        loop and every round worker."""
+        with self._wake:
+            self._closed = True
+            self._wake.notify_all()
+        if wait:
+            with self._wake:
+                while not self._drained:
+                    self._wake.wait(timeout=0.5)
+                workers = list(self._workers)
+                self._workers = []
+            self._loop.join()
+            for worker in workers:
+                worker.join()
+
+    def __enter__(self) -> "FairRoundScheduler":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.shutdown()

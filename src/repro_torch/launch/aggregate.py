@@ -18,7 +18,14 @@ run several ``--rounds`` to watch the report's ``gate=`` move from
 ``static`` to ``learned``. ``--compress``
 quantizes every client write to int8 codes + fp32 per-block scales (per-
 tenant error feedback) and the round folds them with the dequant kernel.
-``--device cpu`` runs on the CPU with the kernels' plain versions; the
+``--concurrent-tenants K`` runs tenants ``app0..app{K-1}`` on ONE store
+and ONE service: their writers land while every round is open, and a
+``RoundScheduler`` worker a tenant runs the K rounds at once, each on
+its tenant's CUDA stream, with ``--device-concurrency`` folds on the
+card at a time (default 1); each report line names its tenant, and in
+round 0 one tenant pays the step build (``compile``) for all.
+``--quota-updates`` / ``--quota-bytes`` / ``--quota-policy`` bound each
+tenant's share of the store. ``--device cpu`` runs on the CPU with the kernels' plain versions; the
 default is the card, and the command fails without one.
 """
 from __future__ import annotations
@@ -31,7 +38,7 @@ import zlib
 import numpy as np
 
 from repro_torch.configs.cnn_suite import CNN_SUITE
-from repro_torch.core.service import AggregationService
+from repro_torch.core.service import AggregationService, RoundScheduler
 from repro_torch.core.store import QuotaExceededError, UpdateStore
 from repro_torch.core.workload import Workload, classify
 from repro_torch.utils.mem import bytes_to_human
@@ -108,6 +115,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="rounds to run (adaptive gates need >1 to learn)")
     ap.add_argument("--tenant", default="default",
                     help="tenant label for writes and rounds")
+    ap.add_argument("--concurrent-tenants", type=int, default=0,
+                    help="run this many tenants' rounds concurrently on "
+                         "one store and service via the RoundScheduler "
+                         "(overrides --tenant)")
+    ap.add_argument("--device-concurrency", type=int, default=1,
+                    help="bound on concurrent device execution across "
+                         "tenants' rounds")
     ap.add_argument("--quota-updates", type=int, default=None,
                     help="per-tenant resident-update budget")
     ap.add_argument("--quota-bytes", type=int, default=None,
@@ -120,7 +134,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> list:
+    """Run the rounds; returns each round's ``[(fused, report), ...]``,
+    one pair a tenant."""
     args = parse_args(argv)
     spec = CNN_SUITE[args.model]
     n_params = spec.num_params
@@ -131,11 +147,17 @@ def main(argv=None) -> None:
         threshold_frac=args.threshold_frac, monitor_timeout=args.timeout,
         adaptive=args.adaptive, cost_bias=args.cost_bias,
         compress=args.compress, device=args.device,
+        device_concurrency=args.device_concurrency,
     )
-    tenant = args.tenant
+    tenants = (
+        [f"app{i}" for i in range(args.concurrent_tenants)]
+        if args.concurrent_tenants else [args.tenant]
+    )
     if args.quota_updates is not None or args.quota_bytes is not None:
-        store.set_quota(tenant, max_updates=args.quota_updates,
-                        max_bytes=args.quota_bytes, policy=args.quota_policy)
+        for t in tenants:
+            store.set_quota(t, max_updates=args.quota_updates,
+                            max_bytes=args.quota_bytes,
+                            policy=args.quota_policy)
     load = Workload.for_params(n_params, args.clients,
                                compressed=args.compress)
     print(f"[aggregate] model={args.model} "
@@ -143,61 +165,85 @@ def main(argv=None) -> None:
           f"S={bytes_to_human(load.total_bytes)} "
           f"class={classify(load, svc.hw).value} device={svc.device}"
           + (f" adaptive(cost_bias={args.cost_bias})" if args.adaptive
-             else ""))
-    # arrivals land while the round is open: the overlapped round, or a
-    # serialized wait the controller can observe an arrival curve from
-    overlapped = args.async_rounds or args.adaptive
+             else "")
+          + (f" tenants={tenants}" if len(tenants) > 1 else ""))
+    scheduler = RoundScheduler(svc) if args.concurrent_tenants else None
+    # arrivals land while the rounds are open: the overlapped round, or a
+    # serialized wait the controller can observe an arrival curve from;
+    # with several tenants every tenant's writer runs under every round
+    overlapped = args.async_rounds or args.adaptive \
+        or args.concurrent_tenants > 0
+    out = []
+    try:
+        for rnd in range(args.rounds):
+            out.append(_run_round(args, rnd, svc, store, tenants,
+                                  scheduler, overlapped, n_params))
+    finally:
+        if scheduler is not None:
+            scheduler.shutdown()
+    return out
 
-    for rnd in range(args.rounds):
-        t0 = time.time()
-        write_lat = []
-        rejected = []
 
-        def write_all():
-            pause = args.spread / max(args.clients, 1) if overlapped else 0.0
-            # the same seeded stream per (seed, round, tenant) as
-            # repro.launch.aggregate, so both packages fuse the same updates
-            trng = np.random.default_rng(
-                args.seed + rnd * 1009 + zlib.crc32(tenant.encode())
-            )
-            for i in range(args.clients):
-                if pause:
-                    time.sleep(pause)
-                u = trng.normal(size=(n_params,)).astype(np.float32)
-                if args.compress:
-                    u = svc.compress_update(f"client{i:05d}", u,
-                                            tenant=tenant)
-                try:
-                    write_lat.append(
-                        store.write(f"client{i:05d}", u,
-                                    weight=float(trng.integers(1, 100)),
-                                    tenant=tenant)
-                    )
-                except QuotaExceededError:
-                    rejected.append(i)
+def _run_round(args, rnd, svc, store, tenants, scheduler, overlapped,
+               n_params) -> list:
+    """One round of every tenant: write, fuse, print the report lines."""
+    t0 = time.time()
+    write_lat = []
+    rejected = []
 
-        if overlapped:
-            writer = threading.Thread(target=write_all, daemon=True)
-            writer.start()
+    def write_all(tenant):
+        pause = args.spread / max(args.clients, 1) if overlapped else 0.0
+        # the same seeded stream per (seed, round, tenant) as
+        # repro.launch.aggregate, so both packages fuse the same updates
+        trng = np.random.default_rng(
+            args.seed + rnd * 1009 + zlib.crc32(tenant.encode())
+        )
+        for i in range(args.clients):
+            if pause:
+                time.sleep(pause)
+            u = trng.normal(size=(n_params,)).astype(np.float32)
+            if args.compress:
+                u = svc.compress_update(f"client{i:05d}", u, tenant=tenant)
             try:
-                fused, report = svc.aggregate(
-                    from_store=True, expected_clients=args.clients,
-                    async_round=args.async_rounds, tenant=tenant)
-            finally:
-                writer.join()
-        else:
-            write_all()
-            fused, report = svc.aggregate(from_store=True,
-                                          expected_clients=args.clients,
-                                          tenant=tenant)
-        if not args.async_rounds:
-            store.clear(tenant=tenant)   # serialized rounds don't consume
-        avg_write = np.mean(write_lat) * 1e3 if write_lat else 0.0
-        print(f"[aggregate] round={rnd} {len(write_lat)} updates written "
-              f"(modeled avg write {avg_write:.1f} ms, "
-              f"wall {time.time() - t0:.2f}s)"
-              + (f" [{len(rejected)} writes rejected by quota]"
-                 if rejected else ""))
+                write_lat.append(
+                    store.write(f"client{i:05d}", u,
+                                weight=float(trng.integers(1, 100)),
+                                tenant=tenant)
+                )
+            except QuotaExceededError:
+                rejected.append(tenant)
+
+    kw = dict(from_store=True, expected_clients=args.clients)
+    if overlapped:
+        kw["async_round"] = args.async_rounds
+        writers = [threading.Thread(target=write_all, args=(t,), daemon=True)
+                   for t in tenants]
+        for w in writers:
+            w.start()
+        try:
+            if scheduler is not None:
+                # every tenant's round runs now on its scheduler worker
+                results = scheduler.run_round(tenants, **kw)
+                reports = [results[t] for t in tenants]
+            else:
+                reports = [svc.aggregate(tenant=t, **kw) for t in tenants]
+        finally:
+            for w in writers:
+                w.join()
+    else:
+        for t in tenants:
+            write_all(t)
+        reports = [svc.aggregate(tenant=t, **kw) for t in tenants]
+    if not args.async_rounds:
+        for t in tenants:
+            store.clear(tenant=t)   # serialized rounds don't consume
+    avg_write = np.mean(write_lat) * 1e3 if write_lat else 0.0
+    print(f"[aggregate] round={rnd} {len(write_lat)} updates written "
+          f"(modeled avg write {avg_write:.1f} ms, "
+          f"wall {time.time() - t0:.2f}s)"
+          + (f" [{len(rejected)} writes rejected by quota]"
+             if rejected else ""))
+    for fused, report in reports:
         if report.empty:
             print(f"[aggregate] tenant={report.tenant} empty round "
                   "(monitor timed out with no arrivals)")
@@ -205,6 +251,7 @@ def main(argv=None) -> None:
         print(_report_line(report))
         print(f"[aggregate] tenant={report.tenant} "
               f"fused[:5]={fused[:5].cpu().numpy()}")
+    return reports
 
 
 if __name__ == "__main__":

@@ -18,6 +18,14 @@ SMOKE = REPO / "chip_smoke.py"
 ENV = dict(os.environ, PYTHONPATH=str(REPO / "src"))
 
 
+# the secure masking and the workload generator (numpy-only copies)
+SLICE_MODULES = ["repro_torch.core.secure",
+                 *(f"repro_torch.workload.{m}" for m in (
+                     "arrivals", "sizes", "churn", "regime", "trace",
+                     "replay")),
+                 "repro_torch.workload"]
+
+
 def _modules():
     out = []
     for path in sorted(PORT.rglob("*.py")):
@@ -44,7 +52,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.launch.generate",
             "repro_torch.core.adaptive",
             "repro_torch.checkpoint",
-            "repro_torch.checkpoint.ckpt"} <= set(mods)
+            "repro_torch.checkpoint.ckpt",
+            *SLICE_MODULES} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -74,6 +83,23 @@ def test_adaptive_and_checkpoint_load_no_jax(module):
     res = _run(["-c", code])
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_secure_and_workload_load_no_jax_and_no_kernel(module):
+    """Each module of the secure masking and the workload generator,
+    imported alone, loads neither JAX, nor the JAX package, nor a kernel
+    library."""
+    code = (
+        f"import {module}, sys\n"
+        "from repro_torch.kernels import _build\n"
+        "print('BAD', sorted(m for m in sys.modules if m.split('.')[0]\n"
+        "                    in ('jax', 'jaxlib', 'repro')),\n"
+        "      'LOADED', sorted(_build._LOADED))\n"
+    )
+    res = _run(["-c", code])
+    assert res.returncode == 0, res.stderr
+    assert "BAD [] LOADED []" in res.stdout, res.stdout
 
 
 def _imported_names(path: Path):

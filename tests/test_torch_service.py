@@ -15,6 +15,7 @@ from repro.core.service import AggregationService as JService
 from repro.core.store import UpdateStore as JStore
 from repro_torch.configs.cnn_suite import CNN_SUITE
 from repro_torch.core.compress import compressed_bytes
+from repro_torch.core.secure import SecureMasking
 from repro_torch.core.service import AggregationService
 from repro_torch.core.store import UpdateStore
 from repro_torch.core.workload import (
@@ -330,14 +331,53 @@ def test_async_adaptive_cli_matches_reference_cli():
     assert "adaptive(cost_bias=0.5)" in res.stdout
 
 
+def test_concurrent_tenants_cli_reports_every_tenant():
+    """``--concurrent-tenants 3``: three tenants' rounds on one store and
+    one service through the RoundScheduler, one labelled report line
+    and fused head a tenant and round, each tenant's head equal to the
+    reference CLI's (every round waits for all 8 clients)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu")
+    common = ["--model", "CNN4.6", "--clients", "8", "--concurrent-tenants",
+              "3", "--device-concurrency", "2", "--rounds", "2",
+              "--spread", "0.2", "--threshold-frac", "1.0"]
+    heads = {}
+    for name, cmd in (("ours", ["repro_torch.launch.aggregate", "--device",
+                                "cpu"]),
+                      ("theirs", ["repro.launch.aggregate"])):
+        res = subprocess.run([sys.executable, "-m", *cmd, *common], env=env,
+                             capture_output=True, text=True, timeout=300,
+                             cwd=REPO)
+        assert res.returncode == 0, res.stderr
+        lines = [ln for ln in res.stdout.splitlines() if "engine=" in ln]
+        assert sorted(re.search(r"tenant=(\w+)", ln).group(1)
+                      for ln in lines) == ["app0", "app0", "app1", "app1",
+                                           "app2", "app2"], res.stdout
+        assert all("streamed=True" in ln for ln in lines)
+        heads[name] = {
+            (rnd, t): np.array([float(x) for x in h.split()])
+            for rnd, chunk in enumerate(res.stdout.split("round=")[1:])
+            for t, h in re.findall(
+                r"tenant=(\w+) fused\[:5\]=\[([^\]]*)\]", chunk)}
+    assert "tenants=['app0', 'app1', 'app2']" in res.stdout
+    assert sorted(heads["ours"]) == sorted(heads["theirs"])
+    assert len(heads["ours"]) == 6
+    for key, head in heads["ours"].items():
+        np.testing.assert_allclose(head, heads["theirs"][key], rtol=RTOL,
+                                   err_msg=str(key))
+
+
 def test_not_yet_ported_options_raise():
-    """The mesh and secure aggregation still raise, naming their ROADMAP
-    items; the async and adaptive options they once sat beside build."""
-    for kw, item in [({"mesh": object()}, "8"),
-                     ({"secure": object()}, "5")]:
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-            AggregationService(device="cpu", adaptive=True,
-                               staleness_discount=0.5, **kw)
+    """The mesh still raises, naming its ROADMAP item; secure
+    aggregation (ported since) and the async and adaptive options it
+    once sat beside build."""
+    with pytest.raises(NotImplementedError, match="item 8\\)"):
+        AggregationService(device="cpu", adaptive=True,
+                           staleness_discount=0.5, mesh=object())
+    masking = SecureMasking(n_clients=4)
+    assert AggregationService(device="cpu", adaptive=True,
+                              staleness_discount=0.5,
+                              secure=masking).secure is masking
     svc = AggregationService(device="cpu", adaptive=True, cost_bias=0.3,
                              staleness_discount=0.5)
     assert svc.controller is not None and svc.controller.cost_bias == 0.3

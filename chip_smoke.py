@@ -72,9 +72,17 @@ tenant weight and a host-staging capacity; a ``secure=`` IterAvg round
 over rows masked on the card; a ``repro_torch.workload`` trace (three
 tenants of 32 CNN4.6 clients, a bursty regime with dropout from round
 4) replayed through the static and the learned gate; and the
-``--concurrent-tenants`` CLI. Phases 2-7 each
-start with the launch counts at 0, and every serving run must launch
-exactly what its prefills, decode steps and fusions take. The
+``--concurrent-tenants`` CLI. Phase 8, run after phase 7 on the same
+data, drives the Edge serving path: an ``EdgeAggregatorServer``
+(``repro_torch.serving``'s HTTP front-end and the fair scheduler) over
+a ``compress=True`` FedAvg service takes three tenants' 12 Resnet50
+uploads each over HTTP (fp32, bf16 and int8 frames, writers over 1.0
+s), the socket rounds of fp32 and int8 frames against in-process
+rounds (bitwise), a truncated frame (400) and a frame over the default
+64 MiB cap (413) that land nothing, a streamed TrimmedMean round of 48
+CNN4.6 uploads, and the serve CLI, fp32 and rate-limited int8. Phases
+2-8 each start with the launch counts at 0, and every serving run must
+launch exactly what its prefills, decode steps and fusions take. The
 second-to-last line is ``{"kernels": [...]}`` and the last
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the
 script then exits non-zero without printing a result; so does a
@@ -350,6 +358,10 @@ def phase_carve_kernel(dev, hbm_bw, resnet_p, cnn_p):
         (14, cnn_p, 32, torch.float32, "K = 32, the largest window"),
         (33, 100_003, 16, torch.float32,
          "c = 33: the last row group holds one row"),
+        (9, 3001, 4, torch.float32,
+         "NaN in botk's carry, ragged: masked rows displace it"),
+        (9, 3001, 40, torch.float32,
+         "K > 32, NaN in botk's carry, ragged: masked rows displace it"),
     ]:
         u = torch.randn((c, p), generator=g, device=dev)
         if "specials" in label or "NaN" in label:
@@ -364,6 +376,9 @@ def phase_carve_kernel(dev, hbm_bw, resnet_p, cnn_p):
         topk, botk = base[k:].contiguous(), base[:k].contiguous()
         topk[: k // 2] = -float("inf")    # a half-filled carry
         botk[k - k // 2:] = float("inf")
+        if "botk's carry" in label:   # NaN sorts last: the carry stays sorted
+            botk[-1, ::3] = float("nan")
+            botk[-2:, ::7] = float("nan")
         ssum = torch.randn((p,), generator=g, device=dev)
         del base
         want = rref.topk_carve_ref(u, valid, ssum, topk, botk)
@@ -839,17 +854,26 @@ def phase_robust_path(dev, U, Uc, cu_rows):
     if delta["topk_carve"] < 1:
         raise AssertionError(f"CLI robust round launched no carve: {delta}")
 
-def _writer(store, rows, weights, ids, spread, tenant="default"):
+def _writer(store, rows, weights, ids, spread, tenant="default",
+            errors=None):
     """Start a thread that writes ``rows[i]`` as ``tenant``'s client
     ``ids[i]`` at ``weights[i]``, one every ``spread / len(ids)`` seconds
-    — the fleet landing while a round is open."""
+    — the fleet landing while a round is open. ``store`` is anything
+    with ``store.write``'s signature (an ``HttpStoreClient`` too); with
+    ``errors`` given, a failed write ends the thread and is appended
+    there for the caller to check."""
     import threading
 
     def run():
         pause = spread / max(len(ids), 1)
-        for cid, row, w in zip(ids, rows, weights):
-            time.sleep(pause)
-            store.write(cid, row, weight=float(w), tenant=tenant)
+        try:
+            for cid, row, w in zip(ids, rows, weights):
+                time.sleep(pause)
+                store.write(cid, row, weight=float(w), tenant=tenant)
+        except Exception as exc:
+            if errors is None:
+                raise
+            errors.append((tenant, exc))
 
     th = threading.Thread(target=run, daemon=True)
     th.start()
@@ -1486,6 +1510,282 @@ def phase_concurrent(dev, U, W, cu_rows):
         raise AssertionError(f"concurrent CLI: {labels} {paid} {delta}")
     return out
 
+
+def _post_head(port, token, body_len):
+    """Send an upload's request head declaring ``body_len`` body bytes and
+    return the reply's status line, read before any body byte is sent."""
+    import select
+    import socket
+
+    head = (f"POST /v1/upload HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+            f"Authorization: Bearer {token}\r\n"
+            f"Content-Length: {body_len}\r\n\r\n").encode()
+    with socket.create_connection(("127.0.0.1", port), timeout=10) as s:
+        s.sendall(head)
+        if not select.select([s], [], [], 10)[0]:
+            raise AssertionError("no reply to the upload's head in 10 s")
+        return s.recv(4096).split(b"\r\n", 1)[0].decode()
+
+
+def _post_frame(port, token, frame):
+    """One upload of ``frame``: (status, reply body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("POST", "/v1/upload", body=frame, headers={
+            "Authorization": f"Bearer {token}",
+            "Content-Type": "application/octet-stream"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def phase_edge_serving(dev, U, W, Uc):
+    """Phase 8: the Edge serving path — HTTP uploads through
+    ``EdgeAggregatorServer`` (``repro_torch.serving`` + the fair
+    scheduler) into rounds on the card, and the serve CLI; every fused
+    vector against float64 numpy."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import AggregationService, UpdateStore
+    from repro_torch.core.fusion import get_fusion
+    from repro_torch.fl import EdgeAggregatorServer
+    from repro_torch.launch import serve
+    from repro_torch.launch.aggregate import _report_line
+    from repro_torch.serving import HttpStoreClient, encode_update
+    from repro_torch.utils.dtypes import host_array
+    from repro_torch.workload import trace_payload
+
+    out = {}
+    n = 12   # clients a tenant uploads in (a) and (b)
+    P = U.shape[1]
+    ids = [f"client{i:05d}" for i in range(n)]
+    tenants = ("appA", "appB", "appC")
+    tokens = {f"tok-{t}": t for t in tenants}
+    part = {t: slice(n * k, n * (k + 1)) for k, t in enumerate(tenants)}
+    rows_of = {t: range(n * k, n * (k + 1)) for k, t in enumerate(tenants)}
+    cap = 128 << 20   # a Resnet50 fp32 frame is 91 MB, over the 64 MiB default
+
+    def service(store, **kw):
+        return AggregationService(store=store, threshold_frac=1.0,
+                                  monitor_timeout=60.0, device=dev, **kw)
+
+    # (a) three tenants over HTTP on one compress=True FedAvg service:
+    # appA fp32 frames, appB bf16 frames, appC int8 frames
+    store = UpdateStore()
+    svc = service(store, compress=True)
+    t0 = time.perf_counter()
+    bf16 = [torch.from_numpy(U[j]).to(torch.bfloat16)
+            for j in rows_of["appB"]]
+    rows = {"appA": U[part["appA"]],
+            "appB": [host_array(b) for b in bf16],
+            "appC": [svc.compress_update(cid, U[j], tenant="appC")
+                     for cid, j in zip(ids, rows_of["appC"])]}
+    want = {"appA": _eq1_f64(rows["appA"], W[part["appA"]]),
+            "appB": _eq1_f64((b.float().numpy() for b in bf16),
+                             W[part["appB"]]),
+            "appC": _eq1_f64((cu.dequantize() for cu in rows["appC"]),
+                             W[part["appC"]])}
+    tol = {"appA": (2e-5, 1e-6), "appB": (TOL["half"], 1e-6),
+           "appC": (2e-5, 1e-6)}
+    del bf16
+    frame_bytes = {t: len(encode_update(ids[0], rows[t][0]))
+                   for t in tenants}
+    print(f"[phase8] frames and oracles seconds="
+          f"{time.perf_counter() - t0:.3f}; frame bytes {frame_bytes}",
+          flush=True)
+    with EdgeAggregatorServer(svc, tokens, max_running=2,
+                              max_body_bytes=cap) as edge:
+        before = _all_launches()
+        t0 = time.perf_counter()
+        errors = []
+        clients = [HttpStoreClient("127.0.0.1", edge.port,
+                                   token=f"tok-{t}") for t in tenants]
+        ths = [_writer(c, rows[t], W[part[t]], ids, 1.0, t, errors)
+               for c, t in zip(clients, tenants)]
+        res = edge.run_rounds(tenants, expected_clients=n)
+        for th in ths:
+            th.join()
+        wall = time.perf_counter() - t0
+        for c in clients:
+            c.close()
+        delta = {k: v for k, v in _launch_delta(before).items() if v}
+        m = edge.metrics()
+        errs = {}
+        for t in tenants:
+            fused, rep = res[t]
+            print(f"[phase8] (a) {_report_line(rep)} "
+                  f"phase_seconds={rep.phase_seconds}", flush=True)
+            if rep.empty or rep.n_clients != n:
+                raise AssertionError(f"(a) {t}: included {rep.n_clients} "
+                                     f"of {n}: {rep}")
+            errs[t] = _check_close(fused.cpu().numpy(), want[t], *tol[t],
+                                   f"(a) {t} over HTTP vs float64 Eq. 1")
+        blocks = {t: -(-n // svc._chunk_rows(n, svc._row_bytes(
+            P, np.int8 if t == "appC" else rows[t][0].dtype)))
+            for t in tenants}
+        if errors or m.get("accepted") != 3 * n \
+                or delta.get("weighted_sum", 0) \
+                != blocks["appA"] + blocks["appB"] \
+                or delta.get("weighted_sum_dequant", 0) != blocks["appC"]:
+            raise AssertionError(f"(a): upload errors {errors}, metrics {m}, "
+                                 f"launches {delta}, blocks {blocks}")
+        print(f"[phase8] (a) three tenants over HTTP, writers over 1.0 s: "
+              f"wall={wall:.3f}s accepted={m['accepted']} "
+              f"batches={m['batches']} max_batch={m['max_batch']} "
+              f"launches={delta} max_abs_err={errs}", flush=True)
+        out["three_tenants"] = {
+            "wall": wall, "launches": delta, "max_abs_err": errs,
+            "metrics": {k: m[k] for k in ("accepted", "batches",
+                                          "max_batch")},
+            "phase_seconds": {t: res[t][1].phase_seconds for t in tenants}}
+        store.clear()   # synchronous rounds don't consume
+        del res
+
+        # (b) the socket round against the in-process round, bitwise:
+        # appA's fp32 rows, then appC's int8 rows, one after another over
+        # one client, and the same rows written in-process to a second
+        # store under a service with the same settings
+        ref_store = UpdateStore()
+        ref = service(ref_store, compress=True)
+        cli = HttpStoreClient("127.0.0.1", edge.port, token="tok-appA")
+        out["bitwise"] = {}
+        for kind, src in (("fp32", rows["appA"]), ("int8", rows["appC"])):
+            t0 = time.perf_counter()
+            for cid, row, w in zip(ids, src, W[:n]):
+                cli.write(cid, row, weight=float(w), tenant="appA")
+            up = time.perf_counter() - t0
+            for cid, row, w in zip(ids, src, W[:n]):
+                ref_store.write(cid, row, weight=float(w), tenant="appA")
+            sock, srep = edge.run_round("appA", expected_clients=n)
+            inproc, irep = ref.aggregate(from_store=True, expected_clients=n,
+                                         tenant="appA")
+            same = torch.equal(sock, inproc)
+            print(f"[phase8] (b) {kind}: {n} uploads over one client "
+                  f"{up:.3f}s; socket round {srep.fuse_seconds:.3f}s, "
+                  f"in-process {irep.fuse_seconds:.3f}s; bitwise equal: "
+                  f"{same}", flush=True)
+            if not same or srep.n_clients != n or irep.n_clients != n:
+                raise AssertionError(f"(b) {kind}: socket {srep} vs "
+                                     f"in-process {irep}")
+            out["bitwise"][kind] = {"upload_seconds": up, "equal": same}
+            store.clear()
+            ref_store.clear()
+            del sock, inproc
+        cli.close()
+        del ref, ref_store
+
+        # (c) fail closed on the card's service: a truncated frame at the
+        # 128 MiB cap gets 400, and a Resnet50 fp32 frame at the default
+        # 64 MiB cap gets 413 on its head, before a body byte is read
+        frame = encode_update(ids[0], rows["appA"][0], weight=1.0)
+        count = store.count()
+        status, body = _post_frame(edge.port, "tok-appA", frame[:-7])
+        with EdgeAggregatorServer(svc, tokens) as strict:
+            line = _post_head(strict.port, "tok-appA", len(frame))
+            shed = strict.metrics().get("shed_413", 0)
+        if status != 400 or " 413 " not in line or shed != 1 \
+                or store.count() != count \
+                or edge.metrics().get("malformed") != 1:
+            raise AssertionError(f"(c): truncated frame {status} {body!r}, "
+                                 f"{len(frame)} B at the default cap "
+                                 f"{line!r} (shed_413 {shed}), store "
+                                 f"count {count} -> {store.count()}")
+        print(f"[phase8] (c) truncated frame: {status}; {len(frame)} B "
+              f"frame at the 64 MiB default: {line!r}; store count "
+              f"{store.count()} before and after", flush=True)
+        del frame
+    del rows, want, svc, store
+
+    # (d) robust fusion over HTTP: a streamed TrimmedMean(0.1) service
+    # behind its own server, 48 CNN4.6 clients over 4 writers
+    nr = 48
+    rows_d = Uc[:nr]
+    trim = get_fusion("trimmedmean", beta=0.1).trim_count(nr)
+    (want_d,) = _order_stats_f64(rows_d, _trimmed_f64(trim))
+    store = UpdateStore()
+    svc = AggregationService(fusion=get_fusion("trimmedmean", beta=0.1),
+                             store=store, threshold_frac=1.0,
+                             monitor_timeout=60.0, device=dev)
+    ids_d = [f"client{i:05d}" for i in range(nr)]
+    with EdgeAggregatorServer(svc, {"tok-robust": "robust"}) as edge:
+        before = _all_launches()
+        t0 = time.perf_counter()
+        errors = []
+        clients = [HttpStoreClient("127.0.0.1", edge.port,
+                                   token="tok-robust") for _ in range(4)]
+        ths = [_writer(c, rows_d[k::4], np.ones(nr)[k::4], ids_d[k::4],
+                       0.5, "robust", errors)
+               for k, c in enumerate(clients)]
+        fused, rep = edge.run_round("robust", expected_clients=nr)
+        for th in ths:
+            th.join()
+        wall = time.perf_counter() - t0
+        for c in clients:
+            c.close()
+        delta = {k: v for k, v in _launch_delta(before).items() if v}
+        print(f"[phase8] (d) {_report_line(rep)} "
+              f"phase_seconds={rep.phase_seconds}", flush=True)
+        if errors or rep.n_clients != nr or not rep.streamed \
+                or delta.get("topk_carve", 0) == 0:
+            raise AssertionError(f"(d): upload errors {errors}, {rep}, "
+                                 f"launches {delta}")
+        err = _check_close(fused.cpu().numpy(), want_d, 1e-5, 1e-5,
+                           "(d) TrimmedMean CNN4.6 x 48 over HTTP vs float64")
+        print(f"[phase8] (d) TrimmedMean(0.1) CNN4.6 x 48 over HTTP: "
+              f"wall={wall:.3f}s launches={delta} max_abs_err={err}",
+              flush=True)
+        out["robust"] = {"wall": wall, "launches": delta, "max_abs_err": err,
+                         "phase_seconds": rep.phase_seconds}
+    del svc, store, want_d
+
+    # (e) the serve CLI, as a user runs it: fp32, then int8 frames under
+    # a token bucket of 20 uploads/s that sheds and retries
+    out["cli"] = {}
+    base = ["--tenants", "2", "--clients", "12", "--dim", "1150000",
+            "--rounds", "2", "--seed", str(SEED), "--device", str(dev)]
+    for name, argv in (("fp32", base),
+                       ("int8", base + ["--compress", "--rate", "20",
+                                        "--burst", "4"])):
+        before = _all_launches()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rounds, m = serve.main(argv)
+        wall = time.perf_counter() - t0
+        print(buf.getvalue(), end="", flush=True)
+        delta = {k: v for k, v in _launch_delta(before).items() if v}
+        included = [rep.n_clients for r in rounds for _, rep in r.values()]
+        kernel = "weighted_sum_dequant" if name == "int8" else "weighted_sum"
+        if m.get("accepted") != 2 * 12 * 2 or included != [12] * 4 \
+                or delta.get(kernel, 0) == 0 \
+                or (name == "int8" and m.get("shed_429", 0) == 0):
+            raise AssertionError(f"(e) CLI {name}: metrics {m}, included "
+                                 f"{included}, launches {delta}")
+        if name == "fp32":   # every round against the trace's payloads
+            args = serve.parse_args(argv)
+            trace = serve.build_spec(args).build(args.seed)
+            for rt, results in zip(trace.rounds, rounds):
+                for tr in rt.tenants:
+                    _check_close(
+                        results[tr.tenant][0].cpu().numpy(),
+                        _eq1_f64((trace_payload(args.seed, tr.tenant,
+                                                ev.client_id, args.dim)
+                                  for ev in tr.events),
+                                 [ev.weight for ev in tr.events]),
+                        2e-5, 1e-6, f"(e) CLI round {rt.index} {tr.tenant}")
+        print(f"[phase8] (e) CLI {name}: wall={wall:.3f}s "
+              f"accepted={m['accepted']} shed_429={m.get('shed_429', 0)} "
+              f"batches={m['batches']} launches={delta}", flush=True)
+        out["cli"][name] = {"wall": wall, "launches": delta,
+                            "shed_429": m.get("shed_429", 0)}
+    return out
 
 # rtol, atol. Kernel 6 and its plain version both compute in fp32 and
 # round the output once, so at bf16 / fp16 they differ by about one ulp
@@ -2687,7 +2987,7 @@ def main() -> int:
     cases.update(phase_ssd_kernel(dev, hw.hbm_bw, mma_peak))
     print(f"[phase1] seconds={time.perf_counter() - t0:.3f}", flush=True)
 
-    # -- phases 2-7: each path with the counts set to 0 just before it --
+    # -- phases 2-8: each path with the counts set to 0 just before it --
     by_phase = {}
 
     def run_phase(name, fn, *args):
@@ -2705,6 +3005,8 @@ def main() -> int:
     run_phase("phase6", phase_async_rounds, dev, U, W, Uc, Wc, cu_rows)
     # concurrent tenants, fair admission, secure rounds, trace replay
     run_phase("phase7", phase_concurrent, dev, U, W, cu_rows)
+    # the Edge serving path: HTTP uploads into rounds on the card
+    run_phase("phase8", phase_edge_serving, dev, U, W, Uc)
     del U, Uc, cu_rows
     run_phase("phase4", phase_serving, dev, cases)      # a fused decoder
     run_phase("phase5", phase_hybrid_serving, dev, cases)   # fused Zamba2
@@ -2716,7 +3018,9 @@ def main() -> int:
             or any(by_phase["phase6"].get(k, 0) == 0 for k in (
                 "weighted_sum", "weighted_sum_dequant", "topk_carve")) \
             or any(by_phase["phase7"].get(k, 0) == 0 for k in (
-                "weighted_sum", "weighted_sum_dequant")):
+                "weighted_sum", "weighted_sum_dequant")) \
+            or any(by_phase["phase8"].get(k, 0) == 0 for k in (
+                "weighted_sum", "weighted_sum_dequant", "topk_carve")):
         raise AssertionError(f"main path never launched {missing}: "
                              f"{by_phase}")
 

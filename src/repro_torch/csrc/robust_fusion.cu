@@ -3,8 +3,10 @@
 // robust_topk_carve replaces repro/kernels/robust_fusion/kernel.py
 // topk_carve_pallas: merge a (c, P) block into the carried running sum
 // ssum (P,) and the ascending per-coordinate buffers topk (K, P) (the K
-// largest values seen) and botk (K, P) (the K smallest). Rows with
-// valid == 0 never enter.
+// largest values seen) and botk (K, P) (the K smallest). A row with
+// valid == 0 adds nothing to ssum and enters as the reference masks it,
+// -inf for topk and +inf for botk: so it changes only a botk that holds
+// a NaN, whose last NaN it displaces.
 // robust_trimmed_mean replaces trimmedmean_pallas and robust_coord_median
 // replaces coordmedian_pallas: per coordinate, order the n client values,
 // then the mean of ranks [trim, n - trim), or the middle value (the mean
@@ -297,6 +299,19 @@ carve_reg_kernel(const T* __restrict__ u, const float* __restrict__ valid,
   if (!exact) {
     to_bits<KM>(t);
     to_bits<KM>(b);
+  } else {
+    // The masked rows enter botk as +inf, after the valid rows: +inf ties
+    // only with +inf and precedes only NaN, so where it enters changes
+    // no bit. The fast route's windows hold no NaN, so it skips this;
+    // after KM the window holds no NaN either. Counting them here, not
+    // in the loop, keeps the fast route's registers.
+    int n = 0;
+#pragma unroll 1
+    for (int64_t i = 0; i < rows && n < KM; ++i) {
+      if (__ldg(valid + i) > 0.f) continue;
+      bot_insert<KM>(b, INFINITY);
+      ++n;
+    }
   }
 #pragma unroll
   for (int j = 0; j < KM; ++j) {
@@ -320,6 +335,15 @@ carve_mem_kernel(const T* __restrict__ u, const float* __restrict__ valid,
   float tmin = tc[0];
   float bmax = bc[(K - 1) * P];
   float acc = 0.f;
+  auto bot_in = [&](float x) {
+    int64_t j = K - 1;
+    while (j > 0 && before(x, bc[(j - 1) * P])) {
+      bc[j * P] = bc[(j - 1) * P];
+      --j;
+    }
+    bc[j * P] = x;
+    bmax = bc[(K - 1) * P];
+  };
   for (int64_t i = 0; i < rows; ++i) {
     if (!(__ldg(valid + i) > 0.f)) continue;
     const float x = to_f32(u[i * P + p]);
@@ -333,17 +357,14 @@ carve_mem_kernel(const T* __restrict__ u, const float* __restrict__ valid,
       tc[j * P] = x;
       tmin = tc[0];
     }
-    if (before(x, bmax)) {
-      int64_t j = K - 1;
-      while (j > 0 && before(x, bc[(j - 1) * P])) {
-        bc[j * P] = bc[(j - 1) * P];
-        --j;
-      }
-      bc[j * P] = x;
-      bmax = bc[(K - 1) * P];
-    }
+    if (before(x, bmax)) bot_in(x);
   }
   ssum[p] = ssum[p] + acc;
+  // the masked rows enter botk as +inf, after the valid rows (where it
+  // enters changes no bit, as in carve_reg_kernel): each one displaces
+  // the last NaN while there is one
+  for (int64_t i = 0; i < rows && before(INFINITY, bmax); ++i)
+    if (!(__ldg(valid + i) > 0.f)) bot_in(INFINITY);
 }
 
 template <typename T, int KM>

@@ -39,7 +39,8 @@ def trimmedmean_ref(updates: torch.Tensor, trim: int) -> torch.Tensor:
 def topk_carve_ref(block, valid, ssum, topk, botk):
     """The streaming carve fold: merge a (c, P) block into the carry
     (ssum (P,), topk (K, P) ascending, botk (K, P) ascending). Rows with
-    ``valid == 0`` are masked to -/+inf and never survive. Returns fresh
+    ``valid == 0`` are masked to -/+inf: such a +inf survives only in
+    place of a NaN in botk, as NaN sorts after it. Returns fresh
     (ssum, topk, botk)."""
     u = block.float()
     k_cap = topk.shape[0]

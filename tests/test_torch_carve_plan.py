@@ -22,7 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings, strategies as st
+from hypothesis import example, given, settings, strategies as st
 
 from repro.kernels.robust_fusion import kernel as jkernel
 from repro_torch.kernels import _build
@@ -154,6 +154,10 @@ def carve_model(block, valid, ssum, topk, botk, route="auto"):
             b = np.where(exact, bot_exact(b, x[i]), bot_key(b, k))
     t = np.where(exact, t, plain_bits(t))
     b = np.where(exact, b, plain_bits(b))
+    # the masked rows enter botk as +inf after the valid rows, at most KM
+    # of them; a +inf displaces only a NaN, which the fast route never holds
+    for _ in range(min(c - int((np.asarray(valid) > 0).sum()), km)):
+        b = np.where(exact, bot_exact(b, np.full(P, np.inf, F32)), b)
     fast = np.array(fast).reshape(-1, P)
     return (ssum + acc).astype(F32), floats(t[pad:]), floats(b[:K]), fast
 
@@ -215,6 +219,8 @@ def _reference(args):
        P=st.sampled_from([1, 31, 33, 70]), fill=st.integers(0, 32),
        specials=st.booleans(), ragged=st.booleans(),
        seed=st.integers(0, 2 ** 32 - 1))
+# two NaNs in a column's carry fill botk (K = 1), and the one row is masked
+@example(K=1, c=1, P=70, fill=1, specials=True, ragged=True, seed=115)
 def test_model_matches_the_reference_bit_for_bit(K, c, P, fill, specials,
                                                   ragged, seed):
     args = _case(seed, c, P, K, fill, specials, ragged)
@@ -243,6 +249,30 @@ def test_model_matches_pallas(K, c):
     want = tuple(np.asarray(w) for w in want)
     _assert_same(carve_model(*args), want, "model vs Pallas")
     _assert_same(_reference(args), want, "topk_carve_ref vs Pallas")
+
+
+@pytest.mark.parametrize("K", [1, 4, 23, 32, 40])
+def test_a_masked_row_displaces_a_nan_from_botk(K):
+    """The reference masks a row with valid == 0 to +inf for botk, and
+    +inf sorts before NaN, so each masked row pushes botk's last NaN out.
+    The Pallas kernel, the plain version (the wrapper on the CPU) and,
+    for K <= 32, the model agree bit for bit."""
+    args = _case(K, 7, 70, K, K, False, False)
+    args[1][1:] = 0.0                     # one valid row, six masked
+    args[4][-1, ::3] = floats(np.array([NAN_A], U32))[0]
+    args[4][-3:, ::7] = floats(np.array([NAN_B], U32))[0]
+    want = jkernel.topk_carve_pallas(*map(jnp.asarray, args))
+    want = tuple(np.asarray(w) for w in want)
+    got = kernel.topk_carve(*map(torch.from_numpy, args))
+    _assert_same(tuple(t.numpy() for t in got), want, "wrapper vs Pallas")
+    if kernel.carve_window(K):
+        _assert_same(carve_model(*args), want, "model vs Pallas")
+        assert not carve_model(*args)[3][:, :32].any()   # the exact route
+    # one to three NaNs a column: the valid row displaces one, the masked
+    # rows the rest; without them a NaN stays where the column has two
+    assert not np.isnan(want[2]).any()
+    alone = _reference((args[0][:1], args[1][:1]) + args[2:])
+    assert np.isnan(alone[2][:, ::7]).any() == (K > 1)
 
 
 def test_warps_switch_route_at_the_first_keyless_group():

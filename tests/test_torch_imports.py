@@ -24,6 +24,12 @@ SLICE_MODULES = ["repro_torch.core.secure",
                      "arrivals", "sizes", "churn", "regime", "trace",
                      "replay")),
                  "repro_torch.workload"]
+# the serving layer, the Edge server and the serve CLI
+SERVING_MODULES = [*(f"repro_torch.serving.{m}" for m in (
+                       "protocol", "admission", "ingest", "frontend",
+                       "client")),
+                   "repro_torch.serving", "repro_torch.fl",
+                   "repro_torch.fl.server", "repro_torch.launch.serve"]
 
 
 def _modules():
@@ -53,7 +59,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.core.adaptive",
             "repro_torch.checkpoint",
             "repro_torch.checkpoint.ckpt",
-            *SLICE_MODULES} <= set(mods)
+            *SLICE_MODULES, *SERVING_MODULES} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -95,6 +101,23 @@ def test_secure_and_workload_load_no_jax_and_no_kernel(module):
         "from repro_torch.kernels import _build\n"
         "print('BAD', sorted(m for m in sys.modules if m.split('.')[0]\n"
         "                    in ('jax', 'jaxlib', 'repro')),\n"
+        "      'LOADED', sorted(_build._LOADED))\n"
+    )
+    res = _run(["-c", code])
+    assert res.returncode == 0, res.stderr
+    assert "BAD [] LOADED []" in res.stdout, res.stdout
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_layer_loads_no_jax_no_ml_dtypes_and_no_kernel(module):
+    """Each module of the serving layer, imported alone, loads neither
+    JAX, nor ``ml_dtypes`` (the port names bf16 frames itself), nor the
+    JAX package, nor a kernel library."""
+    code = (
+        f"import {module}, sys\n"
+        "from repro_torch.kernels import _build\n"
+        "print('BAD', sorted(m for m in sys.modules if m.split('.')[0]\n"
+        "                    in ('jax', 'jaxlib', 'ml_dtypes', 'repro')),\n"
         "      'LOADED', sorted(_build._LOADED))\n"
     )
     res = _run(["-c", code])

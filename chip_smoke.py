@@ -80,8 +80,19 @@ uploads each over HTTP (fp32, bf16 and int8 frames, writers over 1.0
 s), the socket rounds of fp32 and int8 frames against in-process
 rounds (bitwise), a truncated frame (400) and a frame over the default
 64 MiB cap (413) that land nothing, a streamed TrimmedMean round of 48
-CNN4.6 uploads, and the serve CLI, fp32 and rate-limited int8. Phases
-2-8 each start with the launch counts at 0, and every serving run must
+CNN4.6 uploads, and the serve CLI, fp32 and rate-limited int8. Phase 0
+also prints the registers and spills of the attention backward's 30
+instances (none allowed), and phase 1 holds ``flash_attention_bwd``
+against ``attention_bwd_ref`` at the training shapes and at edge shapes
+(two calls bitwise equal), beside the backward of
+``scaled_dot_product_attention``. Phase 9, last, trains full-width
+Qwen2-0.5B bf16: one local step through the attention kernels (exactly
+48 forward and 24 backward launches) against the same step through the
+plain attention, timed and profiled; two FedAvg rounds of 4 clients
+through ``FederatedServer`` and a gradavg round, each round's fused
+params against float64 Eq. 1; ``save_pytree`` / ``load_pytree`` of the
+trained params, bitwise; and ``repro_torch.launch.train``. Phases 2-9
+each start with the launch counts at 0, and every serving run must
 launch exactly what its prefills, decode steps and fusions take. The
 second-to-last line is ``{"kernels": [...]}`` and the last
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -1943,6 +1954,32 @@ def _fusion_build():
                              f"stores {stores}, min / max {minmax}")
 
 
+_BWD_ENTRY = re.compile(r"(bwd_[a-z_]+_kernel)I(f|13__nv_bfloat16|6__half)"
+                        r"(?:Li(\d+)E)?E")
+
+
+def _attention_bwd_build():
+    """Each instance of the attention backward's four kernels in the
+    ``ptxas -v`` report of the attention library: registers and spills
+    (none allowed)."""
+    regs, spills = {}, {}
+    for fn, (r, st, ld) in _ptxas_entries("flash_attention").items():
+        m = _BWD_ENTRY.search(fn)
+        if not m:
+            continue
+        label = " ".join(x for x in (m.group(1), _PTX_TYPES[m.group(2)],
+                                     m.group(3) and f"hd {m.group(3)}") if x)
+        regs[label] = r
+        if st or ld:
+            spills[label] = [st, ld]
+    print(f"[phase0] flash_attention_bwd ptxas: {len(regs)} kernels, "
+          f"registers {regs}; spills (store, load bytes) {spills or 'none'}",
+          flush=True)
+    if spills or len(regs) != 30:   # (dkdv, dq) x 3 dtypes x 4 hd + 2 x 3
+        raise AssertionError(f"flash_attention_bwd build: {len(regs)} "
+                             f"kernels, spills {spills}")
+
+
 def _decode_build():
     """What the build of the decode kernel shows: 16-byte global loads of
     q (LDG.E.128) and 16-byte asynchronous copies of k / v
@@ -2181,6 +2218,156 @@ def phase_attention_kernels(dev, hbm_bw):
         print(f"[phase1] flash_attention "
               f"{json.dumps(cases['flash_attention'][-1])}", flush=True)
         del q, k, v, library, mask
+    torch.cuda.empty_cache()
+    return cases
+
+
+# rtol, atol of the attention backward, per route. fp32 against
+# attention_bwd_ref on the same inputs: the same arithmetic summed in
+# another order, gradients of up to ~10 summed over up to 1280 terms.
+# bf16 / fp16 against the plain backward run in fp32 on the upcast
+# inputs: the kernel rounds p and dS to the input dtype before the
+# products they feed (as the reference's VJP does) and each gradient
+# once at the end, the fp32 run rounds neither. Each case is held twice:
+# with the kernel's own out and lse (the backward alone), and with the
+# plain forward's (attention_lse_ref, fp32 on upcast inputs for half),
+# so a wrong lse store cannot cancel out. "limit_share" is the largest
+# |got - want| / (atol + rtol |want|) of a case. The card's largest
+# shares of these limits over dq, dk, dv and both forwards (H100): half
+# 0.666 at the Qwen2 training layer, 0.820 at the prefill shape (dv: up
+# to 7 x 1024 terms of rounded p), 0.408 Gemma3 local, 0.473 Zamba2
+# block, 0.328 T = 17, 0.039 window 1 (fp16); fp32 at most 0.067. The
+# inputs come from the seed and the kernel is deterministic, so a run
+# reads the same shares; the 1.2x or more that is left is for a changed
+# kernel's other summation order, and a share above 1 fails the phase.
+BWD_TOL = {"fp32": (1e-4, 1e-4), "half": (1e-2, 2e-2)}
+# The forward's out and lse when the lse is stored, against
+# attention_lse_ref: fp32 on the same inputs; half in fp32 on upcast
+# inputs, where out differs by the rounding of p before PV and of out
+# itself (the serving limits, HALF_OUT_TOL) and lse only by the order
+# of the fp32 sums of identical products. The card read at most 0.346
+# of the out limits and 0.061 of the lse limits at the shapes below.
+LSE_TOL = {"fp32": {"out": ATTN_TOL["fp32"], "lse": (1e-5, 1e-5)},
+           "half": {"out": HALF_OUT_TOL, "lse": (1e-5, 1e-5)}}
+
+
+def _limit_share(got, want, rtol, atol) -> float:
+    """max |got - want| / (atol + rtol |want|) in fp32: at most 1 where
+    ``torch.testing.assert_close`` passes; NaN where either is NaN."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+def _sdpa_bwd(q, k, v, dout, mask=None, causal=False):
+    """The backward alone of one ``scaled_dot_product_attention`` call
+    (GQA) on the same inputs, after one forward (the yardstick)."""
+    import torch
+    from torch.nn import functional as F
+
+    gqa = q.shape[2] != k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                       is_causal=causal, enable_gqa=gqa)
+    go = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(o, (qt, kt, vt), go,
+                                       retain_graph=True)
+
+
+def phase_attention_bwd(dev, hbm_bw):
+    """The attention backward kernel against its plain version at the
+    training path's shapes and at edge shapes: two calls bitwise equal;
+    kernel, plain version and SDPA's backward timed."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ref as faref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    names = {torch.float32: "fp32", torch.bfloat16: "bf16",
+             torch.float16: "fp16"}
+    bf16, fp32, fp16 = torch.bfloat16, torch.float32, torch.float16
+    cases = {"flash_attention_bwd": []}
+    for B, T, nq, nkv, hd, win, dt, label in [
+        (4, 512, 14, 2, 64, 0, bf16, "Qwen2-0.5B training layer"),
+        (4, 512, 14, 2, 64, 0, fp32, "Qwen2-0.5B training layer"),
+        (4, 1024, 14, 2, 64, 0, bf16, "Qwen2-0.5B prefill shape"),
+        (1, 1280, 4, 1, 256, 1024, fp32, "Gemma3-1B local layer (MQA)"),
+        (1, 1280, 4, 1, 256, 1024, bf16, "Gemma3-1B local layer (MQA)"),
+        (4, 1024, 32, 32, 64, 2048, bf16,
+         "Zamba2-1.2B shared block (MHA, window 2048)"),
+        (2, 1, 14, 2, 64, 0, fp32, "T = 1"),
+        (2, 17, 4, 2, 32, 0, bf16, "T = 17, hd 32"),
+        (2, 300, 8, 2, 128, 1, fp16, "window 1, hd 128, fp16"),
+        (1, 77, 6, 3, 64, 1, fp32, "window 1"),
+    ]:
+        q, dout = (torch.randn((B, T, nq, hd), generator=g, device=dev).to(dt)
+                   for _ in range(2))
+        k, v = (torch.randn((B, T, nkv, hd), generator=g, device=dev).to(dt)
+                for _ in range(2))
+        key = "fp32" if dt == fp32 else "half"
+        # fp32 inputs as they are, half ones upcast: the plain versions
+        qr, kr, vr, dr = ((q, k, v, dout) if dt == fp32 else
+                          (x.float() for x in (q, k, v, dout)))
+        out, lse = fa.flash_attention(q, k, v, window=win, return_lse=True)
+        out_p, lse_p = faref.attention_lse_ref(qr, kr, vr, window=win)
+        shares = {}
+        for name, a, b in (("out", out, out_p), ("lse", lse, lse_p)):
+            shares[name] = _limit_share(a, b, *LSE_TOL[key][name])
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, window=win)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, dout, window=win)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd {label}: two calls "
+                                 "differ")
+        rtol, atol = BWD_TOL[key]
+        err, err_p = 0.0, 0.0
+        for chain, (o, l) in (("", (out, lse)), ("plain ", (out_p, lse_p))):
+            want = faref.attention_bwd_ref(qr, kr, vr, o.to(qr.dtype), l, dr,
+                                           window=win)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                shares[chain + name] = _limit_share(a, b, rtol, atol)
+                e = (a.float() - b.float()).abs().max().item()
+                if chain:
+                    err_p = max(err_p, e)
+                else:
+                    err = max(err, e)
+            del want
+        bad = {n: x for n, x in shares.items() if not x <= 1.0}
+        if bad:
+            raise AssertionError(
+                f"flash_attention_bwd {label} {names[dt]}: limit shares "
+                f"{bad} above 1 (out / lse: LSE_TOL; dq, dk, dv against the "
+                f"kernel's and the plain forward's out and lse: BWD_TOL)")
+        del got, again, out_p, lse_p, qr, kr, vr, dr
+        live = _live_scores(T, T, win)
+        nbytes = (4 * (q.numel() + k.numel()) * q.element_size()
+                  + 4 * lse.numel())
+        bound_ms, bound_by = _bound(nbytes, 10.0 * B * nq * hd * live, hbm_bw,
+                                    FP32_FLOPS if dt == fp32 else HALF_FLOPS)
+        mask = faref.attention_mask(T, T, win, device=dev) if win else None
+        library = _sdpa_bwd(q, k, v, dout, mask=mask, causal=not win)
+        cases["flash_attention_bwd"].append({
+            "shape": [B, T, nq, nkv, hd], "window": win,
+            "dtype": names[dt], "what": label,
+            "route": "cuda cores, 4 kernels (delta, dK/dV, dQ, group sum)",
+            "max_abs_err": err, "max_abs_err_plain_forward": err_p,
+            "rtol": rtol, "atol": atol,
+            "limit_share": {n: float(f"{x:.3g}") for n, x in shares.items()},
+            "against": ("attention_bwd_ref, same inputs" if dt == fp32 else
+                        "attention_bwd_ref in fp32 on upcast inputs"),
+            "bitwise_repeat": True, "live_scores": live,
+            "ms": _ms_median(lambda: fa.flash_attention_bwd(
+                q, k, v, out, lse, dout, window=win)),
+            "plain_ms": _ms_median(lambda: faref.attention_bwd_ref(
+                q, k, v, out, lse, dout, window=win), reps=5),
+            "library_ms": _ms_median(library),
+            "library": "scaled_dot_product_attention(enable_gqa) backward",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+        print(f"[phase1] flash_attention_bwd "
+              f"{json.dumps(cases['flash_attention_bwd'][-1])}", flush=True)
+        del q, k, v, out, lse, dout, library, mask
     torch.cuda.empty_cache()
     return cases
 
@@ -2909,6 +3096,237 @@ def phase_hybrid_serving(dev, cases):
     return out
 
 
+TRAIN_STEP_REPS = 5
+
+
+def _leaf_cosines(got, want):
+    """{leaf: cosine} of two gradient trees, in fp64, and the relative
+    difference of their global norms."""
+    import torch
+
+    cos, na, nb = {}, 0.0, 0.0
+    for name, a in got.items():
+        a, b = a.double().reshape(-1), want[name].double().reshape(-1)
+        den = (a.norm() * b.norm()).item()
+        cos[name] = 1.0 if den == 0.0 else (a @ b).item() / den
+        na += a.square().sum().item()
+        nb += b.square().sum().item()
+    return cos, abs(math.sqrt(na) - math.sqrt(nb)) / max(math.sqrt(nb),
+                                                         1e-30)
+
+
+def phase_training(dev, attn_cases):
+    """Federated training of full-width Qwen2-0.5B bf16 on the card: one
+    local step through the attention kernels against the same step with
+    the plain forward and backward, timed and profiled; two FedAvg
+    rounds of 4 clients through ``FederatedServer`` with each round's
+    fused params held against float64 Eq. 1, then a gradavg round;
+    ``save_pytree`` / ``load_pytree`` of the trained params; the train
+    CLI."""
+    import collections
+
+    import numpy as np
+    import torch
+    from torch.func import functional_call
+
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.core.service import AggregationService
+    from repro_torch.data import FederatedLoader, SyntheticLM
+    from repro_torch.fl import Client, FederatedServer
+    from repro_torch.fl.client import batch_to_device
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models import build_model
+    from repro_torch.models.layers.attention import attention_train_ref
+    from repro_torch.optim import sgd
+    from repro_torch.utils.pytree import flat_vector_to_tree, tree_leaves
+
+    out = {}
+    cfg = get_config("qwen2-0.5b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=SEED)
+    params = model.state_dict()
+    gen = SyntheticLM(vocab=cfg.vocab, seed=SEED)
+    batch = batch_to_device(
+        {"tokens": gen.sample(4, 512, rng_seed=SEED)}, dev)
+    batch["labels"] = batch["tokens"]
+    torch.cuda.synchronize()
+    print(f"[phase9] qwen2-0.5b bf16 {cfg.num_params()} params, a 4 x 512 "
+          f"batch, made in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # (a) one step's loss and gradients: kernels against plain versions
+    def grads(**kw):   # the model's default attention: the kernels
+        leaves = collections.OrderedDict(
+            (k, v.detach().requires_grad_(True)) for k, v in params.items())
+        loss, _ = functional_call(model, leaves, (batch,), kw)
+        g = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), collections.OrderedDict(zip(leaves, g))
+
+    before = _all_launches()
+    loss_k, g_k = grads()
+    torch.cuda.synchronize()
+    delta = _launch_delta(before)
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+    if any(delta[k] != n for k, n in want.items()) or any(
+            v for k, v in delta.items() if k not in want):
+        raise AssertionError(f"a training step launched {delta}, expected "
+                             f"{want}")
+    loss_p, g_p = grads(attention=attention_train_ref)
+    rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    cos, norm_rel = _leaf_cosines(g_k, g_p)
+    worst = min(cos, key=cos.get)
+    print(f"[phase9] (a) step 4x512: loss kernels {loss_k.item():.6f} plain "
+          f"{loss_p.item():.6f} (rel {rel:.2e}); gradient cosine min "
+          f"{cos[worst]:.6f} ({worst}), global-norm rel diff {norm_rel:.2e}; "
+          f"launches {delta}", flush=True)
+    if not (rel <= 1e-2 and cos[worst] >= 0.99 and norm_rel <= 5e-2
+            and math.isfinite(loss_k.item())):
+        raise AssertionError(f"(a) kernels vs plain step: loss rel {rel}, "
+                             f"cosine {cos[worst]} at {worst}, norm rel "
+                             f"{norm_rel}")
+    out["step_loss_rel"], out["step_cos_min"] = rel, cos[worst]
+    out["step_norm_rel"] = norm_rel
+    del g_k, g_p
+
+    client = Client(client_id=0, model=model, optimizer=sgd(0.25))
+    opt_state = client.optimizer.init(params)
+
+    def step():
+        return client._step(params, opt_state, batch, 0)
+
+    step()   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(TRAIN_STEP_REPS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = statistics.median(times)
+    out["step_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    wall, busy, kernels = _profile(step, "qwen2 bf16 local step 4x512",
+                                   phase="phase9")
+    out["step_device_busy_share"] = busy / wall
+    bwd_ms = sum(ms for name, (_, ms) in kernels.items()
+                 if "bwd_" in name)
+    out["step_attention_bwd_device_ms"] = bwd_ms
+    print(f"[phase9] (a) local SGD step 4x512: {out['step_ms']:.3f} ms "
+          f"(median of {TRAIN_STEP_REPS}: {[round(t, 3) for t in times]}); "
+          f"device busy {busy:.3f} of {wall:.3f} ms profiled "
+          f"({busy / wall:.1%}), attention backward kernels {bwd_ms:.3f} ms; "
+          f"peak memory {out['step_peak_gb']:.2f} GB", flush=True)
+    del client, opt_state, batch
+    torch.cuda.empty_cache()
+
+    # (b) FederatedServer: 4 clients x 2 local SGD steps x 2 rounds, then
+    # a gradavg round; each round's fp32 fused vector against float64
+    # Eq. 1 of the clients' updates before the cast to the params' dtype
+    def server_for(fusion, send_delta, start):
+        svc = AggregationService(fusion=fusion, device=dev)
+        loader = FederatedLoader(gen=gen, n_clients=4, batch=4, seq_len=128)
+        clients = [Client(client_id=i, model=model, optimizer=sgd(0.25),
+                          local_steps=2, send_delta=send_delta)
+                   for i in range(4)]
+        server = FederatedServer(model=model, clients=clients, loader=loader,
+                                 service=svc, rng_seed=SEED, params=start)
+        # the server's own call, template branch included, runs as it is;
+        # the spies only record its inputs and the fp32 vector that the
+        # round epilogue casts into the template's leaves
+        seen = {}
+        aggregate, finish = svc.aggregate, svc._finish
+
+        def aggregate_spy(updates=None, weights=None, **kw):
+            seen.update(updates=updates, weights=weights)
+            tree, report = aggregate(updates=updates, weights=weights, **kw)
+            seen.update(tree=tree, template=kw.get("template"))
+            return tree, report
+
+        def finish_spy(fused, *a, **kw):
+            seen["flat"] = fused
+            return finish(fused, *a, **kw)
+
+        svc.aggregate, svc._finish = aggregate_spy, finish_spy
+        return server, seen
+
+    rounds = []
+    for fusion, send_delta, n_rounds in (("fedavg", False, 2),
+                                         ("gradavg", True, 1)):
+        server, seen = server_for(fusion, send_delta,
+                                  params if not rounds else trained)
+        for r in range(n_rounds):
+            before = _all_launches()
+            t0 = time.perf_counter()
+            res = server.run_round(r)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            delta = {k: v for k, v in _launch_delta(before).items() if v}
+            if not math.isfinite(res.mean_client_loss) or \
+                    delta.get("weighted_sum") != 1:
+                raise AssertionError(f"(b) {fusion} round {r}: loss "
+                                     f"{res.mean_client_loss}, {delta}")
+            err = _fused_vs_eq1(
+                seen["flat"], seen["updates"],
+                np.asarray(seen["weights"], np.float32), seen["template"],
+                f"(b) {fusion} round {r} fused params", "phase9")
+            # the tree the server applied is that vector cast leaf by leaf
+            want = flat_vector_to_tree(seen["flat"], seen["template"])
+            got_leaves, want_leaves = (tree_leaves(seen["tree"]),
+                                       tree_leaves(want))
+            if len(got_leaves) != len(want_leaves) or not all(
+                    a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(got_leaves, want_leaves)):
+                raise AssertionError(f"(b) {fusion} round {r}: the returned "
+                                     "tree is not the fused vector cast")
+            rounds.append({"fusion": fusion, "round": r, "wall_s": wall,
+                           "loss": res.mean_client_loss,
+                           "fuse_s": res.report.fuse_seconds,
+                           "phase_seconds": res.report.phase_seconds,
+                           "launches": delta, "max_abs_err": err})
+            print(f"[phase9] (b) {fusion} round {r}: wall={wall:.3f}s "
+                  f"loss={res.mean_client_loss:.4f} "
+                  f"fuse={res.report.fuse_seconds:.4f}s "
+                  f"phases={res.report.phase_seconds} launches={delta}",
+                  flush=True)
+            seen.clear()
+        trained = server.params
+        del server
+        torch.cuda.empty_cache()
+    out["rounds"] = rounds
+
+    # (c) the trained params through save_pytree / load_pytree, bitwise
+    ckpt = os.path.join(HERE, "build", "phase9", "trained")
+    t0 = time.perf_counter()
+    save_pytree(ckpt, trained)
+    back = load_pytree(ckpt, trained)
+    same = all(torch.equal(back[k], v) and back[k].dtype == v.dtype
+               for k, v in trained.items())
+    shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+    print(f"[phase9] (c) save_pytree / load_pytree of {len(trained)} leaves: "
+          f"{time.perf_counter() - t0:.3f} s, bitwise equal {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("(c) loaded params differ from the saved ones")
+    del trained, back, params, model
+    torch.cuda.empty_cache()
+
+    # (d) the train CLI, as a user runs it
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen2-0.5b", "--full-config", "--rounds", "2", "--clients", "4",
+         "--local-steps", "1", "--seq-len", "128"],
+        capture_output=True, text=True, timeout=600, cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    print(res.stdout.strip(), flush=True)
+    if res.returncode != 0 or "[round   1]" not in res.stdout:
+        raise AssertionError(f"(d) train CLI: {res.stderr[-3000:]}")
+    out["cli_s"] = time.perf_counter() - t0
+    print(f"[phase9] (d) train CLI: {out['cli_s']:.3f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2950,6 +3368,7 @@ def main() -> int:
     print(f"[phase0] kernel build seconds={time.perf_counter() - t0:.3f}",
           flush=True)
     _attention_sass()
+    _attention_bwd_build()
     _decode_build()
     _ssd_build()
     _fusion_build()
@@ -2983,6 +3402,7 @@ def main() -> int:
     cases.update(phase_carve_kernel(dev, hw.hbm_bw, resnet_p, cnn_p))
     cases.update(phase_robust_kernels(dev, hw.hbm_bw, resnet_p, cnn_p))
     cases.update(phase_attention_kernels(dev, hw.hbm_bw))
+    cases.update(phase_attention_bwd(dev, hw.hbm_bw))
     cases.update(phase_decode_kernel(dev, hw.hbm_bw))
     cases.update(phase_ssd_kernel(dev, hw.hbm_bw, mma_peak))
     print(f"[phase1] seconds={time.perf_counter() - t0:.3f}", flush=True)
@@ -3010,6 +3430,7 @@ def main() -> int:
     del U, Uc, cu_rows
     run_phase("phase4", phase_serving, dev, cases)      # a fused decoder
     run_phase("phase5", phase_hybrid_serving, dev, cases)   # fused Zamba2
+    run_phase("phase9", phase_training, dev, cases)     # federated training
     launches = {k: sum(p.get(k, 0) for p in by_phase.values())
                 for k in _all_launches()}
     missing = [k for k, v in launches.items() if v == 0]
@@ -3020,7 +3441,9 @@ def main() -> int:
             or any(by_phase["phase7"].get(k, 0) == 0 for k in (
                 "weighted_sum", "weighted_sum_dequant")) \
             or any(by_phase["phase8"].get(k, 0) == 0 for k in (
-                "weighted_sum", "weighted_sum_dequant", "topk_carve")):
+                "weighted_sum", "weighted_sum_dequant", "topk_carve")) \
+            or any(by_phase["phase9"].get(k, 0) == 0 for k in (
+                "weighted_sum", "flash_attention", "flash_attention_bwd")):
         raise AssertionError(f"main path never launched {missing}: "
                              f"{by_phase}")
 
@@ -3031,6 +3454,8 @@ def main() -> int:
         "trimmed_mean": "src/repro/kernels/robust_fusion/kernel.py:132",
         "coord_median": "src/repro/kernels/robust_fusion/kernel.py:43",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:83",
+        # no pallas_call: the custom VJP of the model's blockwise_attention
+        "flash_attention_bwd": "src/repro/models/layers/attention.py:217",
         "flash_decode": "src/repro/kernels/flash_decode/kernel.py:65",
         "ssd_chunk": "src/repro/kernels/ssd_chunk/kernel.py:59",
     }

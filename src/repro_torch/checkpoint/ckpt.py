@@ -1,5 +1,14 @@
-"""Adaptive-controller state <-> a JSON sidecar, as
-``repro.checkpoint.ckpt`` writes it.
+"""Checkpointing, as ``repro.checkpoint.ckpt`` writes it: trees of
+tensors <-> a single ``.npz`` plus a structure manifest, and
+adaptive-controller state <-> a JSON sidecar.
+
+``save_pytree`` / ``load_pytree`` key each leaf by its path in the tree,
+the reference's names: dict keys, NamedTuple fields and sequence
+indices joined with ``/`` (a ``state_dict``'s dotted names are one dict
+key each). bf16 leaves are stored widened to fp32, as the reference
+stores them, and ``load_pytree`` casts each array back to its template
+leaf's dtype, so either package loads what the other wrote for the same
+tree.
 
 ``save_controller_state`` / ``load_controller_state`` persist an
 :class:`repro_torch.core.adaptive.AdaptiveController`'s learned arrival
@@ -12,9 +21,82 @@ loads what the other wrote.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.utils.dtypes import host_array, is_bf16, to_device
+from repro_torch.utils.pytree import tree_unflatten
+
+PyTree = Any
+
+
+def _paths_and_leaves(tree: PyTree, prefix: Tuple[str, ...] = ()
+                      ) -> List[Tuple[str, Any]]:
+    """(key, leaf) of every leaf in ``tree_leaves`` order: dict keys
+    sorted unless the dict is an ``OrderedDict``, NamedTuple fields by
+    name, list and tuple items by index; ``None`` holds no leaf."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        keys = list(tree) if isinstance(tree, collections.OrderedDict) \
+            else sorted(tree)
+        items = [(str(k), tree[k]) for k in keys]
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = list(zip(tree._fields, tree))
+    elif isinstance(tree, (list, tuple)):
+        items = [(str(i), x) for i, x in enumerate(tree)]
+    else:
+        return [("/".join(prefix), tree)]
+    out = []
+    for name, child in items:
+        out.extend(_paths_and_leaves(child, prefix + (name,)))
+    return out
+
+
+def _numpy(leaf) -> np.ndarray:
+    """A leaf as the array the reference saves: bf16 widened to fp32."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+    arr = host_array(leaf)
+    if is_bf16(arr.dtype):
+        return (arr.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return np.asarray(arr)
+
+
+def save_pytree(path: str, tree: PyTree) -> None:
+    arrays = {k: _numpy(leaf) for k, leaf in _paths_and_leaves(tree)}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path if path.endswith(".npz") else path + ".npz", **arrays)
+    manifest = {
+        k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+        for k, v in arrays.items()
+    }
+    with open(path.removesuffix(".npz") + ".json", "w") as f:
+        json.dump(manifest, f, indent=1)
+
+
+def load_pytree(path: str, template: PyTree) -> PyTree:
+    """Restore into the structure of ``template``: each leaf a tensor of
+    the template leaf's dtype, on its device (the CPU for array
+    leaves)."""
+    npz = np.load(path if path.endswith(".npz") else path + ".npz")
+    leaves = []
+    for key, leaf in _paths_and_leaves(template):
+        t = torch.from_numpy(np.array(npz[key]))
+        if isinstance(leaf, torch.Tensor):
+            leaves.append(t.to(device=leaf.device, dtype=leaf.dtype))
+        else:
+            like = to_device(host_array(leaf), torch.device("cpu"))
+            leaves.append(t.to(like.dtype))
+    return tree_unflatten(template, iter(leaves))
 
 
 def _controller_path(path: str) -> str:

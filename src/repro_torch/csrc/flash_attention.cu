@@ -65,8 +65,44 @@
 // memory, so they add 0, never NaN. Tiles wholly masked (above the
 // diagonal, or wholly before the window) are never loaded.
 //
-// The kernels allocate nothing; the entry point returns the
-// cudaGetLastError() of its launch.
+// lse: when the caller passes a (B, nq, T) fp32 buffer, each route also
+// writes the rows' logsumexp of the scaled scores, max + log(sum), the
+// sum floored at 1e-30 (blockwise_attention's `lse`), for the backward.
+// Each kernel is instantiated with and without that store (template
+// flag LSE); the serving path passes null and runs the instance
+// without it, the same code as before the flag. One instance with a
+// runtime null check instead timed 10-13% slower on the H100 at the
+// Qwen2 prefill and Zamba2 shared-block shapes in bf16.
+//
+// flash_attn_bwd is the backward of the reference model's
+// blockwise_attention custom VJP (repro/models/layers/attention.py
+// :217-303; no Pallas kernel computes it): with p = exp(s * scale - lse)
+// recomputed from the saved lse and delta = rowsum(dO * O),
+//     dV = P^T dO,  dP = dO V^T,  dS = P * (dP - delta) * scale,
+//     dQ = dS K,    dK = dS^T Q,
+// p and dS rounded to the input dtype before the products they feed
+// (the reference's pb / dsb, :258-266), every sum in fp32. T == S.
+// Bound: operations. At 10 * hd FLOPs a live score (S recomputed, dV,
+// dP, dQ, dK) against ~5 * (nq + nkv) * hd * 2 bytes a token, the
+// Qwen2 training layer (4, 512, 14 / 2, 64) needs 4.7 GFLOP and 17 MB.
+// This first design runs on the CUDA cores for every dtype (fp32 FMAs;
+// p and dS rounded through the storage type), four kernels a call, no
+// float atomics, so two calls are bitwise equal:
+//   1. bwd_delta_kernel: delta per (b, t, h), one warp a row;
+//   2. bwd_dkdv_kernel: one 256-thread block per (b, q head, key tile of
+//      BT keys) holds K, V of its tile and loops over the live query
+//      tiles (causal, window), recomputing S and dP on a 16 x 16 thread
+//      grid and accumulating dK, dV in registers; with GQA it writes
+//      fp32 partials per q head, else dk / dv directly;
+//   3. bwd_dq_kernel: one block per (b, q head, query tile) holds Q, dO,
+//      recomputes S, dP, dS over the live key tiles, accumulates dQ;
+//   4. bwd_group_sum_kernel (GQA only): dk, dv = the partials of a kv
+//      head's q heads summed in head order, cast to the input dtype.
+// S and dP are computed twice (in 2 and 3): 14 * hd FLOPs a live score
+// against the 10 of the bound. Tensor cores (wgmma + TMA) come later.
+//
+// The kernels allocate nothing; each entry point returns the
+// cudaGetLastError() of its launches.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -236,11 +272,12 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const T* __restrict__ sr
 // q0 + 16w .. q0 + 16w + 15; lane l holds accumulator rows g = l / 4
 // and g + 8 of the warp's 16, columns 2 (l % 4) and 2 (l % 4) + 1 of
 // each 8-wide n-tile (the m16n8 C layout).
-template <typename T, int HD>
+template <typename T, int HD, bool LSE>
 __global__ void __launch_bounds__(kHalfThreads)
 flash_half_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ out, int T_len, int S_len,
-                  int nq, int nkv, int window, float scale_log2) {
+                  const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+                  int T_len, int S_len, int nq, int nkv, int window, float scale,
+                  float scale_log2) {
   using Cf = HalfCfg<HD>;
   constexpr int BK = Cf::BK, C = Cf::C, KS = Cf::KS, NT = Cf::NT, DT = Cf::DT;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -431,6 +468,11 @@ flash_half_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;
   const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
+  if (LSE && cq == 0) {   // m is the max of the unscaled scores
+    float* row = lse + (b * nq + h) * static_cast<int64_t>(T_len);
+    if (t_lo < T_len) row[t_lo] = m_lo * scale + logf(fmaxf(l_lo, 1e-30f));
+    if (t_hi < T_len) row[t_hi] = m_hi * scale + logf(fmaxf(l_hi, 1e-30f));
+  }
   unsigned char* tile = smem;
   const int row_lo = warp * 16 + g, row_hi = row_lo + 8;
 #pragma unroll
@@ -454,11 +496,12 @@ flash_half_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-cudaError_t launch_half(const void* q, const void* k, const void* v, void* out, int64_t B,
-                        int64_t T_len, int64_t S_len, int64_t nq, int64_t nkv,
+cudaError_t launch_half(const void* q, const void* k, const void* v, void* out, float* lse,
+                        int64_t B, int64_t T_len, int64_t S_len, int64_t nq, int64_t nkv,
                         int64_t window, float scale, cudaStream_t st) {
   constexpr int smem = HalfCfg<HD>::SMEM_BYTES;
-  auto kern = flash_half_kernel<T, HD>;
+  // the serving path (no lse) runs an instance without the store
+  auto kern = lse != nullptr ? flash_half_kernel<T, HD, true> : flash_half_kernel<T, HD, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -466,8 +509,8 @@ cudaError_t launch_half(const void* q, const void* k, const void* v, void* out, 
                   static_cast<unsigned>(nq), static_cast<unsigned>(B));
   kern<<<grid, kHalfThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<int>(T_len), static_cast<int>(S_len),
-      static_cast<int>(nq), static_cast<int>(nkv), static_cast<int>(window),
+      static_cast<T*>(out), lse, static_cast<int>(T_len), static_cast<int>(S_len),
+      static_cast<int>(nq), static_cast<int>(nkv), static_cast<int>(window), scale,
       scale * kLog2e);
   return cudaGetLastError();
 }
@@ -529,11 +572,12 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* __restric
 // c*16*VW + tx*VW + e (c < NC, e < VW). K and V arrive by cp.async, one
 // buffer each: K's next tile loads during this tile's softmax and PV,
 // V's next tile during the next tile's scores.
-template <int HD, int BQ>
+template <int HD, int BQ, bool LSE>
 __global__ void __launch_bounds__(4 * BQ)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int64_t T_len,
-                 int64_t S_len, int nq, int nkv, int64_t window, float scale) {
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int64_t T_len, int64_t S_len, int nq, int nkv,
+                 int64_t window, float scale) {
   using C = Cfg<HD, BQ>;
   constexpr int NT = C::NT, BK = C::BK, RPT = C::RPT, KN = C::KN, DPT = C::DPT,
                 VW = C::VW, NC = C::NC;
@@ -692,6 +736,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int64_t t = q0 + ty * RPT + i;
     if (t >= T_len) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (LSE && tx == 0)   // q was scaled: m is in scaled units
+      lse[(b * nq + h) * T_len + t] = m[i] + logf(denom);
     float* row = out + ((b * T_len + t) * nq + h) * HD;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
@@ -701,11 +747,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int HD, int BQ>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, int64_t B,
-                       int64_t T_len, int64_t S_len, int64_t nq, int64_t nkv,
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* lse,
+                       int64_t B, int64_t T_len, int64_t S_len, int64_t nq, int64_t nkv,
                        int64_t window, float scale, cudaStream_t st) {
   const size_t smem = sizeof(float) * Cfg<HD, BQ>::SMEM_FLOATS;
-  auto kern = flash_f32_kernel<HD, BQ>;
+  auto kern = lse != nullptr ? flash_f32_kernel<HD, BQ, true> : flash_f32_kernel<HD, BQ, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -713,55 +759,508 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, i
                   static_cast<unsigned>(nq), static_cast<unsigned>(B));
   kern<<<grid, Cfg<HD, BQ>::NT, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), T_len, S_len,
+      static_cast<const float*>(v), static_cast<float*>(out), lse, T_len, S_len,
       static_cast<int>(nq), static_cast<int>(nkv), window, scale);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* out, int64_t B,
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* out, float* lse,
+                         int64_t B,
                          int64_t T_len, int64_t S_len, int64_t nq, int64_t nkv,
                          int64_t window, int64_t block_q, float scale, cudaStream_t st) {
   if (block_q == 64)
-    return launch_f32<HD, 64>(q, k, v, out, B, T_len, S_len, nq, nkv, window, scale, st);
+    return launch_f32<HD, 64>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, scale, st);
   if (block_q == 32)
-    return launch_f32<HD, 32>(q, k, v, out, B, T_len, S_len, nq, nkv, window, scale, st);
+    return launch_f32<HD, 32>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, scale, st);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
-cudaError_t dispatch_half(const void* q, const void* k, const void* v, void* out, int64_t B,
+cudaError_t dispatch_half(const void* q, const void* k, const void* v, void* out, float* lse,
+                          int64_t B,
                           int64_t T_len, int64_t S_len, int64_t nq, int64_t nkv,
                           int64_t hd, int64_t window, float scale, cudaStream_t st) {
   switch (hd) {
     case 32:
-      return launch_half<T, 32>(q, k, v, out, B, T_len, S_len, nq, nkv, window, scale, st);
+      return launch_half<T, 32>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, scale,
+                                  st);
     case 64:
-      return launch_half<T, 64>(q, k, v, out, B, T_len, S_len, nq, nkv, window, scale, st);
+      return launch_half<T, 64>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, scale,
+                                  st);
     case 128:
-      return launch_half<T, 128>(q, k, v, out, B, T_len, S_len, nq, nkv, window, scale, st);
+      return launch_half<T, 128>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, scale,
+                                  st);
     case 256:
-      return launch_half<T, 256>(q, k, v, out, B, T_len, S_len, nq, nkv, window, scale, st);
+      return launch_half<T, 256>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, scale,
+                                  st);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 cudaError_t dispatch_f32_hd(const void* q, const void* k, const void* v, void* out,
-                            int64_t B, int64_t T_len, int64_t S_len, int64_t nq,
+                            float* lse, int64_t B, int64_t T_len, int64_t S_len, int64_t nq,
                             int64_t nkv, int64_t hd, int64_t window, int64_t block_q,
                             float scale, cudaStream_t st) {
   switch (hd) {
     case 32:
-      return dispatch_f32<32>(q, k, v, out, B, T_len, S_len, nq, nkv, window, block_q, scale, st);
+      return dispatch_f32<32>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, block_q,
+                                scale, st);
     case 64:
-      return dispatch_f32<64>(q, k, v, out, B, T_len, S_len, nq, nkv, window, block_q, scale, st);
+      return dispatch_f32<64>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, block_q,
+                                scale, st);
     case 128:
-      return dispatch_f32<128>(q, k, v, out, B, T_len, S_len, nq, nkv, window, block_q, scale,
-                               st);
+      return dispatch_f32<128>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, block_q,
+                                 scale, st);
     case 256:
-      return dispatch_f32<256>(q, k, v, out, B, T_len, S_len, nq, nkv, window, block_q, scale,
-                               st);
+      return dispatch_f32<256>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, block_q,
+                                 scale, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// backward: CUDA cores, every dtype
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <>
+__device__ __forceinline__ float to_f<__half>(__half x) { return __half2float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
+
+// x rounded to the storage type (the reference's astype), back in fp32
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_f<T>(from_f<T>(x)); }
+
+constexpr int kBwdThreads = 256;   // a 16 x 16 thread grid
+
+template <int HD>
+struct BwdCfg {
+  static constexpr int BT = HD <= 128 ? 64 : 32;   // rows of a query or key tile
+  static constexpr int R = BT / 16;                // tile rows a thread owns
+  static constexpr int DC = HD / 16;               // dims a thread owns
+  static constexpr int P = HD + 1;                 // pitch of a (BT x HD) tile
+  static constexpr int PT = BT + 1;                // pitch of a (BT x BT) tile
+  static constexpr int TILE = BT * P;              // floats of a (BT x HD) tile
+  // dK / dV blocks: K, V, Q, dO, P, dS, lse, delta
+  static constexpr int DKDV_FLOATS = 4 * TILE + 2 * BT * PT + 2 * BT;
+  // dQ blocks: Q, dO, K, V, dS, lse, delta
+  static constexpr int DQ_FLOATS = 4 * TILE + BT * PT + 2 * BT;
+};
+
+// rows [0, BT) of a (rows x HD) slice whose row r starts at src + r *
+// stride, as fp32 at pitch HD + 1; rows at or past `valid` are zero
+template <typename T, int HD, int BT>
+__device__ __forceinline__ void load_rows_bwd(float* dst, const T* __restrict__ src,
+                                              int64_t stride, int valid, int tid) {
+  for (int i = tid; i < BT * HD; i += kBwdThreads) {
+    const int r = i / HD, d = i % HD;
+    dst[r * (HD + 1) + d] = r < valid ? to_f<T>(src[r * stride + d]) : 0.f;
+  }
+}
+
+// delta[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d] in fp32, one warp
+// a row (lanes over d, a butterfly sum: a fixed order)
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                 float* __restrict__ delta, int64_t rows, int T_len, int nq, int hd) {
+  const int64_t row = (static_cast<int64_t>(blockIdx.x) * kBwdThreads + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* o = out + row * hd;
+  const T* g = dout + row * hd;
+  float acc = 0.f;
+  for (int d = lane; d < hd; d += 32) acc = fmaf(to_f<T>(g[d]), to_f<T>(o[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int64_t h = row % nq, bt = row / nq;   // row = (b * T + t) * nq + h
+    const int64_t t = bt % T_len, b = bt / T_len;
+    delta[(b * nq + h) * T_len + t] = acc;
+  }
+}
+
+// Scores of one (query tile q0, key tile k0) pair on the 16 x 16 grid:
+// thread (ty, tx) owns queries q0 + ty + 16 a and keys k0 + tx + 16 c.
+// Two passes, so that only one R x R accumulator is live beside the
+// caller's: S = Q K^T gives p = exp(s * scale - lse) (0 where masked),
+// kept unrounded in sS (and, when sPr is given, rounded to the storage
+// type in sPr); then dP = dO V^T gives ds = p * (dp - delta) * scale,
+// stored rounded in sS. Each thread reads back only what it wrote, so
+// the passes need no barrier; the caller syncs before reading sS / sPr.
+// The two tile kernels declare two blocks an SM: without it ptxas holds
+// the hd-64 instances to 64 registers (four blocks) and spills.
+template <typename T, int HD>
+__device__ __forceinline__ void tile_p_ds(const float* sQ, const float* sdO, const float* sK,
+                                          const float* sV, const float* sL, const float* sD,
+                                          float* sPr, float* sS, int q0, int k0, int T_len,
+                                          int window, float scale, int ty, int tx) {
+  using C = BwdCfg<HD>;
+  constexpr int R = C::R, P = C::P, PT = C::PT;
+  float acc[R][R];
+#pragma unroll
+  for (int a = 0; a < R; ++a)
+#pragma unroll
+    for (int c = 0; c < R; ++c) acc[a][c] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HD; ++d) {
+    float qa[R], kb[R];
+#pragma unroll
+    for (int a = 0; a < R; ++a) qa[a] = sQ[(ty + 16 * a) * P + d];
+#pragma unroll
+    for (int c = 0; c < R; ++c) kb[c] = sK[(tx + 16 * c) * P + d];
+#pragma unroll
+    for (int a = 0; a < R; ++a)
+#pragma unroll
+      for (int c = 0; c < R; ++c) acc[a][c] = fmaf(qa[a], kb[c], acc[a][c]);
+  }
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+    const int i = ty + 16 * a, t = q0 + i;
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      const int j = tx + 16 * c, key = k0 + j;
+      bool live = t < T_len && key < T_len && key <= t;
+      if (window > 0) live = live && t - key < window;
+      const float p = live ? expf(acc[a][c] * scale - sL[i]) : 0.f;
+      sS[i * PT + j] = p;
+      if (sPr != nullptr) sPr[i * PT + j] = round_to<T>(p);
+      acc[a][c] = 0.f;
+    }
+  }
+#pragma unroll 4
+  for (int d = 0; d < HD; ++d) {
+    float ga[R], vb[R];
+#pragma unroll
+    for (int a = 0; a < R; ++a) ga[a] = sdO[(ty + 16 * a) * P + d];
+#pragma unroll
+    for (int c = 0; c < R; ++c) vb[c] = sV[(tx + 16 * c) * P + d];
+#pragma unroll
+    for (int a = 0; a < R; ++a)
+#pragma unroll
+      for (int c = 0; c < R; ++c) acc[a][c] = fmaf(ga[a], vb[c], acc[a][c]);
+  }
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+    const int i = ty + 16 * a;
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      float* at = sS + i * PT + tx + 16 * c;
+      *at = round_to<T>(*at * (acc[a][c] - sD[i]) * scale);
+    }
+  }
+}
+
+// grid (ceil(T / BT), nq, B): the block of key tile blockIdx.x of q head
+// h. dK, dV of its BT keys accumulate in registers over the live query
+// tiles: thread (ty, tx) owns keys ty + 16 a and dims tx + 16 c.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const T* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                float* __restrict__ work, int T_len, int nq, int nkv, int window,
+                float scale) {
+  using C = BwdCfg<HD>;
+  constexpr int BT = C::BT, R = C::R, DC = C::DC, P = C::P, PT = C::PT;
+  extern __shared__ float4 smem_bwd[];
+  float* sK = reinterpret_cast<float*>(smem_bwd);
+  float* sV = sK + C::TILE;
+  float* sQ = sV + C::TILE;
+  float* sdO = sQ + C::TILE;
+  float* sP = sdO + C::TILE;
+  float* sS = sP + BT * PT;   // dS
+  float* sL = sS + BT * PT;
+  float* sD = sL + BT;
+
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int kt = blockIdx.x, h = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int kvh = h / (nq / nkv);
+  const int k0 = kt * BT;
+  const int64_t q_stride = static_cast<int64_t>(nq) * HD;
+  const int64_t kv_stride = static_cast<int64_t>(nkv) * HD;
+  load_rows_bwd<T, HD, BT>(sK, k + (b * T_len + k0) * kv_stride + kvh * HD, kv_stride,
+                           T_len - k0, tid);
+  load_rows_bwd<T, HD, BT>(sV, v + (b * T_len + k0) * kv_stride + kvh * HD, kv_stride,
+                           T_len - k0, tid);
+
+  // live query tiles: from the diagonal to the window's far edge
+  const int n_t = (T_len + BT - 1) / BT;
+  int qt_hi = n_t;
+  if (window > 0) qt_hi = min(n_t, (k0 + BT - 2 + window) / BT + 1);
+
+  float acc_k[R][DC], acc_v[R][DC];
+#pragma unroll
+  for (int a = 0; a < R; ++a)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc_k[a][c] = acc_v[a][c] = 0.f;
+
+  const float* lse_row = lse + (b * nq + h) * static_cast<int64_t>(T_len);
+  const float* delta_row = delta + (b * nq + h) * static_cast<int64_t>(T_len);
+  for (int qt = kt; qt < qt_hi; ++qt) {
+    const int q0 = qt * BT;
+    __syncthreads();   // the previous tile's Q, dO, P, dS are consumed
+    load_rows_bwd<T, HD, BT>(sQ, q + (b * T_len + q0) * q_stride + h * HD, q_stride,
+                             T_len - q0, tid);
+    load_rows_bwd<T, HD, BT>(sdO, dout + (b * T_len + q0) * q_stride + h * HD, q_stride,
+                             T_len - q0, tid);
+    for (int i = tid; i < BT; i += kBwdThreads) {
+      const bool ok = q0 + i < T_len;
+      sL[i] = ok ? lse_row[q0 + i] : 0.f;
+      sD[i] = ok ? delta_row[q0 + i] : 0.f;
+    }
+    __syncthreads();
+
+    tile_p_ds<T, HD>(sQ, sdO, sK, sV, sL, sD, sP, sS, q0, k0, T_len, window, scale, ty,
+                     tx);
+    __syncthreads();
+
+    // dV += P^T dO, dK += dS^T Q over the tile's queries, in order
+#pragma unroll 2
+    for (int i = 0; i < BT; ++i) {
+      float pa[R], sa[R], gb[DC], qb[DC];
+#pragma unroll
+      for (int a = 0; a < R; ++a) {
+        pa[a] = sP[i * PT + ty + 16 * a];
+        sa[a] = sS[i * PT + ty + 16 * a];
+      }
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        gb[c] = sdO[i * P + tx + 16 * c];
+        qb[c] = sQ[i * P + tx + 16 * c];
+      }
+#pragma unroll
+      for (int a = 0; a < R; ++a)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          acc_v[a][c] = fmaf(pa[a], gb[c], acc_v[a][c]);
+          acc_k[a][c] = fmaf(sa[a], qb[c], acc_k[a][c]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+    const int key = k0 + ty + 16 * a;
+    if (key >= T_len) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int d = tx + 16 * c;
+      if (work == nullptr) {   // one q head a kv head: the final values
+        const int64_t at = ((b * T_len + key) * nkv + kvh) * HD + d;
+        dk[at] = from_f<T>(acc_k[a][c]);
+        dv[at] = from_f<T>(acc_v[a][c]);
+      } else {   // this q head's fp32 partials, (2, B, S, nq, HD)
+        const int64_t at = ((b * T_len + key) * nq + h) * HD + d;
+        work[at] = acc_k[a][c];
+        work[at + static_cast<int64_t>(gridDim.z) * T_len * nq * HD] = acc_v[a][c];
+      }
+    }
+  }
+}
+
+// grid (ceil(T / BT), nq, B), late query tiles first: the block of one
+// query tile of q head h. dQ accumulates in registers over the live key
+// tiles: thread (ty, tx) owns queries ty + 16 a and dims tx + 16 c.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const T* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ delta, T* __restrict__ dq, int T_len, int nq, int nkv,
+              int window, float scale) {
+  using C = BwdCfg<HD>;
+  constexpr int BT = C::BT, R = C::R, DC = C::DC, P = C::P, PT = C::PT;
+  extern __shared__ float4 smem_bwd[];
+  float* sQ = reinterpret_cast<float*>(smem_bwd);
+  float* sdO = sQ + C::TILE;
+  float* sK = sdO + C::TILE;
+  float* sV = sK + C::TILE;
+  float* sS = sV + C::TILE;
+  float* sL = sS + BT * PT;
+  float* sD = sL + BT;
+
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int kvh = h / (nq / nkv);
+  const int q0 = qt * BT;
+  const int q_last = min(q0 + BT, T_len) - 1;
+  const int64_t q_stride = static_cast<int64_t>(nq) * HD;
+  const int64_t kv_stride = static_cast<int64_t>(nkv) * HD;
+  load_rows_bwd<T, HD, BT>(sQ, q + (b * T_len + q0) * q_stride + h * HD, q_stride,
+                           T_len - q0, tid);
+  load_rows_bwd<T, HD, BT>(sdO, dout + (b * T_len + q0) * q_stride + h * HD, q_stride,
+                           T_len - q0, tid);
+  const float* lse_row = lse + (b * nq + h) * static_cast<int64_t>(T_len);
+  const float* delta_row = delta + (b * nq + h) * static_cast<int64_t>(T_len);
+  for (int i = tid; i < BT; i += kBwdThreads) {
+    const bool ok = q0 + i < T_len;
+    sL[i] = ok ? lse_row[q0 + i] : 0.f;
+    sD[i] = ok ? delta_row[q0 + i] : 0.f;
+  }
+
+  // live key tiles [kt_lo, kt_hi), as the forward's
+  const int kt_hi = q_last / BT + 1;
+  int kt_lo = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / BT;
+
+  float acc[R][DC];
+#pragma unroll
+  for (int a = 0; a < R; ++a)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int k0 = kt * BT;
+    __syncthreads();   // the previous tile's K, dS are consumed
+    load_rows_bwd<T, HD, BT>(sK, k + (b * T_len + k0) * kv_stride + kvh * HD, kv_stride,
+                             T_len - k0, tid);
+    load_rows_bwd<T, HD, BT>(sV, v + (b * T_len + k0) * kv_stride + kvh * HD, kv_stride,
+                             T_len - k0, tid);
+    __syncthreads();
+
+    tile_p_ds<T, HD>(sQ, sdO, sK, sV, sL, sD, nullptr, sS, q0, k0, T_len, window, scale, ty,
+                     tx);
+    __syncthreads();
+
+    // dQ += dS K over the tile's keys, in order
+#pragma unroll 2
+    for (int j = 0; j < BT; ++j) {
+      float sa[R], kb[DC];
+#pragma unroll
+      for (int a = 0; a < R; ++a) sa[a] = sS[(ty + 16 * a) * PT + j];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) kb[c] = sK[j * P + tx + 16 * c];
+#pragma unroll
+      for (int a = 0; a < R; ++a)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[a][c] = fmaf(sa[a], kb[c], acc[a][c]);
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+    const int t = q0 + ty + 16 * a;
+    if (t >= T_len) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      dq[((b * T_len + t) * nq + h) * HD + tx + 16 * c] = from_f<T>(acc[a][c]);
+  }
+}
+
+// dk, dv (B, S, nkv, HD) = the fp32 partials of each kv head's q heads,
+// summed in head order, cast to the input dtype
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+bwd_group_sum_kernel(const float* __restrict__ work, T* __restrict__ dk, T* __restrict__ dv,
+                     int64_t n, int nkv, int group, int hd) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kBwdThreads + threadIdx.x;
+  if (i >= n) return;   // i = ((b * S + s) * nkv + kvh) * hd + d
+  const int64_t d = i % hd, bsk = i / hd;
+  const int64_t kvh = bsk % nkv, bs = bsk / nkv;
+  const int64_t nq = static_cast<int64_t>(nkv) * group;
+  const float* src = work + (bs * nq + kvh * group) * hd + d;
+  const int64_t half = n * group;   // the dV partials follow the dK ones
+  float sk = 0.f, sv = 0.f;
+  for (int j = 0; j < group; ++j) {
+    sk += src[j * hd];
+    sv += src[half + j * hd];
+  }
+  dk[i] = from_f<T>(sk);
+  dv[i] = from_f<T>(sv);
+}
+
+template <typename T, int HD>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* out,
+                       const void* dout, const float* lse, void* dq, void* dk, void* dv,
+                       float* delta, float* work, int64_t B, int64_t T_len, int64_t nq,
+                       int64_t nkv, int64_t window, float scale, cudaStream_t st) {
+  using C = BwdCfg<HD>;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* gt = static_cast<const T*>(dout);
+  const int64_t rows = B * T_len * nq;
+  bwd_delta_kernel<T><<<static_cast<unsigned>((rows * 32 + kBwdThreads - 1) / kBwdThreads),
+                        kBwdThreads, 0, st>>>(static_cast<const T*>(out), gt, delta, rows,
+                                              static_cast<int>(T_len), static_cast<int>(nq),
+                                              HD);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const dim3 grid(static_cast<unsigned>((T_len + C::BT - 1) / C::BT),
+                  static_cast<unsigned>(nq), static_cast<unsigned>(B));
+  const int smem_kv = static_cast<int>(sizeof(float) * C::DKDV_FLOATS);
+  auto kern_kv = bwd_dkdv_kernel<T, HD>;
+  err = cudaFuncSetAttribute(kern_kv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  if (err != cudaSuccess) return err;
+  kern_kv<<<grid, kBwdThreads, smem_kv, st>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), work,
+      static_cast<int>(T_len), static_cast<int>(nq), static_cast<int>(nkv),
+      static_cast<int>(window), scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int smem_q = static_cast<int>(sizeof(float) * C::DQ_FLOATS);
+  auto kern_q = bwd_dq_kernel<T, HD>;
+  err = cudaFuncSetAttribute(kern_q, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+  if (err != cudaSuccess) return err;
+  kern_q<<<grid, kBwdThreads, smem_q, st>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), static_cast<int>(T_len),
+      static_cast<int>(nq), static_cast<int>(nkv), static_cast<int>(window), scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || work == nullptr) return err;
+
+  const int64_t n = B * T_len * nkv * HD;
+  bwd_group_sum_kernel<T><<<static_cast<unsigned>((n + kBwdThreads - 1) / kBwdThreads),
+                            kBwdThreads, 0, st>>>(work, static_cast<T*>(dk),
+                                                  static_cast<T*>(dv), n,
+                                                  static_cast<int>(nkv),
+                                                  static_cast<int>(nq / nkv), HD);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(const void* q, const void* k, const void* v, const void* out,
+                         const void* dout, const float* lse, void* dq, void* dk, void* dv,
+                         float* delta, float* work, int64_t B, int64_t T_len, int64_t nq,
+                         int64_t nkv, int64_t hd, int64_t window, float scale,
+                         cudaStream_t st) {
+  switch (hd) {
+    case 32:
+      return launch_bwd<T, 32>(q, k, v, out, dout, lse, dq, dk, dv, delta, work, B, T_len, nq,
+                               nkv, window, scale, st);
+    case 64:
+      return launch_bwd<T, 64>(q, k, v, out, dout, lse, dq, dk, dv, delta, work, B, T_len, nq,
+                               nkv, window, scale, st);
+    case 128:
+      return launch_bwd<T, 128>(q, k, v, out, dout, lse, dq, dk, dv, delta, work, B, T_len,
+                                nq, nkv, window, scale, st);
+    case 256:
+      return launch_bwd<T, 256>(q, k, v, out, dout, lse, dq, dk, dv, delta, work, B, T_len,
+                                nq, nkv, window, scale, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -774,8 +1273,10 @@ extern "C" {
 // q (B, T, nq, hd), k / v (B, S, nkv, hd), out (B, T, nq, hd), all
 // row-major of `dtype`, 16-byte aligned; hd in {32, 64, 128, 256}; nq a
 // multiple of nkv; window 0 = none. block_q: the fp32 route's query
-// tile, 64 or 32; the bf16 / fp16 route takes 64 only.
-int flash_attn_fwd(const void* q, const void* k, const void* v, void* out, int64_t B,
+// tile, 64 or 32; the bf16 / fp16 route takes 64 only. lse: null, or
+// (B, nq, T) fp32 for the rows' logsumexp.
+int flash_attn_fwd(const void* q, const void* k, const void* v, void* out, void* lse_out,
+                   int64_t B,
                    int64_t T_len, int64_t S_len, int64_t nq, int64_t nkv, int64_t hd,
                    int64_t dtype, int64_t window, int64_t block_q, void* stream) {
   if (B <= 0 || T_len <= 0 || S_len <= 0 || nkv <= 0 || nq % nkv != 0 || window < 0 ||
@@ -783,18 +1284,52 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* out, int64
     return static_cast<int>(cudaErrorInvalidValue);
   const float scale = static_cast<float>(pow(static_cast<double>(hd), -0.5));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   switch (dtype) {
     case kF32:
-      return static_cast<int>(dispatch_f32_hd(q, k, v, out, B, T_len, S_len, nq, nkv, hd,
+      return static_cast<int>(dispatch_f32_hd(q, k, v, out, lse, B, T_len, S_len, nq, nkv, hd,
                                               window, block_q, scale, st));
     case kBF16:
       if (block_q != kHalfBQ) return static_cast<int>(cudaErrorInvalidValue);
-      return static_cast<int>(dispatch_half<__nv_bfloat16>(q, k, v, out, B, T_len, S_len, nq,
-                                                           nkv, hd, window, scale, st));
+      return static_cast<int>(dispatch_half<__nv_bfloat16>(q, k, v, out, lse, B, T_len, S_len,
+                                                           nq, nkv, hd, window, scale, st));
     case kF16:
       if (block_q != kHalfBQ) return static_cast<int>(cudaErrorInvalidValue);
-      return static_cast<int>(dispatch_half<__half>(q, k, v, out, B, T_len, S_len, nq, nkv,
-                                                    hd, window, scale, st));
+      return static_cast<int>(dispatch_half<__half>(q, k, v, out, lse, B, T_len, S_len, nq,
+                                                    nkv, hd, window, scale, st));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward of flash_attn_fwd (T == S): q, dq (B, T, nq, hd); k, v,
+// dk, dv (B, T, nkv, hd); out, dout (B, T, nq, hd), all of `dtype`; lse
+// (B, nq, T) fp32 from flash_attn_fwd; delta (B, nq, T) fp32 scratch;
+// work: null when nq == nkv, else (2, B, T, nq, hd) fp32 scratch for the
+// per-q-head dK / dV partials.
+int flash_attn_bwd(const void* q, const void* k, const void* v, const void* out,
+                   const void* dout, const void* lse, void* dq, void* dk, void* dv,
+                   void* delta, void* work, int64_t B, int64_t T_len, int64_t nq,
+                   int64_t nkv, int64_t hd, int64_t dtype, int64_t window, void* stream) {
+  if (B <= 0 || T_len <= 0 || nkv <= 0 || nq % nkv != 0 || window < 0 ||
+      T_len > INT32_MAX || window > INT32_MAX || (nq != nkv && work == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float scale = static_cast<float>(pow(static_cast<double>(hd), -0.5));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  float* w = nq == nkv ? nullptr : static_cast<float*>(work);
+  switch (dtype) {
+    case kF32:
+      return static_cast<int>(dispatch_bwd<float>(q, k, v, out, dout, l, dq, dk, dv, dl, w, B,
+                                                  T_len, nq, nkv, hd, window, scale, st));
+    case kBF16:
+      return static_cast<int>(dispatch_bwd<__nv_bfloat16>(q, k, v, out, dout, l, dq, dk, dv,
+                                                          dl, w, B, T_len, nq, nkv, hd,
+                                                          window, scale, st));
+    case kF16:
+      return static_cast<int>(dispatch_bwd<__half>(q, k, v, out, dout, l, dq, dk, dv, dl, w,
+                                                   B, T_len, nq, nkv, hd, window, scale, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,4 +1,13 @@
-"""The Edge aggregator server, as ``repro.fl.server.EdgeAggregatorServer``.
+"""FL servers: orchestrate rounds through the AggregationService, as
+``repro.fl.server``.
+
+``FederatedServer`` is deliberately thin — client selection, broadcast,
+collect, aggregate, apply — because the aggregation SERVICE is the
+paper's object of study. The server consumes RoundReports (which
+engine ran, monitor state, seamless-transition routing) and exposes
+them to benchmarks. Its parameters are a ``state_dict``-keyed tree of
+tensors on the model's device; the FedAvg of the clients' updates runs
+the weighted-sum kernel on the card.
 
 ``EdgeAggregatorServer`` is the Edge deployment composition: one
 ``repro_torch.serving.IngestServer`` (HTTP uploads with admission
@@ -10,15 +19,106 @@ stream.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+import collections
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 from repro_torch.core.service import (
     AggregationService,
     FairRoundScheduler,
     RoundReport,
 )
+from repro_torch.data.loader import FederatedLoader
+from repro_torch.fl.client import Client
+from repro_torch.models.base import Model
+from repro_torch.utils.pytree import tree_map
 
 PyTree = Any
+
+
+@dataclasses.dataclass
+class RoundResult:
+    round_idx: int
+    mean_client_loss: float
+    report: RoundReport
+    n_selected: int
+
+
+class FederatedServer:
+    """Rounds of: select clients, train each from the global params, fuse
+    their updates through ``service``, apply. ``params`` (a
+    ``state_dict``-keyed tree, e.g. the JAX package's initial weights
+    carried across by ``convert.decoder_state_from_numpy``) starts the
+    run; by default the model's own parameters (``repro``'s server draws
+    them from ``model.init(PRNGKey(rng_seed))``; here ``build_model``'s
+    seed made them)."""
+
+    def __init__(
+        self,
+        model: Model,
+        clients: Sequence[Client],
+        loader: FederatedLoader,
+        service: AggregationService,
+        rng_seed: int = 0,
+        clients_per_round: Optional[int] = None,
+        params: Optional[PyTree] = None,
+    ):
+        self.model = model
+        self.clients = list(clients)
+        self.loader = loader
+        self.service = service
+        self.rng = np.random.default_rng(rng_seed)
+        self.clients_per_round = clients_per_round or len(self.clients)
+        if params is None:
+            params = model.state_dict()
+        self.params = collections.OrderedDict(
+            (k, v.detach()) for k, v in params.items())
+        self.results: List[RoundResult] = []
+
+    def run_round(self, round_idx: int) -> RoundResult:
+        sel = self.rng.choice(
+            len(self.clients), size=self.clients_per_round, replace=False
+        )
+        updates, weights, losses = [], [], []
+        send_delta = any(self.clients[i].send_delta for i in sel)
+        for i in sel:
+            c = self.clients[i]
+            batch_fn = lambda s, c=c: self.loader.client_batch(  # noqa: E731
+                c.client_id, round_idx * 1000 + s
+            )
+            upd, loss = c.train_round(self.params, batch_fn, round_idx)
+            updates.append(upd)
+            weights.append(self.loader.client_weight(c.client_id))
+            losses.append(loss)
+
+        fused, report = self.service.aggregate(
+            updates=updates, weights=weights, template=self.params,
+        )
+        del updates
+        with torch.no_grad():
+            if send_delta:
+                # pseudo-gradient: apply fused delta to the global weights
+                self.params = tree_map(
+                    lambda p, d: (p.float() + d.float()).to(p.dtype),
+                    self.params, fused)
+            else:
+                self.params = tree_map(
+                    lambda p, f: f.to(device=p.device, dtype=p.dtype),
+                    self.params, fused)
+        res = RoundResult(
+            round_idx=round_idx,
+            mean_client_loss=float(np.mean(losses)),
+            report=report,
+            n_selected=len(sel),
+        )
+        self.results.append(res)
+        return res
+
+    def run(self, n_rounds: int) -> List[RoundResult]:
+        return [self.run_round(r) for r in range(n_rounds)]
 
 
 class EdgeAggregatorServer:

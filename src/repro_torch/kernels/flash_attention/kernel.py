@@ -13,6 +13,17 @@ a CUDA tensor it launches the kernel on the current stream or raises. It
 checks device, dtype, shape and contiguity first, on either device.
 ``LAUNCHES`` counts kernel launches, one per wrapper call that reached
 the card.
+
+``flash_attention(..., return_lse=True)`` also returns the rows'
+logsumexp, (B, nq, T) fp32, which the forward kernel writes only when
+asked (the serving path passes a null pointer). ``flash_attention_bwd``
+is the backward of the reference model's ``blockwise_attention`` custom
+VJP (``repro/models/layers/attention.py:217-303``; that VJP has no
+Pallas kernel): ``flash_attn_bwd`` in the same source, four device
+kernels a call (delta = rowsum(dO * O); dK / dV partials per q head and
+key tile; dQ per q head and query tile; the partials summed over each
+kv head's group in a fixed order), with no float atomics, so two calls
+give bitwise-equal gradients. Its CPU path is ``attention_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -23,10 +34,14 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels._build import load_library
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref,
+    attention_lse_ref,
+    attention_ref,
+)
 from repro_torch.utils.device import sm_count
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 _COUNT_LOCK = threading.Lock()
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -57,8 +72,10 @@ def _library() -> ctypes.CDLL:
     lib = load_library("flash_attention")
     if lib.flash_attn_fwd.argtypes is None:
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.flash_attn_fwd.argtypes = [ptr] * 4 + [i64] * 9 + [ptr]
+        lib.flash_attn_fwd.argtypes = [ptr] * 5 + [i64] * 9 + [ptr]
         lib.flash_attn_fwd.restype = ctypes.c_int
+        lib.flash_attn_bwd.argtypes = [ptr] * 11 + [i64] * 7 + [ptr]
+        lib.flash_attn_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -99,22 +116,28 @@ def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, return_lse: bool = False):
     """Causal GQA attention with an optional sliding window (0 = none):
     q (B, T, nq, hd), k / v (B, S, nkv, hd) -> (B, T, nq, hd) in q's
     dtype, the kv head of q head h being h // (nq // nkv). Any T and S;
-    positions count from 0 in both."""
+    positions count from 0 in both. With ``return_lse`` returns
+    ``(out, lse)``, lse (B, nq, T) fp32 the rows' logsumexp of the
+    scaled scores (what the backward recomputes p from)."""
     check_heads(q, k, v)
     window = int(window)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if q.device.type == "cpu":
+        if return_lse:
+            return attention_lse_ref(q, k, v, window=window)
         return attention_ref(q, k, v, window=window)
     B, T, nq, hd = q.shape
     S, nkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((B, nq, T), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if B == 0 or T == 0:
-        return out
+        return (out, lse) if return_lse else out
     if S == 0:
         raise ValueError("flash_attention needs at least one key")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -125,10 +148,63 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         err = lib.flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None,
             B, T, S, nq, nkv, hd, DTYPE_CODES[q.dtype], window, block_q,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
     _count("flash_attention")
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, window: int = 0):
+    """(dq, dk, dv) of :func:`flash_attention` in the input dtype, from
+    its inputs, its output, its lse (B, nq, T) fp32 and the output's
+    gradient ``dout``: the reference VJP's math, p and ds rounded to the
+    input dtype before the products they feed, fp32 accumulation. Takes
+    T == S only (what training runs); other shapes raise ``ValueError``.
+    On CUDA tensors it launches ``flash_attn_bwd`` or raises."""
+    check_heads(q, k, v)
+    window = int(window)
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    B, T, nq, hd = q.shape
+    S, nkv = k.shape[1], k.shape[2]
+    if S != T:
+        raise ValueError(f"flash_attention_bwd takes T == S, got {T}, {S}")
+    for name, t in (("out", out), ("dout", dout)):
+        if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {tuple(q.shape)} "
+                             f"{q.dtype} tensor on {q.device}")
+    if tuple(lse.shape) != (B, nq, T) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous ({B}, {nq}, {T}) fp32 "
+                         f"tensor on {q.device}")
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, out, lse, dout, window=window)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if B == 0 or T == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, nq, T), dtype=torch.float32, device=q.device)
+    # fp32 dK / dV partials of each q head, summed over the group after
+    group = nq // nkv
+    work = (torch.empty((2, B, S, nq, hd), dtype=torch.float32,
+                        device=q.device) if group > 1 else None)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(),
+            work.data_ptr() if work is not None else None,
+            B, T, nq, nkv, hd, DTYPE_CODES[q.dtype], window,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bwd launch failed: CUDA error {err}")
+    _count("flash_attention_bwd")
+    return dq, dk, dv

@@ -5,17 +5,28 @@ Layers are an ``nn.ModuleList`` with a Python list of per-layer windows
 loop is plain). Prefill runs every layer's attention through the
 flash-attention kernel; a decode step runs it through the flash-decode
 kernel against per-layer ring caches, window-length for sliding-window
-layers. MoE layers come with their slice.
+layers. ``loss`` runs the layers under ``torch.utils.checkpoint`` (as
+``jax.checkpoint`` around the reference's scan body) with attention
+through ``flash_attention_train`` (the forward and backward kernels),
+then the chunked next-token loss. MoE layers come with their slice.
 """
 from __future__ import annotations
 
+import types
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.base import Model, embed_tokens, init_embedding, lm_logits
+from repro_torch.models.base import (
+    Model,
+    embed_tokens,
+    init_embedding,
+    lm_logits,
+    next_token_loss,
+)
 from repro_torch.models.cache import (
     AttnCache,
     Pos,
@@ -26,6 +37,7 @@ from repro_torch.models.cache import (
 from repro_torch.models.layers.attention import (
     attention_output,
     flash_attention,
+    flash_attention_train,
     flash_decode,
     init_attention,
     project_qkv,
@@ -37,6 +49,8 @@ from repro_torch.models.layers.norms import rms_norm
 # prefill attention: (q, k, v, window=) -> out, causal; decode attention:
 # (q, k_cache, v_cache, pos) -> out. The kernels' wrappers by default; a
 # caller may pass their plain versions to run the model without them.
+# Training passes a differentiable one (flash_attention_train by
+# default, attention_train_ref for the plain forward and backward).
 PrefillAttention = Callable[..., torch.Tensor]
 DecodeAttention = Callable[..., torch.Tensor]
 
@@ -62,6 +76,21 @@ def _layer_forward(cfg: ModelConfig, layer: DecoderLayer, h: torch.Tensor,
     h = h + attention_output(layer.attn, attention(q, k, v, window=window))
     x = rms_norm(h, layer.ln2, cfg.norm_eps)
     return h + mlp(layer.mlp, x)
+
+
+def _layer_tensors(layer: DecoderLayer) -> types.SimpleNamespace:
+    """The layer's tensors as they are bound now, in its attribute tree.
+    A checkpointed layer recomputes from these: under
+    ``torch.func.functional_call`` the module's attributes are the
+    caller's tensors only until the call returns, before the backward
+    recomputes."""
+    a, m = layer.attn, layer.mlp
+    return types.SimpleNamespace(
+        ln1=layer.ln1, ln2=layer.ln2,
+        attn=types.SimpleNamespace(wq=a.wq, wk=a.wk, wv=a.wv, wo=a.wo,
+                                   bq=a.bq, bk=a.bk, bv=a.bv),
+        mlp=types.SimpleNamespace(w_gate=m.w_gate, w_up=m.w_up,
+                                  w_down=m.w_down))
 
 
 def layer_windows(cfg: ModelConfig) -> List[int]:
@@ -103,16 +132,36 @@ class Decoder(Model):
         self.windows = layer_windows(cfg)
 
     def hidden(self, tokens: torch.Tensor,
-               attention: PrefillAttention = flash_attention) -> torch.Tensor:
-        """Embeds, runs the layers, final norm -> hidden (B, T, d)."""
+               attention: PrefillAttention = flash_attention,
+               remat: bool = False) -> torch.Tensor:
+        """Embeds, runs the layers, final norm -> hidden (B, T, d). With
+        ``remat`` each layer runs under ``torch.utils.checkpoint``: its
+        activations are recomputed in backward, attention included."""
         cfg = self.config
         h = embed_tokens(self.embed, tokens)
         B, T = h.shape[:2]
         positions = torch.arange(T, dtype=torch.int32,
                                  device=h.device)[None].expand(B, T)
         for layer, window in zip(self.layers, self.windows):
-            h = _layer_forward(cfg, layer, h, positions, window, attention)
+            if remat:
+                h = checkpoint(_layer_forward, cfg, _layer_tensors(layer), h,
+                               positions, window, attention,
+                               use_reentrant=False)
+            else:
+                h = _layer_forward(cfg, layer, h, positions, window,
+                                   attention)
         return rms_norm(h, self.final_norm, cfg.norm_eps)
+
+    def loss(self, batch: Dict[str, torch.Tensor],
+             attention: PrefillAttention = flash_attention_train,
+             remat: bool = True):
+        """(mean next-token CE, {"ce": loss, "moe_aux": 0}) of
+        ``batch["tokens"]`` against ``batch["labels"]``, as
+        ``repro.models.decoder.decoder_loss``."""
+        h = self.hidden(batch["tokens"], attention=attention, remat=remat)
+        loss = next_token_loss(h, self.embed, self.head, batch["labels"])
+        return loss, {"ce": loss,
+                      "moe_aux": torch.zeros((), device=loss.device)}
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor],

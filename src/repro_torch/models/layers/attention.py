@@ -6,24 +6,33 @@ Pallas kernels against that math. Here the kernels take those places:
 prefill goes through the flash-attention kernel's wrapper and a decode
 step through the flash-decode kernel's, each running its plain version
 on CPU tensors. ``decode_attention`` stays as the plain decode path.
+Training goes through ``flash_attention_train``, the counterpart of
+``blockwise_attention``'s custom VJP: the forward kernel saving the
+rows' logsumexp and the backward kernel behind a
+``torch.autograd.Function`` (``attention_train_ref``: the same with the
+plain forward and backward).
 
-Training (``blockwise_attention``'s custom VJP) and ``cross_attention``
-come with their slices; the sharding hooks are the identity on one card
-and are dropped.
+``cross_attention`` comes with its slice; the sharding hooks are the
+identity on one card and are dropped.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (
+    attention_train_ref,
+    flash_attention,
+    flash_attention_train,
+)
 from repro_torch.kernels.flash_decode.ops import flash_decode
 from repro_torch.kernels.flash_decode.ref import NEG_INF, decode_attention
 from repro_torch.models.layers.init import normal_param, zeros_param
 from repro_torch.models.layers.rope import apply_rope
 
-__all__ = ["NEG_INF", "Attention", "attention_output", "decode_attention",
-           "flash_attention", "flash_decode", "init_attention", "project_qkv"]
+__all__ = ["NEG_INF", "Attention", "attention_output", "attention_train_ref",
+           "decode_attention", "flash_attention", "flash_attention_train",
+           "flash_decode", "init_attention", "project_qkv"]
 
 
 class Attention(nn.Module):

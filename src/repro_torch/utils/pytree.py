@@ -63,6 +63,14 @@ def tree_unflatten(like: PyTree, leaves) -> PyTree:
     return type(like)(*items) if hasattr(like, "_fields") else tuple(items)
 
 
+def tree_map(fn, tree: PyTree, *rest: PyTree) -> PyTree:
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of
+    ``rest``, trees of the same structure), in a tree shaped like
+    ``tree``."""
+    leaves = [tree_leaves(t) for t in (tree, *rest)]
+    return tree_unflatten(tree, iter([fn(*xs) for xs in zip(*leaves)]))
+
+
 def tree_to_flat_vector(tree: PyTree, dtype=None) -> torch.Tensor:
     """Concatenate every leaf, raveled, into one 1-D tensor on the first
     tensor leaf's device (the CPU for a tree of ndarrays)."""

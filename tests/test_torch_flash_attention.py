@@ -26,7 +26,7 @@ def _no_launches():
     plain version and leaves the launch count at zero."""
     kernel.reset_launches()
     yield
-    assert kernel.LAUNCHES == {"flash_attention": 0}
+    assert kernel.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def _qkv(seed, B, T, nq, nkv, hd, S=None):

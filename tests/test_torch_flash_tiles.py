@@ -143,7 +143,7 @@ def _close(got, want, tol):
 def _no_launches():
     kernel.reset_launches()
     yield
-    assert kernel.LAUNCHES == {"flash_attention": 0}
+    assert kernel.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],

@@ -30,6 +30,12 @@ SERVING_MODULES = [*(f"repro_torch.serving.{m}" for m in (
                        "client")),
                    "repro_torch.serving", "repro_torch.fl",
                    "repro_torch.fl.server", "repro_torch.launch.serve"]
+# the training substrate: optimizers, data, the client and the train CLI
+TRAINING_MODULES = ["repro_torch.optim", "repro_torch.optim.optimizers",
+                    "repro_torch.optim.schedule", "repro_torch.data",
+                    *(f"repro_torch.data.{m}" for m in (
+                        "synthetic", "partition", "loader")),
+                    "repro_torch.fl.client", "repro_torch.launch.train"]
 
 
 def _modules():
@@ -59,7 +65,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.core.adaptive",
             "repro_torch.checkpoint",
             "repro_torch.checkpoint.ckpt",
-            *SLICE_MODULES, *SERVING_MODULES} <= set(mods)
+            *SLICE_MODULES, *SERVING_MODULES, *TRAINING_MODULES} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -123,6 +129,33 @@ def test_serving_layer_loads_no_jax_no_ml_dtypes_and_no_kernel(module):
     res = _run(["-c", code])
     assert res.returncode == 0, res.stderr
     assert "BAD [] LOADED []" in res.stdout, res.stdout
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_substrate_loads_no_jax_and_no_kernel(module):
+    """Each module of the training substrate, imported alone, loads
+    neither JAX nor the JAX package nor a kernel library."""
+    code = (
+        f"import {module}, sys\n"
+        "from repro_torch.kernels import _build\n"
+        "print('BAD', sorted(m for m in sys.modules if m.split('.')[0]\n"
+        "                    in ('jax', 'jaxlib', 'repro')),\n"
+        "      'LOADED', sorted(_build._LOADED))\n"
+    )
+    res = _run(["-c", code])
+    assert res.returncode == 0, res.stderr
+    assert "BAD [] LOADED []" in res.stdout, res.stdout
+
+
+def test_train_cli_defaults_to_the_card():
+    from repro_torch.launch import train
+
+    assert train.parse_args([]).device == "cuda"
+    assert train.parse_args([]).local_strategy == "kernel"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--rounds", "1", "--clients", "1"])
 
 
 def _imported_names(path: Path):

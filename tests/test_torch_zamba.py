@@ -48,7 +48,7 @@ def _no_launches():
     for mod in (fa, fd, fk, sk):
         mod.reset_launches()
     yield
-    assert fa.LAUNCHES == {"flash_attention": 0}
+    assert fa.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0}
     assert fd.LAUNCHES == {"flash_decode": 0}
     assert fk.LAUNCHES == {"weighted_sum": 0, "weighted_sum_dequant": 0}
     assert sk.LAUNCHES == {"ssd_chunk": 0}

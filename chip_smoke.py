@@ -81,11 +81,14 @@ s), the socket rounds of fp32 and int8 frames against in-process
 rounds (bitwise), a truncated frame (400) and a frame over the default
 64 MiB cap (413) that land nothing, a streamed TrimmedMean round of 48
 CNN4.6 uploads, and the serve CLI, fp32 and rate-limited int8. Phase 0
-also prints the registers and spills of the attention backward's 30
-instances (none allowed), and phase 1 holds ``flash_attention_bwd``
-against ``attention_bwd_ref`` at the training shapes and at edge shapes
-(two calls bitwise equal), beside the backward of
-``scaled_dot_product_attention``. Phase 9, last, trains full-width
+also prints the registers and spills of the attention backward's
+instances (exactly the set ``kernel.bwd_instances`` names; no spill
+allowed) and the tensor-core products (HMMA) of each bf16 / fp16 dK /
+dV and dQ instance (none may lack them), and phase 1 holds
+``flash_attention_bwd`` against ``attention_bwd_ref`` at the training
+shapes and at edge shapes (two calls bitwise equal; the device kernels
+of a call and their times at the four large shapes), beside the
+backward of ``scaled_dot_product_attention``. Phase 9, last, trains full-width
 Qwen2-0.5B bf16: one local step through the attention kernels (exactly
 48 forward and 24 backward launches) against the same step through the
 plain attention, timed and profiled; two FedAvg rounds of 4 clients
@@ -1959,25 +1962,46 @@ _BWD_ENTRY = re.compile(r"(bwd_[a-z_]+_kernel)I(f|13__nv_bfloat16|6__half)"
 
 
 def _attention_bwd_build():
-    """Each instance of the attention backward's four kernels in the
-    ``ptxas -v`` report of the attention library: registers and spills
-    (none allowed)."""
-    regs, spills = {}, {}
+    """Each instance of the attention backward's kernels in the ``ptxas
+    -v`` report of the attention library: registers and spills (none
+    allowed), the set of instances exactly what ``kernel.bwd_instances``
+    says ``flash_attn_bwd`` dispatches; and in the SASS, the tensor-core
+    products (HMMA) of every bf16 / fp16 dK / dV and dQ instance (none
+    may lack them)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fa
+
+    names = {torch.float32: "fp32", torch.bfloat16: "bf16",
+             torch.float16: "fp16"}
+    want = {" ".join(x for x in (name, names[dt], hd and f"hd {hd}") if x)
+            for name, dt, hd in fa.bwd_instances()}
+    regs, spills, mangled = {}, {}, {}
     for fn, (r, st, ld) in _ptxas_entries("flash_attention").items():
         m = _BWD_ENTRY.search(fn)
         if not m:
             continue
         label = " ".join(x for x in (m.group(1), _PTX_TYPES[m.group(2)],
                                      m.group(3) and f"hd {m.group(3)}") if x)
-        regs[label] = r
+        regs[label], mangled[fn] = r, label
         if st or ld:
             spills[label] = [st, ld]
-    print(f"[phase0] flash_attention_bwd ptxas: {len(regs)} kernels, "
-          f"registers {regs}; spills (store, load bytes) {spills or 'none'}",
-          flush=True)
-    if spills or len(regs) != 30:   # (dkdv, dq) x 3 dtypes x 4 hd + 2 x 3
-        raise AssertionError(f"flash_attention_bwd build: {len(regs)} "
-                             f"kernels, spills {spills}")
+    hmma = {}
+    for fn, text in _sass_sections(_sass("flash_attention")).items():
+        label = mangled.get(fn)
+        if label and label.split()[0].endswith("_mma_kernel"):
+            hmma[label] = text.count("HMMA")
+    want_hmma = {label for label in want
+                 if label.split()[0].endswith("_mma_kernel")}
+    print(f"[phase0] flash_attention_bwd ptxas: {len(regs)} kernels "
+          f"({len(want)} dispatched), registers {regs}; spills "
+          f"(store, load bytes) {spills or 'none'}; HMMA a tensor-core "
+          f"instance {hmma}", flush=True)
+    if spills or set(regs) != want or set(hmma) != want_hmma \
+            or not all(hmma.values()):
+        raise AssertionError(
+            f"flash_attention_bwd build: instances {sorted(regs)} against "
+            f"{sorted(want)}, spills {spills}, HMMA {hmma}")
 
 
 def _decode_build():
@@ -2236,11 +2260,20 @@ def phase_attention_kernels(dev, hbm_bw):
 # shares of these limits over dq, dk, dv and both forwards (H100): half
 # 0.666 at the Qwen2 training layer, 0.820 at the prefill shape (dv: up
 # to 7 x 1024 terms of rounded p), 0.408 Gemma3 local, 0.473 Zamba2
-# block, 0.328 T = 17, 0.039 window 1 (fp16); fp32 at most 0.067. The
-# inputs come from the seed and the kernel is deterministic, so a run
-# reads the same shares; the 1.2x or more that is left is for a changed
+# block, 0.328 T = 17, 0.039 window 1 (fp16); fp32 at most 0.067; the
+# same with the half route on the CUDA cores or the tensor cores (the
+# worst are dv's, set by the rounding of p both share). The inputs come
+# from the seed and the kernel is deterministic, so a run reads the
+# same shares; the 1.2x or more that is left is for a changed
 # kernel's other summation order, and a share above 1 fails the phase.
 BWD_TOL = {"fp32": (1e-4, 1e-4), "half": (1e-2, 2e-2)}
+# The largest shares of the backward's first design (CUDA cores in every
+# dtype) at the half shapes below, printed beside each case's own.
+BWD_FIRST_DESIGN_SHARE = {("Qwen2-0.5B training layer", "bf16"): 0.666,
+                  ("Qwen2-0.5B prefill shape", "bf16"): 0.820,
+                  ("Gemma3-1B local layer (MQA)", "bf16"): 0.408,
+                  ("Zamba2-1.2B shared block (MHA, window 2048)", "bf16"):
+                  0.473}
 # The forward's out and lse when the lse is stored, against
 # attention_lse_ref: fp32 on the same inputs; half in fp32 on upcast
 # inputs, where out differs by the rounding of p before PV and of out
@@ -2272,6 +2305,13 @@ def _sdpa_bwd(q, k, v, dout, mask=None, causal=False):
     go = dout.transpose(1, 2)
     return lambda: torch.autograd.grad(o, (qt, kt, vt), go,
                                        retain_graph=True)
+
+
+def _kernel_label(name: str) -> str:
+    """``bwd_dq_mma_kernel<__nv_bfloat16, 64>`` out of a profiler key that
+    also holds the namespace and the argument list."""
+    m = re.search(r"\w+<[^>]*>", name)
+    return m.group(0) if m else name
 
 
 def phase_attention_bwd(dev, hbm_bw):
@@ -2350,10 +2390,13 @@ def phase_attention_bwd(dev, hbm_bw):
         cases["flash_attention_bwd"].append({
             "shape": [B, T, nq, nkv, hd], "window": win,
             "dtype": names[dt], "what": label,
-            "route": "cuda cores, 4 kernels (delta, dK/dV, dQ, group sum)",
+            "route": (f"{fa.bwd_route(dt)}, 4 kernels (delta, dK/dV, dQ, "
+                      "group sum)"),
             "max_abs_err": err, "max_abs_err_plain_forward": err_p,
             "rtol": rtol, "atol": atol,
             "limit_share": {n: float(f"{x:.3g}") for n, x in shares.items()},
+            "worst_limit_share": float(f"{max(shares.values()):.3g}"),
+            "first_design_worst_limit_share": BWD_FIRST_DESIGN_SHARE.get((label, names[dt])),
             "against": ("attention_bwd_ref, same inputs" if dt == fp32 else
                         "attention_bwd_ref in fp32 on upcast inputs"),
             "bitwise_repeat": True, "live_scores": live,
@@ -2365,6 +2408,13 @@ def phase_attention_bwd(dev, hbm_bw):
             "library": "scaled_dot_product_attention(enable_gqa) backward",
             "bound_ms": bound_ms, "bound_by": bound_by,
         })
+        if T >= 512:   # the device kernels of one call, and their times
+            cases["flash_attention_bwd"][-1]["device_kernels"] = {
+                _kernel_label(name):
+                [n, float(f"{ms:.4f}")] for name, (n, ms) in _device_kernels(
+                    lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                   window=win),
+                    3 + (nq != nkv), tag="bwd_").items()}
         print(f"[phase1] flash_attention_bwd "
               f"{json.dumps(cases['flash_attention_bwd'][-1])}", flush=True)
         del q, k, v, out, lse, dout, library, mask

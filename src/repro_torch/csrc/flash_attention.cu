@@ -82,24 +82,57 @@
 //     dQ = dS K,    dK = dS^T Q,
 // p and dS rounded to the input dtype before the products they feed
 // (the reference's pb / dsb, :258-266), every sum in fp32. T == S.
-// Bound: operations. At 10 * hd FLOPs a live score (S recomputed, dV,
-// dP, dQ, dK) against ~5 * (nq + nkv) * hd * 2 bytes a token, the
-// Qwen2 training layer (4, 512, 14 / 2, 64) needs 4.7 GFLOP and 17 MB.
-// This first design runs on the CUDA cores for every dtype (fp32 FMAs;
-// p and dS rounded through the storage type), four kernels a call, no
-// float atomics, so two calls are bitwise equal:
-//   1. bwd_delta_kernel: delta per (b, t, h), one warp a row;
-//   2. bwd_dkdv_kernel: one 256-thread block per (b, q head, key tile of
-//      BT keys) holds K, V of its tile and loops over the live query
-//      tiles (causal, window), recomputing S and dP on a 16 x 16 thread
-//      grid and accumulating dK, dV in registers; with GQA it writes
+// Bound: operations. Five products of 2 * hd FLOPs a live score (S
+// recomputed, dV, dP, dQ, dK) against ~5 * (nq + nkv) * hd * 2 bytes a
+// token: the Qwen2 training layer (4, 512, 14 / 2, 64) needs 4.7 GFLOP,
+// 4.8 us at 989 TFLOP/s in bf16, and 17 MB, 5.0 us at 3.35 TB/s. Four
+// kernels a call, no float atomics, so two calls are bitwise equal:
+//   1. bwd_delta_kernel: delta per (b, t, h), 16-byte loads, up to a warp
+//      a row;
+//   2. dK / dV: one block per (key tile, q head, batch) holds K, V of its
+//      keys and loops over the live query tiles (from the diagonal to
+//      the window's far edge), accumulating dK, dV; with GQA it writes
 //      fp32 partials per q head, else dk / dv directly;
-//   3. bwd_dq_kernel: one block per (b, q head, query tile) holds Q, dO,
-//      recomputes S, dP, dS over the live key tiles, accumulates dQ;
+//   3. dQ: one block per (query tile, q head, batch), late tiles first,
+//      holds Q, dO and loops over the live key tiles, accumulating dQ;
 //   4. bwd_group_sum_kernel (GQA only): dk, dv = the partials of a kv
 //      head's q heads summed in head order, cast to the input dtype.
-// S and dP are computed twice (in 2 and 3): 14 * hd FLOPs a live score
-// against the 10 of the bound. Tensor cores (wgmma + TMA) come later.
+// S and dP are computed in both 2 and 3: 7 products a live score
+// against the bound's 5. Computing them once needs dQ summed across the
+// key-tile blocks (float atomics, or semaphores that order the adds),
+// which would give up bitwise-equal calls or serialise the blocks.
+//
+// bf16 / fp16 (bwd_dkdv_mma_kernel, bwd_dq_mma_kernel): FlashAttention-2's
+// backward on mma.sync.m16n8k16 with fp32 accumulators, 4 warps a block,
+// 16 rows (keys in 2, queries in 3) a warp:
+//   * the block's own rows (K, V in 2; Q, dO in 3) stay in their storage
+//     dtype in swizzled shared memory, loaded once with cp.async; at hd
+//     <= 64 their A fragments are loaded once into registers, above that
+//     per k-step by ldmatrix;
+//   * the streamed tiles (Q, dO, lse, delta in 2; K, V in 3) arrive
+//     through a two-stage cp.async ring: the next tile loads while this
+//     one is multiplied;
+//   * 2 computes S^T = K Q^T and dP^T = V dO^T, 3 computes S = Q K^T and
+//     dP = dO V^T (B fragments by ldmatrix), into fp32 accumulators; p
+//     and ds are formed in registers, rounded to the storage type and fed
+//     straight from the accumulators as A fragments (the forward's
+//     accumulator-to-A reuse) into dV += pb^T dO and dK += dsb^T Q (2)
+//     or dQ += dsb K (3), with dO, Q and K by ldmatrix.trans;
+//   * the mask is applied only on tiles a warp's rows cross at the
+//     diagonal, the window's edge or T (masked p = 0);
+//   * at hd 256 dK + dV of 16 keys would take 256 fp32 registers a
+//     thread, so two warps share each 16-row group and split the head
+//     dim: both compute the group's S and dP, each accumulates half of
+//     the dims (blocks of 32 rows, 32-row streamed tiles).
+//   Each product's operands are the bf16 / fp16 values the reference
+//   feeds its einsums; p enters dV rounded once, as the reference's pb
+//   (not the forward's hi + lo split). Only the order of the fp32 sums
+//   differs.
+//
+// fp32 (bwd_dkdv_kernel, bwd_dq_kernel): the CUDA cores, as the first
+// design. A 256-thread block on a 16 x 16 thread grid, every tile
+// widened to fp32 in shared memory at pitch hd + 1, scalar FMAs; TF32
+// would round the inputs past the fp32 tolerance.
 //
 // The kernels allocate nothing; each entry point returns the
 // cudaGetLastError() of its launches.
@@ -109,6 +142,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -823,19 +859,13 @@ cudaError_t dispatch_f32_hd(const void* q, const void* k, const void* v, void* o
 
 
 // ---------------------------------------------------------------------------
-// backward: CUDA cores, every dtype
+// backward: delta and group sum (every dtype), fp32 tile kernels (CUDA cores)
 // ---------------------------------------------------------------------------
 
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
 template <>
 __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <>
-__device__ __forceinline__ float to_f<__half>(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -879,22 +909,62 @@ __device__ __forceinline__ void load_rows_bwd(float* dst, const T* __restrict__ 
   }
 }
 
-// delta[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d] in fp32, one warp
-// a row (lanes over d, a butterfly sum: a fixed order)
+// sum of the products of the 16 / sizeof(T) elements of two 16-byte
+// vectors, added to acc in element order, in fp32
+template <typename T>
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b, float acc);
+template <>
+__device__ __forceinline__ float dot16<float>(const uint4& a, const uint4& b, float acc) {
+  acc = fmaf(__uint_as_float(a.x), __uint_as_float(b.x), acc);
+  acc = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), acc);
+  acc = fmaf(__uint_as_float(a.z), __uint_as_float(b.z), acc);
+  return fmaf(__uint_as_float(a.w), __uint_as_float(b.w), acc);
+}
+template <>
+__device__ __forceinline__ float dot16<__nv_bfloat16>(const uint4& a, const uint4& b,
+                                                      float acc) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc = fmaf(__uint_as_float(x[i] << 16), __uint_as_float(y[i] << 16), acc);
+    acc = fmaf(__uint_as_float(x[i] & 0xffff0000u), __uint_as_float(y[i] & 0xffff0000u), acc);
+  }
+  return acc;
+}
+template <>
+__device__ __forceinline__ float dot16<__half>(const uint4& a, const uint4& b, float acc) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __half22float2(*reinterpret_cast<const __half2*>(&x[i]));
+    const float2 w = __half22float2(*reinterpret_cast<const __half2*>(&y[i]));
+    acc = fmaf(u.x, w.x, acc);
+    acc = fmaf(u.y, w.y, acc);
+  }
+  return acc;
+}
+
+// delta[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d] in fp32: a row is
+// L = min(32, hd / V) consecutive lanes, each summing its 16-byte vectors
+// of V elements (lane j takes vectors j, j + L, ...), then a butterfly
+// over the L lanes (a fixed order). Bound: bytes.
 template <typename T>
 __global__ void __launch_bounds__(kBwdThreads)
 bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
                  float* __restrict__ delta, int64_t rows, int T_len, int nq, int hd) {
-  const int64_t row = (static_cast<int64_t>(blockIdx.x) * kBwdThreads + threadIdx.x) / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const T* o = out + row * hd;
-  const T* g = dout + row * hd;
+  constexpr int V = 16 / sizeof(T);
+  const int vecs = hd / V, lanes = min(32, vecs);
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kBwdThreads + threadIdx.x;
+  const int64_t row = i / lanes;   // every lane of a warp reaches the butterfly
+  const int sub = static_cast<int>(i % lanes);
   float acc = 0.f;
-  for (int d = lane; d < hd; d += 32) acc = fmaf(to_f<T>(g[d]), to_f<T>(o[d]), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
+  if (row < rows) {
+    const uint4* o = reinterpret_cast<const uint4*>(out + row * hd);
+    const uint4* g = reinterpret_cast<const uint4*>(dout + row * hd);
+    for (int c = sub; c < vecs; c += lanes) acc = dot16<T>(g[c], o[c], acc);
+  }
+  for (int off = lanes / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (sub == 0 && row < rows) {
     const int64_t h = row % nq, bt = row / nq;   // row = (b * T + t) * nq + h
     const int64_t t = bt % T_len, b = bt / T_len;
     delta[(b * nq + h) * T_len + t] = acc;
@@ -1192,34 +1262,23 @@ bwd_group_sum_kernel(const float* __restrict__ work, T* __restrict__ dk, T* __re
   dv[i] = from_f<T>(sv);
 }
 
+// the fp32 route's dK / dV and dQ kernels (CUDA cores)
 template <typename T, int HD>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* out,
-                       const void* dout, const float* lse, void* dq, void* dk, void* dv,
-                       float* delta, float* work, int64_t B, int64_t T_len, int64_t nq,
-                       int64_t nkv, int64_t window, float scale, cudaStream_t st) {
+cudaError_t launch_tiles_f32(const T* q, const T* k, const T* v, const T* dout,
+                             const float* lse, const float* delta, T* dq, T* dk, T* dv,
+                             float* work, int64_t B, int64_t T_len, int64_t nq, int64_t nkv,
+                             int64_t window, float scale, cudaStream_t st) {
   using C = BwdCfg<HD>;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* gt = static_cast<const T*>(dout);
-  const int64_t rows = B * T_len * nq;
-  bwd_delta_kernel<T><<<static_cast<unsigned>((rows * 32 + kBwdThreads - 1) / kBwdThreads),
-                        kBwdThreads, 0, st>>>(static_cast<const T*>(out), gt, delta, rows,
-                                              static_cast<int>(T_len), static_cast<int>(nq),
-                                              HD);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
   const dim3 grid(static_cast<unsigned>((T_len + C::BT - 1) / C::BT),
                   static_cast<unsigned>(nq), static_cast<unsigned>(B));
   const int smem_kv = static_cast<int>(sizeof(float) * C::DKDV_FLOATS);
   auto kern_kv = bwd_dkdv_kernel<T, HD>;
-  err = cudaFuncSetAttribute(kern_kv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  cudaError_t err =
+      cudaFuncSetAttribute(kern_kv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (err != cudaSuccess) return err;
   kern_kv<<<grid, kBwdThreads, smem_kv, st>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), work,
-      static_cast<int>(T_len), static_cast<int>(nq), static_cast<int>(nkv),
-      static_cast<int>(window), scale);
+      q, k, v, dout, lse, delta, dk, dv, work, static_cast<int>(T_len), static_cast<int>(nq),
+      static_cast<int>(nkv), static_cast<int>(window), scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -1227,10 +1286,500 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   auto kern_q = bwd_dq_kernel<T, HD>;
   err = cudaFuncSetAttribute(kern_q, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
   if (err != cudaSuccess) return err;
-  kern_q<<<grid, kBwdThreads, smem_q, st>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), static_cast<int>(T_len),
-      static_cast<int>(nq), static_cast<int>(nkv), static_cast<int>(window), scale);
+  kern_q<<<grid, kBwdThreads, smem_q, st>>>(q, k, v, dout, lse, delta, dq,
+                                            static_cast<int>(T_len), static_cast<int>(nq),
+                                            static_cast<int>(nkv), static_cast<int>(window),
+                                            scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// backward, bf16 / fp16: tensor cores
+// ---------------------------------------------------------------------------
+
+// 16 rows a warp, 4 warps a block; DSPLIT warps share a 16-row group and
+// split the head dim between them (2 at hd 256, where one warp's dK + dV
+// would not fit its registers).
+template <int HD>
+struct BwdMmaCfg {
+  static constexpr int DSPLIT = HD == 256 ? 2 : 1;
+  static constexpr int ROWS = 16 * (kHalfThreads / 32) / DSPLIT;   // keys (dK / dV), queries (dQ)
+  static constexpr int BQ = HD <= 64 ? 64 : 32;    // query tile a dK / dV block streams
+  static constexpr int BK = HD <= 128 ? 64 : 32;   // key tile a dQ block streams
+  static constexpr bool IN_REGS = HD <= 64;        // the block's own A fragments in registers
+  static constexpr int C = HD / 8;                 // 16-byte chunks a row
+  static constexpr int KS = HD / 16;               // k-steps over the head dim
+  static constexpr int DW = HD / DSPLIT / 8;       // dim n-tiles a warp accumulates
+  static constexpr int OWN_BYTES = ROWS * HD * 2;  // K or V (dK / dV), Q or dO (dQ)
+  // dK / dV: K, V, then two stages of (Q, dO, lse, delta)
+  static constexpr int Q_TILE = BQ * HD * 2;
+  static constexpr int Q_STAGE = 2 * Q_TILE + 2 * BQ * 4;
+  static constexpr int DKDV_SMEM = 2 * OWN_BYTES + 2 * Q_STAGE;
+  // dQ: Q, dO, then two stages of (K, V)
+  static constexpr int K_TILE = BK * HD * 2;
+  static constexpr int DQ_SMEM = 2 * OWN_BYTES + 4 * K_TILE;
+  static_assert(DW % 2 == 0 && BQ % 16 == 0 && BK % 16 == 0, "whole ldmatrix.x4 steps");
+};
+
+// 4 bytes global -> shared; src_bytes 0 zero-fills.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// The A fragment (16 rows x 16 k) at k-step kk of a warp's accumulator
+// tile acc[2 kk], acc[2 kk + 1] (16 rows x 8 columns each, the m16n8 C
+// layout), rounded to the storage type: the C layout of two n-tiles is
+// the A layout of one k-step.
+template <typename T>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
+                                         const float (&hi)[4]) {
+  a[0] = pack2<T>(lo[0], lo[1]);
+  a[1] = pack2<T>(lo[2], lo[3]);
+  a[2] = pack2<T>(hi[0], hi[1]);
+  a[3] = pack2<T>(hi[2], hi[3]);
+}
+
+// grid (ceil(T / ROWS), nq, B), early tiles first (the first key tiles
+// of every head, the ones with the most live query tiles, are dispatched
+// first): the block of one key tile of q head h. Warp w owns keys k0 + 16 (w / DSPLIT) .. + 15 and accumulates
+// dK, dV over its share of the dims; lane l holds key rows g = l / 4 and
+// g + 8 of the warp's 16, query / dim columns 2 (l % 4), 2 (l % 4) + 1 of
+// each 8-wide n-tile.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kHalfThreads, 2)
+bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                    float* __restrict__ work, int T_len, int nq, int nkv, int window,
+                    float scale, float scale_log2) {
+  using Cf = BwdMmaCfg<HD>;
+  constexpr int C = Cf::C, KS = Cf::KS, BQ = Cf::BQ, NT = BQ / 8, DW = Cf::DW;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sK = smem_u32(smem);
+  const uint32_t sV = sK + Cf::OWN_BYTES;
+  const uint32_t sRing = sV + Cf::OWN_BYTES;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, cq = lane & 3;
+  const int rg = warp / Cf::DSPLIT;                  // this warp's 16-key group
+  const int dc0 = (warp % Cf::DSPLIT) * DW;   // its first dim chunk (8 dims a chunk)
+  // block lin of the grid takes key tile lin / (nq B): 32-bit indices,
+  // offsets rather than pointers (the parameters stay in the constant
+  // bank), so that the hd-256 instance fits its registers
+  const unsigned heads = gridDim.y * gridDim.z;
+  const unsigned lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int h = static_cast<int>(lin % heads % gridDim.y);
+  const int b = static_cast<int>(lin % heads / gridDim.y);
+  const int kvh = h / (nq / nkv);
+  const int k0 = static_cast<int>(lin / heads) * Cf::ROWS;
+  const int kw0 = k0 + rg * 16;
+  const int64_t q_stride = static_cast<int64_t>(nq) * HD;
+  const int64_t kv_stride = static_cast<int64_t>(nkv) * HD;
+  const int64_t q_off = (static_cast<int64_t>(b) * T_len * nq + h) * HD;   // (b, 0, h)
+  const int64_t l_off = (static_cast<int64_t>(b) * nq + h) * T_len;        // (b, h, 0)
+
+  const int64_t kv_off = ((static_cast<int64_t>(b) * T_len + k0) * nkv + kvh) * HD;
+  load_tile<T, HD, Cf::ROWS>(sK, k + kv_off, kv_stride, T_len - k0, tid);
+  load_tile<T, HD, Cf::ROWS>(sV, v + kv_off, kv_stride, T_len - k0, tid);
+  cp_async_commit();
+
+  // live query tiles [qt_lo, qt_hi): from the diagonal to the window's
+  // far edge (kernel.py dkdv_query_tiles)
+  const int n_qt = (T_len + BQ - 1) / BQ;
+  const int qt_lo = k0 / BQ;
+  int qt_hi = n_qt;
+  if (window > 0) qt_hi = min(n_qt, (k0 + Cf::ROWS - 2 + window) / BQ + 1);
+
+  // Q, dO, lse and delta of query tile qt into a ring stage; rows past T
+  // are zero
+  auto load_stage = [&](int qt, int stage) {
+    const int q0 = qt * BQ;
+    const uint32_t base = sRing + stage * Cf::Q_STAGE;
+    load_tile<T, HD, BQ>(base, q + q_off + q0 * q_stride, q_stride, T_len - q0, tid);
+    load_tile<T, HD, BQ>(base + Cf::Q_TILE, dout + q_off + q0 * q_stride, q_stride,
+                         T_len - q0, tid);
+    if (tid < 2 * BQ) {
+      const int i = tid % BQ;
+      const float* src = (tid < BQ ? lse : delta) + l_off;
+      const bool ok = q0 + i < T_len;
+      cp_async4(base + 2 * Cf::Q_TILE + tid * 4, ok ? src + q0 + i : src, ok ? 4 : 0);
+    }
+  };
+  if (qt_lo < qt_hi) load_stage(qt_lo, 0);
+  cp_async_commit();
+
+  uint32_t kf[Cf::IN_REGS ? KS : 1][4], vf[Cf::IN_REGS ? KS : 1][4];
+  if constexpr (Cf::IN_REGS) {   // K, V fragments, loaded once
+    cp_async_wait<1>();
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      ldmatrix_x4(kf[ks], tile_addr<C>(sK, rg * 16 + (lane & 15), ks * 2 + (lane >> 4)));
+      ldmatrix_x4(vf[ks], tile_addr<C>(sV, rg * 16 + (lane & 15), ks * 2 + (lane >> 4)));
+    }
+  }
+  float acc_k[DW][4], acc_v[DW][4];
+#pragma unroll
+  for (int i = 0; i < DW; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[i][e] = acc_v[i][e] = 0.f;
+
+  for (int qt = qt_lo; qt < qt_hi; ++qt) {
+    const int stage = (qt - qt_lo) & 1;
+    if (qt + 1 < qt_hi) {   // the next tile loads while this one is multiplied
+      load_stage(qt + 1, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t sQ = sRing + stage * Cf::Q_STAGE;
+    const uint32_t sG = sQ + Cf::Q_TILE;
+    const float* sL = reinterpret_cast<const float*>(smem + 2 * Cf::OWN_BYTES +
+                                                     stage * Cf::Q_STAGE + 2 * Cf::Q_TILE);
+    const float* sD = sL + BQ;
+    const int q0 = qt * BQ;
+
+    // S^T = K Q^T, dP^T = V dO^T: this warp's 16 keys x BQ queries, fp32
+    float st[NT][4], dpt[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[i][e] = dpt[i][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t ak[4], av[4];
+      if constexpr (Cf::IN_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ak[e] = kf[ks][e];
+          av[e] = vf[ks][e];
+        }
+      } else {
+        ldmatrix_x4(ak, tile_addr<C>(sK, rg * 16 + (lane & 15), ks * 2 + (lane >> 4)));
+        ldmatrix_x4(av, tile_addr<C>(sV, rg * 16 + (lane & 15), ks * 2 + (lane >> 4)));
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        const int r = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+        const int ch = ks * 2 + ((lane >> 3) & 1);
+        uint32_t bq[4], bg[4];
+        ldmatrix_x4(bq, tile_addr<C>(sQ, r, ch));
+        ldmatrix_x4(bg, tile_addr<C>(sG, r, ch));
+        mma16816<T>(st[2 * np], ak, bq[0], bq[1]);
+        mma16816<T>(st[2 * np + 1], ak, bq[2], bq[3]);
+        mma16816<T>(dpt[2 * np], av, bg[0], bg[1]);
+        mma16816<T>(dpt[2 * np + 1], av, bg[2], bg[3]);
+      }
+    }
+
+    // p = exp(s * scale - lse) in st, ds = p (dp - delta) scale in dpt;
+    // masked (p = 0) only where the tile crosses the diagonal, the
+    // window's edge or T for this warp's keys
+    const bool edge = q0 < kw0 + 15 || q0 + BQ > T_len ||
+                      (window > 0 && q0 + BQ - 1 - kw0 >= window);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int j = nt * 8 + cq * 2;   // the lane's two query columns
+      const float2 l2 = *reinterpret_cast<const float2*>(sL + j);
+      const float2 d2 = *reinterpret_cast<const float2*>(sD + j);
+      const float la = l2.x * kLog2e, lb = l2.y * kLog2e;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(st[nt][e] * scale_log2 - ((e & 1) ? lb : la));
+        if (edge) {
+          const int key = kw0 + g + ((e >> 1) << 3);
+          const int t = q0 + j + (e & 1);
+          bool live = key <= t && t < T_len;
+          if (window > 0) live = live && t - key < window;
+          if (!live) p = 0.f;
+        }
+        st[nt][e] = p;
+        dpt[nt][e] = p * (dpt[nt][e] - ((e & 1) ? d2.y : d2.x)) * scale;
+      }
+    }
+
+    // dV += pb^T dO, dK += dsb^T Q over this warp's dims, pb and dsb the
+    // accumulators rounded to T; dO and Q by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t ap[4], as[4];
+      acc_to_a<T>(ap, st[2 * kk], st[2 * kk + 1]);
+      acc_to_a<T>(as, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < DW / 2; ++np) {
+        const int r = kk * 16 + (lane & 15);
+        const int ch = dc0 + np * 2 + (lane >> 4);
+        uint32_t bg[4], bq[4];
+        ldmatrix_x4_trans(bg, tile_addr<C>(sG, r, ch));
+        ldmatrix_x4_trans(bq, tile_addr<C>(sQ, r, ch));
+        mma16816<T>(acc_v[2 * np], ap, bg[0], bg[1]);
+        mma16816<T>(acc_v[2 * np + 1], ap, bg[2], bg[3]);
+        mma16816<T>(acc_k[2 * np], as, bq[0], bq[1]);
+        mma16816<T>(acc_k[2 * np + 1], as, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();   // this stage is free for the tile after next
+  }
+
+  const int64_t half = static_cast<int64_t>(gridDim.z) * T_len * nq * HD;
+  const int64_t bt = static_cast<int64_t>(b) * T_len;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kw0 + g + 8 * r;
+    if (key >= T_len) continue;
+#pragma unroll
+    for (int dn = 0; dn < DW; ++dn) {
+      const int d = (dc0 + dn) * 8 + cq * 2;
+      if (work == nullptr) {   // one q head a kv head: the final values
+        const int64_t at = ((bt + key) * nkv + kvh) * HD + d;
+        *reinterpret_cast<uint32_t*>(dk + at) = pack2<T>(acc_k[dn][2 * r], acc_k[dn][2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dv + at) = pack2<T>(acc_v[dn][2 * r], acc_v[dn][2 * r + 1]);
+      } else {   // this q head's fp32 partials, (2, B, S, nq, HD)
+        const int64_t at = ((bt + key) * nq + h) * HD + d;
+        *reinterpret_cast<float2*>(work + at) = make_float2(acc_k[dn][2 * r], acc_k[dn][2 * r + 1]);
+        *reinterpret_cast<float2*>(work + half + at) =
+            make_float2(acc_v[dn][2 * r], acc_v[dn][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// grid (ceil(T / ROWS), nq, B), late query tiles first: the block of one
+// query tile of q head h. Warp w owns queries q0 + 16 (w / DSPLIT) .. +
+// 15 and accumulates dQ over its share of the dims; lane l holds query
+// rows g and g + 8, key / dim columns 2 (l % 4), 2 (l % 4) + 1.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kHalfThreads, 2)
+bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  const T* __restrict__ dout, const float* __restrict__ lse,
+                  const float* __restrict__ delta, T* __restrict__ dq, int T_len, int nq,
+                  int nkv, int window, float scale, float scale_log2) {
+  using Cf = BwdMmaCfg<HD>;
+  constexpr int C = Cf::C, KS = Cf::KS, BK = Cf::BK, NT = BK / 8, DW = Cf::DW;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sQ = smem_u32(smem);
+  const uint32_t sG = sQ + Cf::OWN_BYTES;
+  const uint32_t sRing = sG + Cf::OWN_BYTES;   // K0, V0, K1, V1
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, cq = lane & 3;
+  const int rg = warp / Cf::DSPLIT;
+  const int dc0 = (warp % Cf::DSPLIT) * DW;
+  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int kvh = h / (nq / nkv);
+  const int q0 = qt * Cf::ROWS;
+  const int q_last = min(q0 + Cf::ROWS, T_len) - 1;
+  const int qw0 = q0 + rg * 16;
+  const int64_t q_stride = static_cast<int64_t>(nq) * HD;
+  const int64_t kv_stride = static_cast<int64_t>(nkv) * HD;
+  const T* k_base = k + (b * T_len * nkv + kvh) * HD;
+  const T* v_base = v + (b * T_len * nkv + kvh) * HD;
+
+  load_tile<T, HD, Cf::ROWS>(sQ, q + ((b * T_len + q0) * nq + h) * HD, q_stride, T_len - q0,
+                             tid);
+  load_tile<T, HD, Cf::ROWS>(sG, dout + ((b * T_len + q0) * nq + h) * HD, q_stride,
+                             T_len - q0, tid);
+  cp_async_commit();
+
+  // live key tiles [kt_lo, kt_hi), as the forward's (kernel.py
+  // dq_key_tiles)
+  const int n_kt = (T_len + BK - 1) / BK;
+  const int kt_hi = min(n_kt, q_last / BK + 1);
+  int kt_lo = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / BK;
+
+  auto load_stage = [&](int kt, int stage) {
+    const int kk0 = kt * BK;
+    const uint32_t base = sRing + stage * 2 * Cf::K_TILE;
+    load_tile<T, HD, BK>(base, k_base + kk0 * kv_stride, kv_stride, T_len - kk0, tid);
+    load_tile<T, HD, BK>(base + Cf::K_TILE, v_base + kk0 * kv_stride, kv_stride, T_len - kk0,
+                         tid);
+  };
+  if (kt_lo < kt_hi) load_stage(kt_lo, 0);
+  cp_async_commit();
+
+  // lse (in log2 units) and delta of the lane's two rows; 0 past T
+  const int t_lo = qw0 + g, t_hi = t_lo + 8;
+  const float* lse_row = lse + (b * nq + h) * static_cast<int64_t>(T_len);
+  const float* delta_row = delta + (b * nq + h) * static_cast<int64_t>(T_len);
+  const float l_lo = t_lo < T_len ? lse_row[t_lo] * kLog2e : 0.f;
+  const float l_hi = t_hi < T_len ? lse_row[t_hi] * kLog2e : 0.f;
+  const float d_lo = t_lo < T_len ? delta_row[t_lo] : 0.f;
+  const float d_hi = t_hi < T_len ? delta_row[t_hi] : 0.f;
+
+  uint32_t qf[Cf::IN_REGS ? KS : 1][4], gf[Cf::IN_REGS ? KS : 1][4];
+  if constexpr (Cf::IN_REGS) {   // Q, dO fragments, loaded once
+    cp_async_wait<1>();
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      ldmatrix_x4(qf[ks], tile_addr<C>(sQ, rg * 16 + (lane & 15), ks * 2 + (lane >> 4)));
+      ldmatrix_x4(gf[ks], tile_addr<C>(sG, rg * 16 + (lane & 15), ks * 2 + (lane >> 4)));
+    }
+  }
+  float acc[DW][4];
+#pragma unroll
+  for (int i = 0; i < DW; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
+    if (kt + 1 < kt_hi) {
+      load_stage(kt + 1, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t sK = sRing + stage * 2 * Cf::K_TILE;
+    const uint32_t sV = sK + Cf::K_TILE;
+
+    // S = Q K^T, dP = dO V^T: this warp's 16 queries x BK keys, fp32
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t aq[4], ag[4];
+      if constexpr (Cf::IN_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          aq[e] = qf[ks][e];
+          ag[e] = gf[ks][e];
+        }
+      } else {
+        ldmatrix_x4(aq, tile_addr<C>(sQ, rg * 16 + (lane & 15), ks * 2 + (lane >> 4)));
+        ldmatrix_x4(ag, tile_addr<C>(sG, rg * 16 + (lane & 15), ks * 2 + (lane >> 4)));
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        const int r = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+        const int ch = ks * 2 + ((lane >> 3) & 1);
+        uint32_t bk[4], bv[4];
+        ldmatrix_x4(bk, tile_addr<C>(sK, r, ch));
+        ldmatrix_x4(bv, tile_addr<C>(sV, r, ch));
+        mma16816<T>(s[2 * np], aq, bk[0], bk[1]);
+        mma16816<T>(s[2 * np + 1], aq, bk[2], bk[3]);
+        mma16816<T>(dp[2 * np], ag, bv[0], bv[1]);
+        mma16816<T>(dp[2 * np + 1], ag, bv[2], bv[3]);
+      }
+    }
+
+    // ds = p (dp - delta) scale in s; masked (p = 0) only where the tile
+    // crosses the diagonal or the window's edge for this warp's rows
+    // (keys past T lie past the diagonal of every row before T)
+    const int k0 = kt * BK;
+    const bool edge = k0 + BK - 1 > qw0 || (window > 0 && qw0 + 15 - k0 >= window);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[nt][e] * scale_log2 - (e < 2 ? l_lo : l_hi));
+        if (edge) {
+          const int key = k0 + nt * 8 + cq * 2 + (e & 1);
+          const int t = e < 2 ? t_lo : t_hi;
+          bool live = key <= t;
+          if (window > 0) live = live && t - key < window;
+          if (!live) p = 0.f;
+        }
+        s[nt][e] = p * (dp[nt][e] - (e < 2 ? d_lo : d_hi)) * scale;
+      }
+
+    // dQ += dsb K over this warp's dims, K by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      acc_to_a<T>(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < DW / 2; ++np) {
+        uint32_t bk[4];
+        ldmatrix_x4_trans(bk, tile_addr<C>(sK, kk * 16 + (lane & 15), dc0 + np * 2 + (lane >> 4)));
+        mma16816<T>(acc[2 * np], a, bk[0], bk[1]);
+        mma16816<T>(acc[2 * np + 1], a, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();   // this stage is free for the tile after next
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = (r ? t_hi : t_lo);
+    if (t >= T_len) continue;
+#pragma unroll
+    for (int dn = 0; dn < DW; ++dn) {
+      const int d = (dc0 + dn) * 8 + cq * 2;
+      *reinterpret_cast<uint32_t*>(dq + ((b * T_len + t) * nq + h) * HD + d) =
+          pack2<T>(acc[dn][2 * r], acc[dn][2 * r + 1]);
+    }
+  }
+}
+
+// the bf16 / fp16 route's dK / dV and dQ kernels (tensor cores)
+template <typename T, int HD>
+cudaError_t launch_tiles_mma(const T* q, const T* k, const T* v, const T* dout,
+                             const float* lse, const float* delta, T* dq, T* dk, T* dv,
+                             float* work, int64_t B, int64_t T_len, int64_t nq, int64_t nkv,
+                             int64_t window, float scale, cudaStream_t st) {
+  using Cf = BwdMmaCfg<HD>;
+  const dim3 grid(static_cast<unsigned>((T_len + Cf::ROWS - 1) / Cf::ROWS),
+                  static_cast<unsigned>(nq), static_cast<unsigned>(B));
+  const float scale_log2 = scale * kLog2e;
+  auto kern_kv = bwd_dkdv_mma_kernel<T, HD>;
+  cudaError_t err = cudaFuncSetAttribute(kern_kv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Cf::DKDV_SMEM);
+  if (err != cudaSuccess) return err;
+  kern_kv<<<grid, kHalfThreads, Cf::DKDV_SMEM, st>>>(
+      q, k, v, dout, lse, delta, dk, dv, work, static_cast<int>(T_len), static_cast<int>(nq),
+      static_cast<int>(nkv), static_cast<int>(window), scale, scale_log2);
   err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto kern_q = bwd_dq_mma_kernel<T, HD>;
+  err = cudaFuncSetAttribute(kern_q, cudaFuncAttributeMaxDynamicSharedMemorySize, Cf::DQ_SMEM);
+  if (err != cudaSuccess) return err;
+  kern_q<<<grid, kHalfThreads, Cf::DQ_SMEM, st>>>(
+      q, k, v, dout, lse, delta, dq, static_cast<int>(T_len), static_cast<int>(nq),
+      static_cast<int>(nkv), static_cast<int>(window), scale, scale_log2);
+  return cudaGetLastError();
+}
+
+// delta, then the route's tile kernels (fp32 on the CUDA cores, bf16 /
+// fp16 on the tensor cores; kernel.py BWD_TILE_KERNELS), then the group
+// sum when nq > nkv
+template <typename T, int HD>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* out,
+                       const void* dout, const float* lse, void* dq, void* dk, void* dv,
+                       float* delta, float* work, int64_t B, int64_t T_len, int64_t nq,
+                       int64_t nkv, int64_t window, float scale, cudaStream_t st) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* gt = static_cast<const T*>(dout);
+  const int64_t rows = B * T_len * nq;
+  const int64_t lanes = std::min<int64_t>(32, HD * static_cast<int64_t>(sizeof(T)) / 16);
+  bwd_delta_kernel<T><<<static_cast<unsigned>((rows * lanes + kBwdThreads - 1) / kBwdThreads),
+                        kBwdThreads, 0, st>>>(static_cast<const T*>(out), gt, delta, rows,
+                                              static_cast<int>(T_len), static_cast<int>(nq),
+                                              HD);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if constexpr (std::is_same<T, float>::value)
+    err = launch_tiles_f32<T, HD>(qt, kt, vt, gt, lse, delta, static_cast<T*>(dq),
+                                  static_cast<T*>(dk), static_cast<T*>(dv), work, B, T_len, nq,
+                                  nkv, window, scale, st);
+  else
+    err = launch_tiles_mma<T, HD>(qt, kt, vt, gt, lse, delta, static_cast<T*>(dq),
+                                  static_cast<T*>(dk), static_cast<T*>(dv), work, B, T_len, nq,
+                                  nkv, window, scale, st);
   if (err != cudaSuccess || work == nullptr) return err;
 
   const int64_t n = B * T_len * nkv * HD;

@@ -23,13 +23,22 @@ Pallas kernel): ``flash_attn_bwd`` in the same source, four device
 kernels a call (delta = rowsum(dO * O); dK / dV partials per q head and
 key tile; dQ per q head and query tile; the partials summed over each
 kv head's group in a fixed order), with no float atomics, so two calls
-give bitwise-equal gradients. Its CPU path is ``attention_bwd_ref``.
+give bitwise-equal gradients. It is bound by operations (10 * hd FLOPs
+a live score, bf16 at 989 TFLOP/s). bf16 / fp16 run its dK / dV and dQ
+kernels on the tensor cores (``mma.sync``, p and ds fed from the fp32
+accumulators as the next product's operands, rounded once to the input
+dtype as the reference rounds them); fp32 runs them on the CUDA cores.
+S and dP are recomputed in both tile kernels, so that dQ needs no sum
+across blocks. :func:`bwd_tiles`, :func:`dkdv_query_tiles` and
+:func:`dq_key_tiles` mirror the tensor-core kernels' tiles and loop
+bounds; :data:`BWD_TILE_KERNELS` names each dtype's tile kernels. Its
+CPU path is ``attention_bwd_ref``.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -55,6 +64,69 @@ def fp32_query_tile(B: int, T: int, nq: int, sm_count: int) -> int:
     (Gemma3's hd-256 local layer: 80 blocks on 132 SMs). A row's
     arithmetic is the same for both."""
     return 64 if -(-T // 64) * nq * B >= 2 * sm_count else 32
+
+
+# the backward's device kernels: the tile kernels by dtype (one instance a
+# head dim), and two that every dtype runs (one instance a dtype)
+BWD_TILE_KERNELS = {
+    torch.float32: ("bwd_dkdv_kernel", "bwd_dq_kernel"),
+    torch.bfloat16: ("bwd_dkdv_mma_kernel", "bwd_dq_mma_kernel"),
+    torch.float16: ("bwd_dkdv_mma_kernel", "bwd_dq_mma_kernel"),
+}
+BWD_COMMON_KERNELS = ("bwd_delta_kernel", "bwd_group_sum_kernel")
+
+
+def bwd_instances() -> List[Tuple[str, torch.dtype, int]]:
+    """(kernel, dtype, head dim or 0) of every device-kernel instance the
+    backward builds: ``flash_attn_bwd`` dispatches each dtype of
+    ``DTYPE_CODES`` and each head dim of ``HEAD_DIMS``."""
+    out = []
+    for dt in DTYPE_CODES:
+        out += [(name, dt, 0) for name in BWD_COMMON_KERNELS]
+        out += [(name, dt, hd) for name in BWD_TILE_KERNELS[dt]
+                for hd in HEAD_DIMS]
+    return out
+
+
+def bwd_route(dtype: torch.dtype) -> str:
+    """Where ``flash_attn_bwd``'s dK / dV and dQ kernels run for
+    ``dtype``."""
+    return ("tensor cores (mma.sync)" if dtype in (torch.bfloat16,
+                                                   torch.float16)
+            else "cuda cores")
+
+
+def bwd_tiles(hd: int) -> Tuple[int, int, int]:
+    """(rows, bq, bk) of the tensor-core backward at head dim ``hd``
+    (``BwdMmaCfg`` in ``csrc/flash_attention.cu``): the keys a dK / dV
+    block and the queries a dQ block own (16 a warp, 4 warps; at hd 256
+    two warps share each 16 rows and split the head dim), the query tile
+    a dK / dV block streams, and the key tile a dQ block streams."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    return (32 if hd == 256 else 64, 64 if hd <= 64 else 32,
+            64 if hd <= 128 else 32)
+
+
+def dkdv_query_tiles(k0: int, T: int, window: int, hd: int) -> range:
+    """The query tiles (of ``bwd_tiles(hd)[1]`` rows) that the dK / dV
+    block of keys ``k0 ..`` visits, in order: from the one holding the
+    diagonal to the window's far edge (the CUDA loop bounds)."""
+    rows, bq, _ = bwd_tiles(hd)
+    n_qt = -(-T // bq)
+    hi = n_qt if window <= 0 else min(n_qt, (k0 + rows - 2 + window) // bq + 1)
+    return range(k0 // bq, hi)
+
+
+def dq_key_tiles(q0: int, T: int, window: int, hd: int) -> range:
+    """The key tiles (of ``bwd_tiles(hd)[2]`` keys) that the dQ block of
+    queries ``q0 ..`` visits, in order: from the window's near edge to
+    the diagonal (the CUDA loop bounds)."""
+    rows, _, bk = bwd_tiles(hd)
+    q_last = min(q0 + rows, T) - 1
+    hi = min(-(-T // bk), q_last // bk + 1)
+    lo = (q0 - window + 1) // bk if window > 0 and q0 - window + 1 > 0 else 0
+    return range(lo, hi)
 
 
 def reset_launches() -> None:
@@ -186,6 +258,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"tensor on {q.device}")
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, out, lse, dout, window=window)
+    if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+        raise ValueError("flash_attention_bwd needs 16-byte aligned q, k, v, "
+                         "out, dout")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if B == 0 or T == 0:
         return dq, dk, dv

@@ -83,18 +83,25 @@ rounds (bitwise), a truncated frame (400) and a frame over the default
 CNN4.6 uploads, and the serve CLI, fp32 and rate-limited int8. Phase 0
 also prints the registers and spills of the attention backward's
 instances (exactly the set ``kernel.bwd_instances`` names; no spill
-allowed) and the tensor-core products (HMMA) of each bf16 / fp16 dK /
-dV and dQ instance (none may lack them), and phase 1 holds
-``flash_attention_bwd`` against ``attention_bwd_ref`` at the training
-shapes and at edge shapes (two calls bitwise equal; the device kernels
-of a call and their times at the four large shapes), beside the
-backward of ``scaled_dot_product_attention``. Phase 9, last, trains full-width
-Qwen2-0.5B bf16: one local step through the attention kernels (exactly
-48 forward and 24 backward launches) against the same step through the
-plain attention, timed and profiled; two FedAvg rounds of 4 clients
-through ``FederatedServer`` and a gradavg round, each round's fused
-params against float64 Eq. 1; ``save_pytree`` / ``load_pytree`` of the
-trained params, bitwise; and ``repro_torch.launch.train``. Phases 2-9
+allowed) and the tensor-core products (HMMA) of each dK / dV and dQ
+instance (none may lack them; the fp32 ones must be TF32,
+HMMA.1688.F32.TF32), and phase 1 holds ``flash_attention_bwd`` against
+``attention_bwd_ref`` at the training shapes and at edge shapes that
+launch every fp32 instance (hd 32 to 256; two calls bitwise equal; the
+device kernels of a call and their times at the four large shapes;
+fp32 cases give the bound at the CUDA cores' FMA rate and at a third of
+phase 0's mma.sync TF32 rate), beside the backward of
+``scaled_dot_product_attention``. Phase 9, last, trains full-width
+Qwen2-0.5B bf16: (a) one local step through the attention kernels
+(exactly 48 forward and 24 backward launches) against the same step
+through the plain attention, timed and profiled; (b) two FedAvg rounds
+of 4 clients through ``FederatedServer`` and a gradavg round, each
+round's fused params against float64 Eq. 1; (c) ``save_pytree`` /
+``load_pytree`` of the trained params, bitwise; (d)
+``repro_torch.launch.train``; and (e) (a)'s step for full-width
+Gemma3-1B in fp32 on 1 x 1280 tokens (52 forward and 26 backward
+launches; loss within 1e-4 relative, every gradient leaf at cosine
+0.9999 or more). Phases 2-9
 each start with the launch counts at 0, and every serving run must
 launch exactly what its prefills, decode steps and fusions take. The
 second-to-last line is ``{"kernels": [...]}`` and the last
@@ -1966,8 +1973,8 @@ def _attention_bwd_build():
     -v`` report of the attention library: registers and spills (none
     allowed), the set of instances exactly what ``kernel.bwd_instances``
     says ``flash_attn_bwd`` dispatches; and in the SASS, the tensor-core
-    products (HMMA) of every bf16 / fp16 dK / dV and dQ instance (none
-    may lack them)."""
+    products (HMMA) of every dK / dV and dQ instance (none may lack
+    them), the fp32 ones TF32 products (HMMA.1688.F32.TF32)."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel as fa
@@ -1986,22 +1993,27 @@ def _attention_bwd_build():
         regs[label], mangled[fn] = r, label
         if st or ld:
             spills[label] = [st, ld]
-    hmma = {}
+    tile = {name for names in fa.BWD_TILE_KERNELS.values() for name in names}
+    hmma, tf32 = {}, {}
     for fn, text in _sass_sections(_sass("flash_attention")).items():
         label = mangled.get(fn)
-        if label and label.split()[0].endswith("_mma_kernel"):
+        if label and label.split()[0] in tile:
             hmma[label] = text.count("HMMA")
-    want_hmma = {label for label in want
-                 if label.split()[0].endswith("_mma_kernel")}
+            if label.split()[1] == "fp32":
+                tf32[label] = text.count("HMMA.1688.F32.TF32")
+    want_hmma = {label for label in want if label.split()[0] in tile}
+    want_tf32 = {label for label in want_hmma if label.split()[1] == "fp32"}
     print(f"[phase0] flash_attention_bwd ptxas: {len(regs)} kernels "
           f"({len(want)} dispatched), registers {regs}; spills "
-          f"(store, load bytes) {spills or 'none'}; HMMA a tensor-core "
-          f"instance {hmma}", flush=True)
+          f"(store, load bytes) {spills or 'none'}; HMMA a tile-kernel "
+          f"instance {hmma}; of them HMMA.1688.F32.TF32 in fp32 {tf32}",
+          flush=True)
     if spills or set(regs) != want or set(hmma) != want_hmma \
-            or not all(hmma.values()):
+            or not all(hmma.values()) or set(tf32) != want_tf32 \
+            or not all(tf32.values()):
         raise AssertionError(
             f"flash_attention_bwd build: instances {sorted(regs)} against "
-            f"{sorted(want)}, spills {spills}, HMMA {hmma}")
+            f"{sorted(want)}, spills {spills}, HMMA {hmma}, TF32 {tf32}")
 
 
 def _decode_build():
@@ -2260,9 +2272,10 @@ def phase_attention_kernels(dev, hbm_bw):
 # shares of these limits over dq, dk, dv and both forwards (H100): half
 # 0.666 at the Qwen2 training layer, 0.820 at the prefill shape (dv: up
 # to 7 x 1024 terms of rounded p), 0.408 Gemma3 local, 0.473 Zamba2
-# block, 0.328 T = 17, 0.039 window 1 (fp16); fp32 at most 0.067; the
-# same with the half route on the CUDA cores or the tensor cores (the
-# worst are dv's, set by the rounding of p both share). The inputs come
+# block, 0.328 T = 17, 0.039 window 1 (fp16), the same with the half
+# route on the CUDA cores or the tensor cores (the worst are dv's, set by
+# the rounding of p both share); fp32 at most 0.067 on the CUDA cores,
+# 0.243 (Gemma3 local, dv) in three TF32 passes. The inputs come
 # from the seed and the kernel is deterministic, so a run reads the
 # same shares; the 1.2x or more that is left is for a changed
 # kernel's other summation order, and a share above 1 fails the phase.
@@ -2314,10 +2327,14 @@ def _kernel_label(name: str) -> str:
     return m.group(0) if m else name
 
 
-def phase_attention_bwd(dev, hbm_bw):
+def phase_attention_bwd(dev, hbm_bw, mma_peak):
     """The attention backward kernel against its plain version at the
-    training path's shapes and at edge shapes: two calls bitwise equal;
-    kernel, plain version and SDPA's backward timed."""
+    training path's shapes and at edge shapes (every fp32 instance, hd
+    32 to 256, launches): two calls bitwise equal; kernel, plain version
+    and SDPA's backward timed. The fp32 cases also give the least time
+    at ``mma_peak``, the rate of mma.sync TF32 that phase 0 measured,
+    taken three times (the route's three passes), beside the CUDA
+    cores' FMA bound."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel as fa
@@ -2340,6 +2357,8 @@ def phase_attention_bwd(dev, hbm_bw):
         (2, 17, 4, 2, 32, 0, bf16, "T = 17, hd 32"),
         (2, 300, 8, 2, 128, 1, fp16, "window 1, hd 128, fp16"),
         (1, 77, 6, 3, 64, 1, fp32, "window 1"),
+        (2, 64, 4, 1, 32, 0, fp32, "train CLI reduced shape, hd 32"),
+        (2, 300, 8, 2, 128, 1, fp32, "window 1, hd 128"),
     ]:
         q, dout = (torch.randn((B, T, nq, hd), generator=g, device=dev).to(dt)
                    for _ in range(2))
@@ -2383,7 +2402,8 @@ def phase_attention_bwd(dev, hbm_bw):
         live = _live_scores(T, T, win)
         nbytes = (4 * (q.numel() + k.numel()) * q.element_size()
                   + 4 * lse.numel())
-        bound_ms, bound_by = _bound(nbytes, 10.0 * B * nq * hd * live, hbm_bw,
+        flops = 10.0 * B * nq * hd * live
+        bound_ms, bound_by = _bound(nbytes, flops, hbm_bw,
                                     FP32_FLOPS if dt == fp32 else HALF_FLOPS)
         mask = faref.attention_mask(T, T, win, device=dev) if win else None
         library = _sdpa_bwd(q, k, v, dout, mask=mask, causal=not win)
@@ -2408,6 +2428,10 @@ def phase_attention_bwd(dev, hbm_bw):
             "library": "scaled_dot_product_attention(enable_gqa) backward",
             "bound_ms": bound_ms, "bound_by": bound_by,
         })
+        if dt == fp32:   # the same work at a third of mma.sync TF32's rate
+            cases["flash_attention_bwd"][-1]["bound_tf32x3_ms"], \
+                cases["flash_attention_bwd"][-1]["bound_tf32x3_by"] = _bound(
+                    nbytes, flops, hbm_bw, mma_peak / 3)
         if T >= 512:   # the device kernels of one call, and their times
             cases["flash_attention_bwd"][-1]["device_kernels"] = {
                 _kernel_label(name):
@@ -3165,46 +3189,27 @@ def _leaf_cosines(got, want):
                                                          1e-30)
 
 
-def phase_training(dev, attn_cases):
-    """Federated training of full-width Qwen2-0.5B bf16 on the card: one
-    local step through the attention kernels against the same step with
-    the plain forward and backward, timed and profiled; two FedAvg
-    rounds of 4 clients through ``FederatedServer`` with each round's
-    fused params held against float64 Eq. 1, then a gradavg round;
-    ``save_pytree`` / ``load_pytree`` of the trained params; the train
-    CLI."""
+def _train_step(model, params, batch, cfg, what, case, key, *, loss_rel,
+                cos_min, norm_rel):
+    """One local SGD step of ``model`` (a ``Client`` with ``sgd(0.25)``) on
+    ``batch``: its loss and gradients through the attention kernels
+    (exactly 2 forward launches a layer, remat, and 1 backward) against
+    the same through ``attention_train_ref``, within ``loss_rel`` (the
+    loss), ``cos_min`` (every gradient leaf's cosine) and ``norm_rel``
+    (the global norm); then the step timed (synced, median of
+    ``TRAIN_STEP_REPS`` after one) and profiled. {key_*: number}."""
     import collections
 
-    import numpy as np
     import torch
     from torch.func import functional_call
 
-    from repro_torch.checkpoint import load_pytree, save_pytree
-    from repro_torch.configs import get_config
-    from repro_torch.core.service import AggregationService
-    from repro_torch.data import FederatedLoader, SyntheticLM
-    from repro_torch.fl import Client, FederatedServer
-    from repro_torch.fl.client import batch_to_device
-    from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.models import build_model
+    from repro_torch.fl import Client
     from repro_torch.models.layers.attention import attention_train_ref
     from repro_torch.optim import sgd
-    from repro_torch.utils.pytree import flat_vector_to_tree, tree_leaves
 
     out = {}
-    cfg = get_config("qwen2-0.5b")
-    t0 = time.perf_counter()
-    model = build_model(cfg, device=dev, seed=SEED)
-    params = model.state_dict()
-    gen = SyntheticLM(vocab=cfg.vocab, seed=SEED)
-    batch = batch_to_device(
-        {"tokens": gen.sample(4, 512, rng_seed=SEED)}, dev)
-    batch["labels"] = batch["tokens"]
-    torch.cuda.synchronize()
-    print(f"[phase9] qwen2-0.5b bf16 {cfg.num_params()} params, a 4 x 512 "
-          f"batch, made in {time.perf_counter() - t0:.3f} s", flush=True)
+    dev = next(iter(params.values())).device
 
-    # (a) one step's loss and gradients: kernels against plain versions
     def grads(**kw):   # the model's default attention: the kernels
         leaves = collections.OrderedDict(
             (k, v.detach().requires_grad_(True)) for k, v in params.items())
@@ -3220,23 +3225,24 @@ def phase_training(dev, attn_cases):
             "flash_attention_bwd": cfg.n_layers}
     if any(delta[k] != n for k, n in want.items()) or any(
             v for k, v in delta.items() if k not in want):
-        raise AssertionError(f"a training step launched {delta}, expected "
-                             f"{want}")
+        raise AssertionError(f"{case} a training step launched {delta}, "
+                             f"expected {want}")
     loss_p, g_p = grads(attention=attention_train_ref)
     rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    cos, norm_rel = _leaf_cosines(g_k, g_p)
+    cos, nrel = _leaf_cosines(g_k, g_p)
     worst = min(cos, key=cos.get)
-    print(f"[phase9] (a) step 4x512: loss kernels {loss_k.item():.6f} plain "
-          f"{loss_p.item():.6f} (rel {rel:.2e}); gradient cosine min "
-          f"{cos[worst]:.6f} ({worst}), global-norm rel diff {norm_rel:.2e}; "
-          f"launches {delta}", flush=True)
-    if not (rel <= 1e-2 and cos[worst] >= 0.99 and norm_rel <= 5e-2
+    print(f"[phase9] {case} {what}: loss kernels {loss_k.item():.6f} plain "
+          f"{loss_p.item():.6f} (rel {rel:.2e}, limit {loss_rel:g}); "
+          f"gradient cosine min {cos[worst]:.6f} ({worst}; limit "
+          f"{cos_min:g}), global-norm rel diff {nrel:.2e} (limit "
+          f"{norm_rel:g}); launches {delta}", flush=True)
+    if not (rel <= loss_rel and cos[worst] >= cos_min and nrel <= norm_rel
             and math.isfinite(loss_k.item())):
-        raise AssertionError(f"(a) kernels vs plain step: loss rel {rel}, "
+        raise AssertionError(f"{case} kernels vs plain step: loss rel {rel}, "
                              f"cosine {cos[worst]} at {worst}, norm rel "
-                             f"{norm_rel}")
-    out["step_loss_rel"], out["step_cos_min"] = rel, cos[worst]
-    out["step_norm_rel"] = norm_rel
+                             f"{nrel}")
+    out[f"{key}_loss_rel"], out[f"{key}_cos_min"] = rel, cos[worst]
+    out[f"{key}_norm_rel"] = nrel
     del g_k, g_p
 
     client = Client(client_id=0, model=model, optimizer=sgd(0.25))
@@ -3254,20 +3260,65 @@ def phase_training(dev, attn_cases):
         step()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    out["step_ms"] = statistics.median(times)
-    out["step_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    wall, busy, kernels = _profile(step, "qwen2 bf16 local step 4x512",
-                                   phase="phase9")
-    out["step_device_busy_share"] = busy / wall
+    out[f"{key}_ms"] = statistics.median(times)
+    out[f"{key}_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    wall, busy, kernels = _profile(step, what, phase="phase9")
+    out[f"{key}_device_busy_share"] = busy / wall
     bwd_ms = sum(ms for name, (_, ms) in kernels.items()
                  if "bwd_" in name)
-    out["step_attention_bwd_device_ms"] = bwd_ms
-    print(f"[phase9] (a) local SGD step 4x512: {out['step_ms']:.3f} ms "
-          f"(median of {TRAIN_STEP_REPS}: {[round(t, 3) for t in times]}); "
-          f"device busy {busy:.3f} of {wall:.3f} ms profiled "
-          f"({busy / wall:.1%}), attention backward kernels {bwd_ms:.3f} ms; "
-          f"peak memory {out['step_peak_gb']:.2f} GB", flush=True)
-    del client, opt_state, batch
+    out[f"{key}_attention_bwd_device_ms"] = bwd_ms
+    print(f"[phase9] {case} {what}: {out[f'{key}_ms']:.3f} ms (median of "
+          f"{TRAIN_STEP_REPS}: {[round(t, 3) for t in times]}); device busy "
+          f"{busy:.3f} of {wall:.3f} ms profiled ({busy / wall:.1%}), "
+          f"attention backward kernels {bwd_ms:.3f} ms; peak memory "
+          f"{out[f'{key}_peak_gb']:.2f} GB", flush=True)
+    return out
+
+
+def phase_training(dev, attn_cases):
+    """Federated training of full-width Qwen2-0.5B bf16 on the card: (a)
+    one local step through the attention kernels against the same step
+    with the plain forward and backward, timed and profiled; (b) two
+    FedAvg rounds of 4 clients through ``FederatedServer`` with each
+    round's fused params held against float64 Eq. 1, then a gradavg
+    round; (c) ``save_pytree`` / ``load_pytree`` of the trained params;
+    (d) the train CLI; then (e) (a)'s step for full-width Gemma3-1B in
+    fp32, 1 x 1280 tokens, through the fp32 attention backward."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.core.service import AggregationService
+    from repro_torch.data import FederatedLoader, SyntheticLM
+    from repro_torch.fl import Client, FederatedServer
+    from repro_torch.fl.client import batch_to_device
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.utils.pytree import flat_vector_to_tree, tree_leaves
+
+    out = {}
+    cfg = get_config("qwen2-0.5b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=SEED)
+    params = model.state_dict()
+    gen = SyntheticLM(vocab=cfg.vocab, seed=SEED)
+    batch = batch_to_device(
+        {"tokens": gen.sample(4, 512, rng_seed=SEED)}, dev)
+    batch["labels"] = batch["tokens"]
+    torch.cuda.synchronize()
+    print(f"[phase9] qwen2-0.5b bf16 {cfg.num_params()} params, a 4 x 512 "
+          f"batch, made in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # (a) one step's loss and gradients: kernels against plain versions,
+    # then the step timed and profiled
+    out.update(_train_step(model, params, batch, cfg,
+                           "qwen2 bf16 local step 4x512", "(a)", "step",
+                           loss_rel=1e-2, cos_min=0.99, norm_rel=5e-2))
+    del batch
     torch.cuda.empty_cache()
 
     # (b) FederatedServer: 4 clients x 2 local SGD steps x 2 rounds, then
@@ -3374,6 +3425,29 @@ def phase_training(dev, attn_cases):
         raise AssertionError(f"(d) train CLI: {res.stderr[-3000:]}")
     out["cli_s"] = time.perf_counter() - t0
     print(f"[phase9] (d) train CLI: {out['cli_s']:.3f} s", flush=True)
+
+    # (e) full-width Gemma3-1B fp32 (26 layers, hd 256, MQA, a window of
+    # 1024 on 5 of 6 layers): one 1 x 1280 local step, so that the local
+    # layers cross their window at phase 1's Gemma3 shape, through the
+    # fp32 attention backward (three TF32 passes); fp32 sums in other
+    # orders than the plain attention's, and nothing rounded to a half
+    # type, hence limits 100x tighter than (a)'s
+    gcfg = dataclasses.replace(get_config("gemma3-1b"), dtype="float32")
+    t0 = time.perf_counter()
+    model = build_model(gcfg, device=dev, seed=SEED)
+    params = model.state_dict()
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, gcfg.vocab, size=(1, 1280))
+    batch = batch_to_device({"tokens": tokens, "labels": tokens}, dev)
+    torch.cuda.synchronize()
+    print(f"[phase9] (e) gemma3-1b fp32 {gcfg.num_params()} params, a 1 x "
+          f"1280 batch, made in {time.perf_counter() - t0:.3f} s", flush=True)
+    out.update(_train_step(model, params, batch, gcfg,
+                           "gemma3-1b fp32 local step 1x1280", "(e)",
+                           "gemma3_fp32_step", loss_rel=1e-4, cos_min=0.9999,
+                           norm_rel=1e-3))
+    del model, params, batch
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3452,7 +3526,7 @@ def main() -> int:
     cases.update(phase_carve_kernel(dev, hw.hbm_bw, resnet_p, cnn_p))
     cases.update(phase_robust_kernels(dev, hw.hbm_bw, resnet_p, cnn_p))
     cases.update(phase_attention_kernels(dev, hw.hbm_bw))
-    cases.update(phase_attention_bwd(dev, hw.hbm_bw))
+    cases.update(phase_attention_bwd(dev, hw.hbm_bw, mma_peak))
     cases.update(phase_decode_kernel(dev, hw.hbm_bw))
     cases.update(phase_ssd_kernel(dev, hw.hbm_bw, mma_peak))
     print(f"[phase1] seconds={time.perf_counter() - t0:.3f}", flush=True)

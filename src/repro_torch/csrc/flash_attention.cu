@@ -85,7 +85,9 @@
 // Bound: operations. Five products of 2 * hd FLOPs a live score (S
 // recomputed, dV, dP, dQ, dK) against ~5 * (nq + nkv) * hd * 2 bytes a
 // token: the Qwen2 training layer (4, 512, 14 / 2, 64) needs 4.7 GFLOP,
-// 4.8 us at 989 TFLOP/s in bf16, and 17 MB, 5.0 us at 3.35 TB/s. Four
+// 4.8 us at 989 TFLOP/s in bf16 (fp32: 70 us at the CUDA cores' 67
+// TFLOP/s, 44 us at a third of mma.sync TF32's measured 323), and 17 MB,
+// 5.0 us at 3.35 TB/s. Four
 // kernels a call, no float atomics, so two calls are bitwise equal:
 //   1. bwd_delta_kernel: delta per (b, t, h), 16-byte loads, up to a warp
 //      a row;
@@ -129,10 +131,40 @@
 //   (not the forward's hi + lo split). Only the order of the fp32 sums
 //   differs.
 //
-// fp32 (bwd_dkdv_kernel, bwd_dq_kernel): the CUDA cores, as the first
-// design. A 256-thread block on a 16 x 16 thread grid, every tile
-// widened to fp32 in shared memory at pitch hd + 1, scalar FMAs; TF32
-// would round the inputs past the fp32 tolerance.
+// fp32 (bwd_dkdv_split_kernel, bwd_dq_split_kernel): the same blocks,
+// loop bounds, cp.async ring and masks (and warps, but at hd 256) on
+// mma.sync.m16n8k8 TF32. One TF32 pass rounds each operand to 10
+// mantissa bits, about 10x past the fp32 tolerance; so every operand, p
+// and ds included, is split into hi = cvt.rna.tf32(v) and lo =
+// cvt.rna.tf32(v - hi) and multiplied as lo.hi + hi.lo + hi.hi into the
+// fp32 accumulators (mma_tf32.cuh, as the SSD scan does): as exact as
+// fp32 FMAs, at a third of the TF32 rate (tests/test_torch_flash_bwd_
+// tiles.py models it). What differs from the half kernels:
+//   * tiles stay fp32 in shared memory at a row pitch of hd + 4 words,
+//     filled by 16-byte cp.async; ldmatrix has no transposed form for
+//     32-bit elements, so fragments are 32-bit shared loads, and the
+//     pitch keeps a warp's load on 32 distinct banks whether it reads a
+//     tile along its rows (K, V as A; Q, dO, K, V as the B of S, dP) or
+//     across them (dO, Q, K as the B of dV, dK, dQ);
+//   * the m16n8k8 A layout takes columns t and t + 4 where the C layout
+//     holds 2t and 2t + 1, so p and ds enter as A fragments with each
+//     8-wide k-step permuted (column 2t at k t, 2t + 1 at k t + 4) and
+//     the B rows read in the same order: no shuffle, no shared-memory
+//     round trip; only the fp32 sum order within a k-step moves;
+//   * every fragment is split as it is loaded, each three-pass sweep
+//     covering up to 8 n-tiles, so that an accumulator's three products
+//     stand apart;
+//   * at hd 256 four warps (not two) share each 16-row group and split
+//     the head dim, 8 warps a block: dK + dV of 64 dims are 64 fp32
+//     registers a thread, where 128 spilled. They also split the
+//     streamed tile's columns: each computes S and dP (products over all
+//     256 dims, 2/3 of the three-pass work there) for a quarter of them
+//     and hands its p / ds fragments to the others through shared
+//     memory, a float4 a lane an n-tile, instead of all four computing
+//     all of them;
+//   * fp32 doubles the tiles' bytes: at hd 64 a block takes 105 KB (two
+//     an SM), at hd 128 and 256 136-208 KB (one), with the ring's two
+//     stages kept.
 //
 // The kernels allocate nothing; each entry point returns the
 // cudaGetLastError() of its launches.
@@ -145,6 +177,8 @@
 
 #include <algorithm>
 #include <type_traits>
+
+#include "mma_tf32.cuh"   // tf32, split, mma_tf32, mma3
 
 namespace {
 
@@ -859,13 +893,8 @@ cudaError_t dispatch_f32_hd(const void* q, const void* k, const void* v, void* o
 
 
 // ---------------------------------------------------------------------------
-// backward: delta and group sum (every dtype), fp32 tile kernels (CUDA cores)
+// backward: delta and group sum (every dtype)
 // ---------------------------------------------------------------------------
-
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -878,36 +907,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 template <>
 __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
 
-// x rounded to the storage type (the reference's astype), back in fp32
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f<T>(from_f<T>(x)); }
-
-constexpr int kBwdThreads = 256;   // a 16 x 16 thread grid
-
-template <int HD>
-struct BwdCfg {
-  static constexpr int BT = HD <= 128 ? 64 : 32;   // rows of a query or key tile
-  static constexpr int R = BT / 16;                // tile rows a thread owns
-  static constexpr int DC = HD / 16;               // dims a thread owns
-  static constexpr int P = HD + 1;                 // pitch of a (BT x HD) tile
-  static constexpr int PT = BT + 1;                // pitch of a (BT x BT) tile
-  static constexpr int TILE = BT * P;              // floats of a (BT x HD) tile
-  // dK / dV blocks: K, V, Q, dO, P, dS, lse, delta
-  static constexpr int DKDV_FLOATS = 4 * TILE + 2 * BT * PT + 2 * BT;
-  // dQ blocks: Q, dO, K, V, dS, lse, delta
-  static constexpr int DQ_FLOATS = 4 * TILE + BT * PT + 2 * BT;
-};
-
-// rows [0, BT) of a (rows x HD) slice whose row r starts at src + r *
-// stride, as fp32 at pitch HD + 1; rows at or past `valid` are zero
-template <typename T, int HD, int BT>
-__device__ __forceinline__ void load_rows_bwd(float* dst, const T* __restrict__ src,
-                                              int64_t stride, int valid, int tid) {
-  for (int i = tid; i < BT * HD; i += kBwdThreads) {
-    const int r = i / HD, d = i % HD;
-    dst[r * (HD + 1) + d] = r < valid ? to_f<T>(src[r * stride + d]) : 0.f;
-  }
-}
+constexpr int kBwdThreads = 256;
 
 // sum of the products of the 16 / sizeof(T) elements of two 16-byte
 // vectors, added to acc in element order, in fp32
@@ -971,275 +971,6 @@ bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   }
 }
 
-// Scores of one (query tile q0, key tile k0) pair on the 16 x 16 grid:
-// thread (ty, tx) owns queries q0 + ty + 16 a and keys k0 + tx + 16 c.
-// Two passes, so that only one R x R accumulator is live beside the
-// caller's: S = Q K^T gives p = exp(s * scale - lse) (0 where masked),
-// kept unrounded in sS (and, when sPr is given, rounded to the storage
-// type in sPr); then dP = dO V^T gives ds = p * (dp - delta) * scale,
-// stored rounded in sS. Each thread reads back only what it wrote, so
-// the passes need no barrier; the caller syncs before reading sS / sPr.
-// The two tile kernels declare two blocks an SM: without it ptxas holds
-// the hd-64 instances to 64 registers (four blocks) and spills.
-template <typename T, int HD>
-__device__ __forceinline__ void tile_p_ds(const float* sQ, const float* sdO, const float* sK,
-                                          const float* sV, const float* sL, const float* sD,
-                                          float* sPr, float* sS, int q0, int k0, int T_len,
-                                          int window, float scale, int ty, int tx) {
-  using C = BwdCfg<HD>;
-  constexpr int R = C::R, P = C::P, PT = C::PT;
-  float acc[R][R];
-#pragma unroll
-  for (int a = 0; a < R; ++a)
-#pragma unroll
-    for (int c = 0; c < R; ++c) acc[a][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    float qa[R], kb[R];
-#pragma unroll
-    for (int a = 0; a < R; ++a) qa[a] = sQ[(ty + 16 * a) * P + d];
-#pragma unroll
-    for (int c = 0; c < R; ++c) kb[c] = sK[(tx + 16 * c) * P + d];
-#pragma unroll
-    for (int a = 0; a < R; ++a)
-#pragma unroll
-      for (int c = 0; c < R; ++c) acc[a][c] = fmaf(qa[a], kb[c], acc[a][c]);
-  }
-#pragma unroll
-  for (int a = 0; a < R; ++a) {
-    const int i = ty + 16 * a, t = q0 + i;
-#pragma unroll
-    for (int c = 0; c < R; ++c) {
-      const int j = tx + 16 * c, key = k0 + j;
-      bool live = t < T_len && key < T_len && key <= t;
-      if (window > 0) live = live && t - key < window;
-      const float p = live ? expf(acc[a][c] * scale - sL[i]) : 0.f;
-      sS[i * PT + j] = p;
-      if (sPr != nullptr) sPr[i * PT + j] = round_to<T>(p);
-      acc[a][c] = 0.f;
-    }
-  }
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    float ga[R], vb[R];
-#pragma unroll
-    for (int a = 0; a < R; ++a) ga[a] = sdO[(ty + 16 * a) * P + d];
-#pragma unroll
-    for (int c = 0; c < R; ++c) vb[c] = sV[(tx + 16 * c) * P + d];
-#pragma unroll
-    for (int a = 0; a < R; ++a)
-#pragma unroll
-      for (int c = 0; c < R; ++c) acc[a][c] = fmaf(ga[a], vb[c], acc[a][c]);
-  }
-#pragma unroll
-  for (int a = 0; a < R; ++a) {
-    const int i = ty + 16 * a;
-#pragma unroll
-    for (int c = 0; c < R; ++c) {
-      float* at = sS + i * PT + tx + 16 * c;
-      *at = round_to<T>(*at * (acc[a][c] - sD[i]) * scale);
-    }
-  }
-}
-
-// grid (ceil(T / BT), nq, B): the block of key tile blockIdx.x of q head
-// h. dK, dV of its BT keys accumulate in registers over the live query
-// tiles: thread (ty, tx) owns keys ty + 16 a and dims tx + 16 c.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kBwdThreads, 2)
-bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                float* __restrict__ work, int T_len, int nq, int nkv, int window,
-                float scale) {
-  using C = BwdCfg<HD>;
-  constexpr int BT = C::BT, R = C::R, DC = C::DC, P = C::P, PT = C::PT;
-  extern __shared__ float4 smem_bwd[];
-  float* sK = reinterpret_cast<float*>(smem_bwd);
-  float* sV = sK + C::TILE;
-  float* sQ = sV + C::TILE;
-  float* sdO = sQ + C::TILE;
-  float* sP = sdO + C::TILE;
-  float* sS = sP + BT * PT;   // dS
-  float* sL = sS + BT * PT;
-  float* sD = sL + BT;
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int kt = blockIdx.x, h = blockIdx.y;
-  const int64_t b = blockIdx.z;
-  const int kvh = h / (nq / nkv);
-  const int k0 = kt * BT;
-  const int64_t q_stride = static_cast<int64_t>(nq) * HD;
-  const int64_t kv_stride = static_cast<int64_t>(nkv) * HD;
-  load_rows_bwd<T, HD, BT>(sK, k + (b * T_len + k0) * kv_stride + kvh * HD, kv_stride,
-                           T_len - k0, tid);
-  load_rows_bwd<T, HD, BT>(sV, v + (b * T_len + k0) * kv_stride + kvh * HD, kv_stride,
-                           T_len - k0, tid);
-
-  // live query tiles: from the diagonal to the window's far edge
-  const int n_t = (T_len + BT - 1) / BT;
-  int qt_hi = n_t;
-  if (window > 0) qt_hi = min(n_t, (k0 + BT - 2 + window) / BT + 1);
-
-  float acc_k[R][DC], acc_v[R][DC];
-#pragma unroll
-  for (int a = 0; a < R; ++a)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc_k[a][c] = acc_v[a][c] = 0.f;
-
-  const float* lse_row = lse + (b * nq + h) * static_cast<int64_t>(T_len);
-  const float* delta_row = delta + (b * nq + h) * static_cast<int64_t>(T_len);
-  for (int qt = kt; qt < qt_hi; ++qt) {
-    const int q0 = qt * BT;
-    __syncthreads();   // the previous tile's Q, dO, P, dS are consumed
-    load_rows_bwd<T, HD, BT>(sQ, q + (b * T_len + q0) * q_stride + h * HD, q_stride,
-                             T_len - q0, tid);
-    load_rows_bwd<T, HD, BT>(sdO, dout + (b * T_len + q0) * q_stride + h * HD, q_stride,
-                             T_len - q0, tid);
-    for (int i = tid; i < BT; i += kBwdThreads) {
-      const bool ok = q0 + i < T_len;
-      sL[i] = ok ? lse_row[q0 + i] : 0.f;
-      sD[i] = ok ? delta_row[q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    tile_p_ds<T, HD>(sQ, sdO, sK, sV, sL, sD, sP, sS, q0, k0, T_len, window, scale, ty,
-                     tx);
-    __syncthreads();
-
-    // dV += P^T dO, dK += dS^T Q over the tile's queries, in order
-#pragma unroll 2
-    for (int i = 0; i < BT; ++i) {
-      float pa[R], sa[R], gb[DC], qb[DC];
-#pragma unroll
-      for (int a = 0; a < R; ++a) {
-        pa[a] = sP[i * PT + ty + 16 * a];
-        sa[a] = sS[i * PT + ty + 16 * a];
-      }
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        gb[c] = sdO[i * P + tx + 16 * c];
-        qb[c] = sQ[i * P + tx + 16 * c];
-      }
-#pragma unroll
-      for (int a = 0; a < R; ++a)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          acc_v[a][c] = fmaf(pa[a], gb[c], acc_v[a][c]);
-          acc_k[a][c] = fmaf(sa[a], qb[c], acc_k[a][c]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < R; ++a) {
-    const int key = k0 + ty + 16 * a;
-    if (key >= T_len) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = tx + 16 * c;
-      if (work == nullptr) {   // one q head a kv head: the final values
-        const int64_t at = ((b * T_len + key) * nkv + kvh) * HD + d;
-        dk[at] = from_f<T>(acc_k[a][c]);
-        dv[at] = from_f<T>(acc_v[a][c]);
-      } else {   // this q head's fp32 partials, (2, B, S, nq, HD)
-        const int64_t at = ((b * T_len + key) * nq + h) * HD + d;
-        work[at] = acc_k[a][c];
-        work[at + static_cast<int64_t>(gridDim.z) * T_len * nq * HD] = acc_v[a][c];
-      }
-    }
-  }
-}
-
-// grid (ceil(T / BT), nq, B), late query tiles first: the block of one
-// query tile of q head h. dQ accumulates in registers over the live key
-// tiles: thread (ty, tx) owns queries ty + 16 a and dims tx + 16 c.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kBwdThreads, 2)
-bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const T* __restrict__ dout, const float* __restrict__ lse,
-              const float* __restrict__ delta, T* __restrict__ dq, int T_len, int nq, int nkv,
-              int window, float scale) {
-  using C = BwdCfg<HD>;
-  constexpr int BT = C::BT, R = C::R, DC = C::DC, P = C::P, PT = C::PT;
-  extern __shared__ float4 smem_bwd[];
-  float* sQ = reinterpret_cast<float*>(smem_bwd);
-  float* sdO = sQ + C::TILE;
-  float* sK = sdO + C::TILE;
-  float* sV = sK + C::TILE;
-  float* sS = sV + C::TILE;
-  float* sL = sS + BT * PT;
-  float* sD = sL + BT;
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y;
-  const int64_t b = blockIdx.z;
-  const int kvh = h / (nq / nkv);
-  const int q0 = qt * BT;
-  const int q_last = min(q0 + BT, T_len) - 1;
-  const int64_t q_stride = static_cast<int64_t>(nq) * HD;
-  const int64_t kv_stride = static_cast<int64_t>(nkv) * HD;
-  load_rows_bwd<T, HD, BT>(sQ, q + (b * T_len + q0) * q_stride + h * HD, q_stride,
-                           T_len - q0, tid);
-  load_rows_bwd<T, HD, BT>(sdO, dout + (b * T_len + q0) * q_stride + h * HD, q_stride,
-                           T_len - q0, tid);
-  const float* lse_row = lse + (b * nq + h) * static_cast<int64_t>(T_len);
-  const float* delta_row = delta + (b * nq + h) * static_cast<int64_t>(T_len);
-  for (int i = tid; i < BT; i += kBwdThreads) {
-    const bool ok = q0 + i < T_len;
-    sL[i] = ok ? lse_row[q0 + i] : 0.f;
-    sD[i] = ok ? delta_row[q0 + i] : 0.f;
-  }
-
-  // live key tiles [kt_lo, kt_hi), as the forward's
-  const int kt_hi = q_last / BT + 1;
-  int kt_lo = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / BT;
-
-  float acc[R][DC];
-#pragma unroll
-  for (int a = 0; a < R; ++a)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();   // the previous tile's K, dS are consumed
-    load_rows_bwd<T, HD, BT>(sK, k + (b * T_len + k0) * kv_stride + kvh * HD, kv_stride,
-                             T_len - k0, tid);
-    load_rows_bwd<T, HD, BT>(sV, v + (b * T_len + k0) * kv_stride + kvh * HD, kv_stride,
-                             T_len - k0, tid);
-    __syncthreads();
-
-    tile_p_ds<T, HD>(sQ, sdO, sK, sV, sL, sD, nullptr, sS, q0, k0, T_len, window, scale, ty,
-                     tx);
-    __syncthreads();
-
-    // dQ += dS K over the tile's keys, in order
-#pragma unroll 2
-    for (int j = 0; j < BT; ++j) {
-      float sa[R], kb[DC];
-#pragma unroll
-      for (int a = 0; a < R; ++a) sa[a] = sS[(ty + 16 * a) * PT + j];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) kb[c] = sK[j * P + tx + 16 * c];
-#pragma unroll
-      for (int a = 0; a < R; ++a)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[a][c] = fmaf(sa[a], kb[c], acc[a][c]);
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < R; ++a) {
-    const int t = q0 + ty + 16 * a;
-    if (t >= T_len) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-      dq[((b * T_len + t) * nq + h) * HD + tx + 16 * c] = from_f<T>(acc[a][c]);
-  }
-}
-
 // dk, dv (B, S, nkv, HD) = the fp32 partials of each kv head's q heads,
 // summed in head order, cast to the input dtype
 template <typename T>
@@ -1260,37 +991,6 @@ bwd_group_sum_kernel(const float* __restrict__ work, T* __restrict__ dk, T* __re
   }
   dk[i] = from_f<T>(sk);
   dv[i] = from_f<T>(sv);
-}
-
-// the fp32 route's dK / dV and dQ kernels (CUDA cores)
-template <typename T, int HD>
-cudaError_t launch_tiles_f32(const T* q, const T* k, const T* v, const T* dout,
-                             const float* lse, const float* delta, T* dq, T* dk, T* dv,
-                             float* work, int64_t B, int64_t T_len, int64_t nq, int64_t nkv,
-                             int64_t window, float scale, cudaStream_t st) {
-  using C = BwdCfg<HD>;
-  const dim3 grid(static_cast<unsigned>((T_len + C::BT - 1) / C::BT),
-                  static_cast<unsigned>(nq), static_cast<unsigned>(B));
-  const int smem_kv = static_cast<int>(sizeof(float) * C::DKDV_FLOATS);
-  auto kern_kv = bwd_dkdv_kernel<T, HD>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern_kv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
-  if (err != cudaSuccess) return err;
-  kern_kv<<<grid, kBwdThreads, smem_kv, st>>>(
-      q, k, v, dout, lse, delta, dk, dv, work, static_cast<int>(T_len), static_cast<int>(nq),
-      static_cast<int>(nkv), static_cast<int>(window), scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const int smem_q = static_cast<int>(sizeof(float) * C::DQ_FLOATS);
-  auto kern_q = bwd_dq_kernel<T, HD>;
-  err = cudaFuncSetAttribute(kern_q, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
-  if (err != cudaSuccess) return err;
-  kern_q<<<grid, kBwdThreads, smem_q, st>>>(q, k, v, dout, lse, delta, dq,
-                                            static_cast<int>(T_len), static_cast<int>(nq),
-                                            static_cast<int>(nkv), static_cast<int>(window),
-                                            scale);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1723,38 +1423,526 @@ bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   }
 }
 
-// the bf16 / fp16 route's dK / dV and dQ kernels (tensor cores)
+// ---------------------------------------------------------------------------
+// backward, fp32: tensor cores in three TF32 passes
+// ---------------------------------------------------------------------------
+
+// The half route's plan (BwdMmaCfg: rows, tiles, loop bounds, and its
+// warps but at hd 256) on fp32 tiles at a row pitch of HD + 4 words, 4
+// mod 32: a warp's fragment
+// load touches 32 distinct banks both when it reads along the rows (rows
+// g, columns t: frag_a_split, frag_b_rows) and across them (rows 2t and
+// 2t + 1, columns g: frag_b_cols).
+template <int HD>
+struct BwdSplitCfg {
+  using M = BwdMmaCfg<HD>;
+  static constexpr int P = HD + 4;                   // row pitch, in floats
+  // M::ROWS rows a block in 16-row groups; at hd 256 four warps share each
+  // group and split the head dim (8 warps a block), so that dK + dV take
+  // 64 fp32 accumulators a thread: with two, as the half kernels split
+  // it, they take 128 and the dK / dV instance spilled at 255 registers
+  static constexpr int DSPLIT = HD == 256 ? 4 : 1;
+  static constexpr int THREADS = 32 * (M::ROWS / 16) * DSPLIT;
+  // blocks an SM that __launch_bounds__ asks for: 2 of 4 warps, as the half
+  // kernels, or 1 of 8; both leave ptxas 255 registers (without it, it
+  // held the hd-32 dK / dV instance to 168 and spilled)
+  static constexpr int MIN_BLOCKS = THREADS == 128 ? 2 : 1;
+  static constexpr int DW = HD / DSPLIT / 8;         // dim n-tiles a warp accumulates
+  static constexpr int NC = DW < 8 ? DW : 8;         // dim n-tiles a three-pass sweep
+  static constexpr int OWN = M::ROWS * P;            // K or V (dK / dV), Q or dO (dQ)
+  // The warps of a row group each compute S and dP for 1 / DSPLIT of the
+  // streamed tile's n-tiles and hand their p / ds fragments to the
+  // others through XCH floats a row group: a float4 a lane an n-tile, p
+  // and ds (dK / dV) or ds alone (dQ).
+  static constexpr int GROUPS = M::ROWS / 16;
+  static constexpr int XCH_KV = DSPLIT > 1 ? M::BQ / 8 * 2 * 128 : 0;
+  static constexpr int XCH_Q = DSPLIT > 1 ? M::BK / 8 * 128 : 0;
+  // dK / dV: K, V, two stages of (Q, dO, lse, delta), the hand-off
+  static constexpr int Q_TILE = M::BQ * P;
+  static constexpr int Q_STAGE = 2 * Q_TILE + 2 * M::BQ;
+  static constexpr int DKDV_SMEM = 4 * (2 * OWN + 2 * Q_STAGE + GROUPS * XCH_KV);
+  // dQ: Q, dO, two stages of (K, V), the hand-off
+  static constexpr int K_TILE = M::BK * P;
+  static constexpr int DQ_SMEM = 4 * (2 * OWN + 4 * K_TILE + GROUPS * XCH_Q);
+  static_assert(DW % NC == 0 && M::BQ / 8 % DSPLIT == 0 && M::BK / 8 % DSPLIT == 0,
+                "whole sweeps and shares");
+  static_assert(DKDV_SMEM <= 232448 && DQ_SMEM <= 232448, "a block fits an SM");
+};
+
+// The A fragment (rows r0 .. r0 + 15, k columns c0 .. c0 + 7) of a
+// row-major fp32 tile at pitch P, split hi / lo.
+template <int P>
+__device__ __forceinline__ void frag_a_split(uint32_t (&hi)[1][4], uint32_t (&lo)[1][4],
+                                             const float* tile, int r0, int c0, int g, int t) {
+  const float* p = tile + (r0 + g) * P + c0 + t;
+  split(p[0], hi[0][0], lo[0][0]);
+  split(p[8 * P], hi[0][1], lo[0][1]);
+  split(p[4], hi[0][2], lo[0][2]);
+  split(p[8 * P + 4], hi[0][3], lo[0][3]);
+}
+
+// B fragments of NJ n-tiles read along the tile's rows: n is row n0 + 8 j
+// + g, k column c0 + t or c0 + t + 4 (K in S = Q K^T, Q in S^T = K Q^T).
+template <int P, int NJ>
+__device__ __forceinline__ void frag_b_rows(uint32_t (&hi)[NJ][2], uint32_t (&lo)[NJ][2],
+                                            const float* tile, int n0, int c0, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const float* p = tile + (n0 + 8 * j + g) * P + c0 + t;
+    split(p[0], hi[j][0], lo[j][0]);
+    split(p[4], hi[j][1], lo[j][1]);
+  }
+}
+
+// B fragments of NJ n-tiles read across the tile's rows: k is a row, n
+// column n0 + 8 j + g, in acc_frag_split's k order (k t at row r0 + 2t,
+// k t + 4 at row r0 + 2t + 1; K in dQ += dS K, dO and Q in dV and dK).
+template <int P, int NJ>
+__device__ __forceinline__ void frag_b_cols(uint32_t (&hi)[NJ][2], uint32_t (&lo)[NJ][2],
+                                            const float* tile, int r0, int n0, int g, int t) {
+  const float* p = tile + (r0 + 2 * t) * P + n0 + g;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    split(p[8 * j], hi[j][0], lo[j][0]);
+    split(p[P + 8 * j], hi[j][1], lo[j][1]);
+  }
+}
+
+// The A fragment of one k-step from an m16n8 accumulator tile c (rows g,
+// g + 8; columns 2t, 2t + 1), split hi / lo: column 2t stands at k t and
+// 2t + 1 at k t + 4, so the C layout is the A layout with no shuffle, and
+// frag_b_cols reads the B rows in the same order. The fp32 sums of the
+// k-step run in that order.
+__device__ __forceinline__ void acc_frag_split(uint32_t (&hi)[1][4], uint32_t (&lo)[1][4],
+                                               const float (&c)[4]) {
+  split(c[0], hi[0][0], lo[0][0]);
+  split(c[2], hi[0][1], lo[0][1]);
+  split(c[1], hi[0][2], lo[0][2]);
+  split(c[3], hi[0][3], lo[0][3]);
+}
+
+// The fp32 dK / dV: bwd_dkdv_mma_kernel's blocks, ring and mask (see
+// there; BwdSplitCfg for the warps at hd 256), every product on
+// mma.sync.m16n8k8 TF32 as lo.hi + hi.lo + hi.hi (mma3), p and ds fed
+// from the fp32 accumulators unrounded.
 template <typename T, int HD>
-cudaError_t launch_tiles_mma(const T* q, const T* k, const T* v, const T* dout,
-                             const float* lse, const float* delta, T* dq, T* dk, T* dv,
-                             float* work, int64_t B, int64_t T_len, int64_t nq, int64_t nkv,
-                             int64_t window, float scale, cudaStream_t st) {
+__global__ void __launch_bounds__(BwdSplitCfg<HD>::THREADS, BwdSplitCfg<HD>::MIN_BLOCKS)
+bwd_dkdv_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ work,
+                      int T_len, int nq, int nkv, int window, float scale, float scale_log2) {
+  static_assert(std::is_same<T, float>::value, "the fp32 route");
   using Cf = BwdMmaCfg<HD>;
+  using Sp = BwdSplitCfg<HD>;
+  constexpr int P = Sp::P, BQ = Cf::BQ, NT = BQ / 8, DW = Sp::DW, NC = Sp::NC;
+  constexpr int NS = NT / Sp::DSPLIT;   // query n-tiles of S^T this warp computes
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sK = reinterpret_cast<float*>(smem);
+  float* sV = sK + Sp::OWN;
+  float* sRing = sV + Sp::OWN;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, cq = lane & 3;
+  const int rg = warp / Sp::DSPLIT;
+  const int ws = warp % Sp::DSPLIT;   // this warp's share: dims and query n-tiles
+  const int dc0 = ws * DW;
+  float* sX = sRing + 2 * Sp::Q_STAGE + rg * Sp::XCH_KV;   // this row group's hand-off
+  const unsigned heads = gridDim.y * gridDim.z;
+  const unsigned lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int h = static_cast<int>(lin % heads % gridDim.y);
+  const int b = static_cast<int>(lin % heads / gridDim.y);
+  const int kvh = h / (nq / nkv);
+  const int k0 = static_cast<int>(lin / heads) * Cf::ROWS;
+  const int kw0 = k0 + rg * 16;
+  const int64_t q_stride = static_cast<int64_t>(nq) * HD;
+  const int64_t kv_stride = static_cast<int64_t>(nkv) * HD;
+  const int64_t q_off = (static_cast<int64_t>(b) * T_len * nq + h) * HD;   // (b, 0, h)
+  const int64_t l_off = (static_cast<int64_t>(b) * nq + h) * T_len;        // (b, h, 0)
+
+  const int64_t kv_off = ((static_cast<int64_t>(b) * T_len + k0) * nkv + kvh) * HD;
+  load_rows_f32<HD, Cf::ROWS, P, Sp::THREADS>(sK, k + kv_off, kv_stride, T_len - k0, tid);
+  load_rows_f32<HD, Cf::ROWS, P, Sp::THREADS>(sV, v + kv_off, kv_stride, T_len - k0, tid);
+  cp_async_commit();
+
+  // live query tiles [qt_lo, qt_hi) (kernel.py dkdv_query_tiles)
+  const int n_qt = (T_len + BQ - 1) / BQ;
+  const int qt_lo = k0 / BQ;
+  int qt_hi = n_qt;
+  if (window > 0) qt_hi = min(n_qt, (k0 + Cf::ROWS - 2 + window) / BQ + 1);
+
+  auto load_stage = [&](int qt, int stage) {
+    const int q0 = qt * BQ;
+    float* base = sRing + stage * Sp::Q_STAGE;
+    load_rows_f32<HD, BQ, P, Sp::THREADS>(base, q + q_off + q0 * q_stride, q_stride,
+                                           T_len - q0, tid);
+    load_rows_f32<HD, BQ, P, Sp::THREADS>(base + Sp::Q_TILE, dout + q_off + q0 * q_stride,
+                                           q_stride, T_len - q0, tid);
+    if (tid < 2 * BQ) {
+      const int i = tid % BQ;
+      const float* src = (tid < BQ ? lse : delta) + l_off;
+      const bool ok = q0 + i < T_len;
+      cp_async4(smem_u32(base + 2 * Sp::Q_TILE + tid), ok ? src + q0 + i : src, ok ? 4 : 0);
+    }
+  };
+  if (qt_lo < qt_hi) load_stage(qt_lo, 0);
+  cp_async_commit();
+
+  float acc_k[DW / NC][1][NC][4], acc_v[DW / NC][1][NC][4];
+#pragma unroll
+  for (int c = 0; c < DW / NC; ++c)
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_k[c][0][i][e] = acc_v[c][0][i][e] = 0.f;
+
+  for (int qt = qt_lo; qt < qt_hi; ++qt) {
+    const int stage = (qt - qt_lo) & 1;
+    if (qt + 1 < qt_hi) {   // the next tile loads while this one is multiplied
+      load_stage(qt + 1, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sQ = sRing + stage * Sp::Q_STAGE;
+    const float* sG = sQ + Sp::Q_TILE;
+    const float* sL = sG + Sp::Q_TILE;
+    const float* sD = sL + BQ;
+    const int q0 = qt * BQ;
+
+    // S^T = K Q^T, dP^T = V dO^T: this warp's 16 keys x its NS query
+    // n-tiles (all BQ queries unless DSPLIT warps share the keys)
+    float st[1][NS][4], dpt[1][NS][4];
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[0][i][e] = dpt[0][i][e] = 0.f;
+#pragma unroll 1
+    for (int ks = 0; ks < HD / 8; ++ks) {
+      uint32_t ah[1][4], al[1][4], bh[NS][2], bl[NS][2];
+      frag_a_split<P>(ah, al, sK, rg * 16, ks * 8, g, cq);
+      frag_b_rows<P, NS>(bh, bl, sQ, ws * NS * 8, ks * 8, g, cq);
+      mma3(st, ah, al, bh, bl);
+      frag_a_split<P>(ah, al, sV, rg * 16, ks * 8, g, cq);
+      frag_b_rows<P, NS>(bh, bl, sG, ws * NS * 8, ks * 8, g, cq);
+      mma3(dpt, ah, al, bh, bl);
+    }
+
+    // p = exp(s * scale - lse) in st, ds = p (dp - delta) scale in dpt,
+    // both fp32; masked (p = 0) only where the tile crosses the diagonal,
+    // the window's edge or T for this warp's keys
+    const bool edge = q0 < kw0 + 15 || q0 + BQ > T_len ||
+                      (window > 0 && q0 + BQ - 1 - kw0 >= window);
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt) {
+      const int j = (ws * NS + nt) * 8 + cq * 2;   // the lane's two query columns
+      const float2 l2 = *reinterpret_cast<const float2*>(sL + j);
+      const float2 d2 = *reinterpret_cast<const float2*>(sD + j);
+      const float la = l2.x * kLog2e, lb = l2.y * kLog2e;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(st[0][nt][e] * scale_log2 - ((e & 1) ? lb : la));
+        if (edge) {
+          const int key = kw0 + g + ((e >> 1) << 3);
+          const int t = q0 + j + (e & 1);
+          bool live = key <= t && t < T_len;
+          if (window > 0) live = live && t - key < window;
+          if (!live) p = 0.f;
+        }
+        st[0][nt][e] = p;
+        dpt[0][nt][e] = p * (dpt[0][nt][e] - ((e & 1) ? d2.y : d2.x)) * scale;
+      }
+    }
+    if constexpr (Sp::DSPLIT > 1) {   // hand the row group's p, ds around
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+        float* x = sX + (ws * NS + nt) * 256 + lane * 4;
+        *reinterpret_cast<float4*>(x) = make_float4(st[0][nt][0], st[0][nt][1],
+                                                    st[0][nt][2], st[0][nt][3]);
+        *reinterpret_cast<float4*>(x + 128) = make_float4(
+            dpt[0][nt][0], dpt[0][nt][1], dpt[0][nt][2], dpt[0][nt][3]);
+      }
+      __syncthreads();
+    }
+
+    // dV += p^T dO, dK += ds^T Q over this warp's dims: a k-step of 8
+    // queries a query n-tile of p / ds; dO and Q read across rows
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      float pk[4], dk4[4];   // p and ds of query n-tile kk
+      if constexpr (Sp::DSPLIT > 1) {
+        const float4 x = *reinterpret_cast<const float4*>(sX + kk * 256 + lane * 4);
+        const float4 y = *reinterpret_cast<const float4*>(sX + kk * 256 + 128 + lane * 4);
+        pk[0] = x.x; pk[1] = x.y; pk[2] = x.z; pk[3] = x.w;
+        dk4[0] = y.x; dk4[1] = y.y; dk4[2] = y.z; dk4[3] = y.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pk[e] = st[0][kk][e];
+          dk4[e] = dpt[0][kk][e];
+        }
+      }
+      uint32_t ah[1][4], al[1][4];
+      acc_frag_split(ah, al, pk);
+#pragma unroll
+      for (int c = 0; c < DW / NC; ++c) {
+        uint32_t bh[NC][2], bl[NC][2];
+        frag_b_cols<P, NC>(bh, bl, sG, kk * 8, (dc0 + c * NC) * 8, g, cq);
+        mma3(acc_v[c], ah, al, bh, bl);
+      }
+      acc_frag_split(ah, al, dk4);
+#pragma unroll
+      for (int c = 0; c < DW / NC; ++c) {
+        uint32_t bh[NC][2], bl[NC][2];
+        frag_b_cols<P, NC>(bh, bl, sQ, kk * 8, (dc0 + c * NC) * 8, g, cq);
+        mma3(acc_k[c], ah, al, bh, bl);
+      }
+    }
+    __syncthreads();   // this stage is free for the tile after next
+  }
+
+  const int64_t half = static_cast<int64_t>(gridDim.z) * T_len * nq * HD;
+  const int64_t bt = static_cast<int64_t>(b) * T_len;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kw0 + g + 8 * r;
+    if (key >= T_len) continue;
+#pragma unroll
+    for (int dn = 0; dn < DW; ++dn) {
+      const int d = (dc0 + dn) * 8 + cq * 2;
+      const float2 xk = make_float2(acc_k[dn / NC][0][dn % NC][2 * r],
+                                    acc_k[dn / NC][0][dn % NC][2 * r + 1]);
+      const float2 xv = make_float2(acc_v[dn / NC][0][dn % NC][2 * r],
+                                    acc_v[dn / NC][0][dn % NC][2 * r + 1]);
+      if (work == nullptr) {   // one q head a kv head: the final values
+        const int64_t at = ((bt + key) * nkv + kvh) * HD + d;
+        *reinterpret_cast<float2*>(dk + at) = xk;
+        *reinterpret_cast<float2*>(dv + at) = xv;
+      } else {   // this q head's fp32 partials, (2, B, S, nq, HD)
+        const int64_t at = ((bt + key) * nq + h) * HD + d;
+        *reinterpret_cast<float2*>(work + at) = xk;
+        *reinterpret_cast<float2*>(work + half + at) = xv;
+      }
+    }
+  }
+}
+
+// The fp32 dQ: bwd_dq_mma_kernel's blocks, ring and mask (see there;
+// BwdSplitCfg for the warps at hd 256), every product in three TF32
+// passes, ds fed unrounded.
+template <typename T, int HD>
+__global__ void __launch_bounds__(BwdSplitCfg<HD>::THREADS, BwdSplitCfg<HD>::MIN_BLOCKS)
+bwd_dq_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq, int T_len, int nq,
+                    int nkv, int window, float scale, float scale_log2) {
+  static_assert(std::is_same<T, float>::value, "the fp32 route");
+  using Cf = BwdMmaCfg<HD>;
+  using Sp = BwdSplitCfg<HD>;
+  constexpr int P = Sp::P, BK = Cf::BK, NT = BK / 8, DW = Sp::DW, NC = Sp::NC;
+  constexpr int NS = NT / Sp::DSPLIT;   // key n-tiles of S this warp computes
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sG = sQ + Sp::OWN;
+  float* sRing = sG + Sp::OWN;   // K0, V0, K1, V1
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, cq = lane & 3;
+  const int rg = warp / Sp::DSPLIT;
+  const int ws = warp % Sp::DSPLIT;   // this warp's share: dims and key n-tiles
+  const int dc0 = ws * DW;
+  float* sX = sRing + 4 * Sp::K_TILE + rg * Sp::XCH_Q;   // this row group's hand-off
+  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int kvh = h / (nq / nkv);
+  const int q0 = qt * Cf::ROWS;
+  const int q_last = min(q0 + Cf::ROWS, T_len) - 1;
+  const int qw0 = q0 + rg * 16;
+  const int64_t q_stride = static_cast<int64_t>(nq) * HD;
+  const int64_t kv_stride = static_cast<int64_t>(nkv) * HD;
+  const T* k_base = k + (b * T_len * nkv + kvh) * HD;
+  const T* v_base = v + (b * T_len * nkv + kvh) * HD;
+
+  load_rows_f32<HD, Cf::ROWS, P, Sp::THREADS>(sQ, q + ((b * T_len + q0) * nq + h) * HD,
+                                               q_stride, T_len - q0, tid);
+  load_rows_f32<HD, Cf::ROWS, P, Sp::THREADS>(sG, dout + ((b * T_len + q0) * nq + h) * HD,
+                                               q_stride, T_len - q0, tid);
+  cp_async_commit();
+
+  // live key tiles [kt_lo, kt_hi) (kernel.py dq_key_tiles)
+  const int n_kt = (T_len + BK - 1) / BK;
+  const int kt_hi = min(n_kt, q_last / BK + 1);
+  int kt_lo = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / BK;
+
+  auto load_stage = [&](int kt, int stage) {
+    const int kk0 = kt * BK;
+    float* base = sRing + stage * 2 * Sp::K_TILE;
+    load_rows_f32<HD, BK, P, Sp::THREADS>(base, k_base + kk0 * kv_stride, kv_stride,
+                                           T_len - kk0, tid);
+    load_rows_f32<HD, BK, P, Sp::THREADS>(base + Sp::K_TILE, v_base + kk0 * kv_stride,
+                                           kv_stride, T_len - kk0, tid);
+  };
+  if (kt_lo < kt_hi) load_stage(kt_lo, 0);
+  cp_async_commit();
+
+  // lse (in log2 units) and delta of the lane's two rows; 0 past T
+  const int t_lo = qw0 + g, t_hi = t_lo + 8;
+  const float* lse_row = lse + (b * nq + h) * static_cast<int64_t>(T_len);
+  const float* delta_row = delta + (b * nq + h) * static_cast<int64_t>(T_len);
+  const float l_lo = t_lo < T_len ? lse_row[t_lo] * kLog2e : 0.f;
+  const float l_hi = t_hi < T_len ? lse_row[t_hi] * kLog2e : 0.f;
+  const float d_lo = t_lo < T_len ? delta_row[t_lo] : 0.f;
+  const float d_hi = t_hi < T_len ? delta_row[t_hi] : 0.f;
+
+  float acc[DW / NC][1][NC][4];
+#pragma unroll
+  for (int c = 0; c < DW / NC; ++c)
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][0][i][e] = 0.f;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
+    if (kt + 1 < kt_hi) {
+      load_stage(kt + 1, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sK = sRing + stage * 2 * Sp::K_TILE;
+    const float* sV = sK + Sp::K_TILE;
+
+    // S = Q K^T, dP = dO V^T: this warp's 16 queries x its NS key n-tiles
+    // (all BK keys unless DSPLIT warps share the queries)
+    float s[1][NS][4], dp[1][NS][4];
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[0][i][e] = dp[0][i][e] = 0.f;
+#pragma unroll 1
+    for (int ks = 0; ks < HD / 8; ++ks) {
+      uint32_t ah[1][4], al[1][4], bh[NS][2], bl[NS][2];
+      frag_a_split<P>(ah, al, sQ, rg * 16, ks * 8, g, cq);
+      frag_b_rows<P, NS>(bh, bl, sK, ws * NS * 8, ks * 8, g, cq);
+      mma3(s, ah, al, bh, bl);
+      frag_a_split<P>(ah, al, sG, rg * 16, ks * 8, g, cq);
+      frag_b_rows<P, NS>(bh, bl, sV, ws * NS * 8, ks * 8, g, cq);
+      mma3(dp, ah, al, bh, bl);
+    }
+
+    // ds = p (dp - delta) scale in s, fp32; masked (p = 0) only where the
+    // tile crosses the diagonal or the window's edge for this warp's rows
+    const int k0 = kt * BK;
+    const bool edge = k0 + BK - 1 > qw0 || (window > 0 && qw0 + 15 - k0 >= window);
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[0][nt][e] * scale_log2 - (e < 2 ? l_lo : l_hi));
+        if (edge) {
+          const int key = k0 + (ws * NS + nt) * 8 + cq * 2 + (e & 1);
+          const int t = e < 2 ? t_lo : t_hi;
+          bool live = key <= t;
+          if (window > 0) live = live && t - key < window;
+          if (!live) p = 0.f;
+        }
+        s[0][nt][e] = p * (dp[0][nt][e] - (e < 2 ? d_lo : d_hi)) * scale;
+      }
+    if constexpr (Sp::DSPLIT > 1) {   // hand the row group's ds around
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt)
+        *reinterpret_cast<float4*>(sX + (ws * NS + nt) * 128 + lane * 4) =
+            make_float4(s[0][nt][0], s[0][nt][1], s[0][nt][2], s[0][nt][3]);
+      __syncthreads();
+    }
+
+    // dQ += ds K over this warp's dims: a k-step of 8 keys a key n-tile of
+    // ds; K read across rows
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      float d4[4];   // ds of key n-tile kk
+      if constexpr (Sp::DSPLIT > 1) {
+        const float4 x = *reinterpret_cast<const float4*>(sX + kk * 128 + lane * 4);
+        d4[0] = x.x; d4[1] = x.y; d4[2] = x.z; d4[3] = x.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d4[e] = s[0][kk][e];
+      }
+      uint32_t ah[1][4], al[1][4];
+      acc_frag_split(ah, al, d4);
+#pragma unroll
+      for (int c = 0; c < DW / NC; ++c) {
+        uint32_t bh[NC][2], bl[NC][2];
+        frag_b_cols<P, NC>(bh, bl, sK, kk * 8, (dc0 + c * NC) * 8, g, cq);
+        mma3(acc[c], ah, al, bh, bl);
+      }
+    }
+    __syncthreads();   // this stage is free for the tile after next
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = (r ? t_hi : t_lo);
+    if (t >= T_len) continue;
+#pragma unroll
+    for (int dn = 0; dn < DW; ++dn) {
+      const int d = (dc0 + dn) * 8 + cq * 2;
+      *reinterpret_cast<float2*>(dq + ((b * T_len + t) * nq + h) * HD + d) =
+          make_float2(acc[dn / NC][0][dn % NC][2 * r], acc[dn / NC][0][dn % NC][2 * r + 1]);
+    }
+  }
+}
+
+// the route's dK / dV and dQ kernels: fp32 in three TF32 passes, bf16 /
+// fp16 on their own type, both on the tensor cores
+template <typename T, int HD>
+cudaError_t launch_tiles(const T* q, const T* k, const T* v, const T* dout, const float* lse,
+                         const float* delta, T* dq, T* dk, T* dv, float* work, int64_t B,
+                         int64_t T_len, int64_t nq, int64_t nkv, int64_t window, float scale,
+                         cudaStream_t st) {
+  using Cf = BwdMmaCfg<HD>;
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int smem_kv = kSplit ? BwdSplitCfg<HD>::DKDV_SMEM : Cf::DKDV_SMEM;
+  constexpr int smem_q = kSplit ? BwdSplitCfg<HD>::DQ_SMEM : Cf::DQ_SMEM;
+  auto kern_kv = [] {
+    if constexpr (kSplit) return bwd_dkdv_split_kernel<T, HD>;
+    else return bwd_dkdv_mma_kernel<T, HD>;
+  }();
+  auto kern_q = [] {
+    if constexpr (kSplit) return bwd_dq_split_kernel<T, HD>;
+    else return bwd_dq_mma_kernel<T, HD>;
+  }();
+  constexpr int threads = kSplit ? BwdSplitCfg<HD>::THREADS : kHalfThreads;
   const dim3 grid(static_cast<unsigned>((T_len + Cf::ROWS - 1) / Cf::ROWS),
                   static_cast<unsigned>(nq), static_cast<unsigned>(B));
   const float scale_log2 = scale * kLog2e;
-  auto kern_kv = bwd_dkdv_mma_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(kern_kv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Cf::DKDV_SMEM);
+  cudaError_t err =
+      cudaFuncSetAttribute(kern_kv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (err != cudaSuccess) return err;
-  kern_kv<<<grid, kHalfThreads, Cf::DKDV_SMEM, st>>>(
+  kern_kv<<<grid, threads, smem_kv, st>>>(
       q, k, v, dout, lse, delta, dk, dv, work, static_cast<int>(T_len), static_cast<int>(nq),
       static_cast<int>(nkv), static_cast<int>(window), scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto kern_q = bwd_dq_mma_kernel<T, HD>;
-  err = cudaFuncSetAttribute(kern_q, cudaFuncAttributeMaxDynamicSharedMemorySize, Cf::DQ_SMEM);
+  err = cudaFuncSetAttribute(kern_q, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
   if (err != cudaSuccess) return err;
-  kern_q<<<grid, kHalfThreads, Cf::DQ_SMEM, st>>>(
+  kern_q<<<grid, threads, smem_q, st>>>(
       q, k, v, dout, lse, delta, dq, static_cast<int>(T_len), static_cast<int>(nq),
       static_cast<int>(nkv), static_cast<int>(window), scale, scale_log2);
   return cudaGetLastError();
 }
 
-// delta, then the route's tile kernels (fp32 on the CUDA cores, bf16 /
-// fp16 on the tensor cores; kernel.py BWD_TILE_KERNELS), then the group
-// sum when nq > nkv
+// delta, then the route's tile kernels (kernel.py BWD_TILE_KERNELS),
+// then the group sum when nq > nkv
 template <typename T, int HD>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* out,
                        const void* dout, const float* lse, void* dq, void* dk, void* dv,
@@ -1772,14 +1960,9 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
                                               HD);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if constexpr (std::is_same<T, float>::value)
-    err = launch_tiles_f32<T, HD>(qt, kt, vt, gt, lse, delta, static_cast<T*>(dq),
-                                  static_cast<T*>(dk), static_cast<T*>(dv), work, B, T_len, nq,
-                                  nkv, window, scale, st);
-  else
-    err = launch_tiles_mma<T, HD>(qt, kt, vt, gt, lse, delta, static_cast<T*>(dq),
-                                  static_cast<T*>(dk), static_cast<T*>(dv), work, B, T_len, nq,
-                                  nkv, window, scale, st);
+  err = launch_tiles<T, HD>(qt, kt, vt, gt, lse, delta, static_cast<T*>(dq),
+                            static_cast<T*>(dk), static_cast<T*>(dv), work, B, T_len, nq, nkv,
+                            window, scale, st);
   if (err != cudaSuccess || work == nullptr) return err;
 
   const int64_t n = B * T_len * nkv * HD;

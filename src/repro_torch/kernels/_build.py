@@ -1,14 +1,15 @@
 """Build and load the port's CUDA kernel libraries.
 
-Each library is one ``csrc/<name>.cu`` with a plain C interface,
-compiled by ``nvcc`` for Hopper (``sm_90a``) into
+Each library is one ``csrc/<name>.cu`` with a plain C interface (which
+may include the headers ``csrc/*.cuh``), compiled by ``nvcc`` for Hopper
+(``sm_90a``) into
 ``build/repro_torch/<hash of the sources>/lib<name>.so`` at the root of
 the checkout and loaded with ``ctypes``; what ``ptxas -v`` said of each
 kernel (registers, shared memory, spills) is kept beside it in
 ``lib<name>.log``. Nothing is compiled or loaded
 at import: the first caller builds, and a lock per library makes
 concurrent first callers build it once, while two libraries build side
-by side. A changed source hashes to a new directory, so a
+by side. A changed source or header hashes to a new directory, so a
 stale library is never loaded.
 """
 from __future__ import annotations
@@ -45,12 +46,20 @@ def _nvcc() -> str:
 
 
 def sources(name: str) -> List[Path]:
+    """What ``nvcc`` compiles for library ``name``."""
     return [CSRC / f"{name}.cu"]
+
+
+def headers() -> List[Path]:
+    """The headers the sources may include: hashed with each library,
+    never compiled on their own."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256()
-    for src in sources(name):
+    for src in sources(name) + headers():
+        digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(ARCH_FLAGS + PTXAS_FLAGS).encode())
     return BUILD_ROOT / digest.hexdigest()[:16] / f"lib{name}.so"

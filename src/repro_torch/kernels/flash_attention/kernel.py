@@ -27,12 +27,14 @@ give bitwise-equal gradients. It is bound by operations (10 * hd FLOPs
 a live score, bf16 at 989 TFLOP/s). bf16 / fp16 run its dK / dV and dQ
 kernels on the tensor cores (``mma.sync``, p and ds fed from the fp32
 accumulators as the next product's operands, rounded once to the input
-dtype as the reference rounds them); fp32 runs them on the CUDA cores.
-S and dP are recomputed in both tile kernels, so that dQ needs no sum
-across blocks. :func:`bwd_tiles`, :func:`dkdv_query_tiles` and
-:func:`dq_key_tiles` mirror the tensor-core kernels' tiles and loop
-bounds; :data:`BWD_TILE_KERNELS` names each dtype's tile kernels. Its
-CPU path is ``attention_bwd_ref``.
+dtype as the reference rounds them); fp32 runs the same plan on the
+tensor cores in three TF32 passes (``mma.sync.m16n8k8``, each operand
+split into hi + lo and multiplied as lo.hi + hi.lo + hi.hi, as exact as
+fp32 FMAs). S and dP are recomputed in both tile kernels, so that dQ
+needs no sum across blocks. :func:`bwd_tiles`, :func:`dkdv_query_tiles`
+and :func:`dq_key_tiles` mirror the tile kernels' tiles and loop bounds
+in every dtype; :data:`BWD_TILE_KERNELS` names each dtype's tile
+kernels. Its CPU path is ``attention_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -69,7 +71,7 @@ def fp32_query_tile(B: int, T: int, nq: int, sm_count: int) -> int:
 # the backward's device kernels: the tile kernels by dtype (one instance a
 # head dim), and two that every dtype runs (one instance a dtype)
 BWD_TILE_KERNELS = {
-    torch.float32: ("bwd_dkdv_kernel", "bwd_dq_kernel"),
+    torch.float32: ("bwd_dkdv_split_kernel", "bwd_dq_split_kernel"),
     torch.bfloat16: ("bwd_dkdv_mma_kernel", "bwd_dq_mma_kernel"),
     torch.float16: ("bwd_dkdv_mma_kernel", "bwd_dq_mma_kernel"),
 }
@@ -90,18 +92,20 @@ def bwd_instances() -> List[Tuple[str, torch.dtype, int]]:
 
 def bwd_route(dtype: torch.dtype) -> str:
     """Where ``flash_attn_bwd``'s dK / dV and dQ kernels run for
-    ``dtype``."""
+    ``dtype``: fp32 takes three TF32 products for each one."""
     return ("tensor cores (mma.sync)" if dtype in (torch.bfloat16,
                                                    torch.float16)
-            else "cuda cores")
+            else "tensor cores (mma.sync, 3 x TF32)")
 
 
 def bwd_tiles(hd: int) -> Tuple[int, int, int]:
-    """(rows, bq, bk) of the tensor-core backward at head dim ``hd``
-    (``BwdMmaCfg`` in ``csrc/flash_attention.cu``): the keys a dK / dV
-    block and the queries a dQ block own (16 a warp, 4 warps; at hd 256
-    two warps share each 16 rows and split the head dim), the query tile
-    a dK / dV block streams, and the key tile a dQ block streams."""
+    """(rows, bq, bk) of the backward's tile kernels at head dim ``hd``,
+    in every dtype (``BwdMmaCfg`` in ``csrc/flash_attention.cu``; fp32
+    keeps the plan at twice the bytes, ``BwdSplitCfg``): the keys a dK /
+    dV block and the queries a dQ block own (16 a warp, 4 warps; at hd
+    256 two warps, four in fp32, share each 16 rows and split the head
+    dim), the query tile a dK / dV block streams, and the key tile a dQ
+    block streams."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     return (32 if hd == 256 else 64, 64 if hd <= 64 else 32,

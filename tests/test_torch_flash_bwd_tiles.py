@@ -1,23 +1,32 @@
 """A model, in PyTorch on the CPU, of the arithmetic of the port's
-attention backward on the tensor cores (bf16 / fp16 ``flash_attn_bwd``,
-``src/repro_torch/csrc/flash_attention.cu``), held against ``jax.vjp`` of
-the JAX model's ``blockwise_attention`` (its custom VJP) and against the
-port's plain ``attention_bwd_ref``.
+attention backward on the tensor cores (``flash_attn_bwd``,
+``src/repro_torch/csrc/flash_attention.cu``: bf16 / fp16 on
+``mma.sync.m16n8k16``, fp32 on ``mma.sync.m16n8k8`` TF32 in three
+passes), held against ``jax.vjp`` of the JAX model's
+``blockwise_attention`` (its custom VJP) and against the port's plain
+``attention_bwd_ref``.
 
 The model follows the kernels block by block: a dK / dV block owns
 ``kernel.bwd_tiles(hd)[0]`` keys and visits the query tiles of
 ``kernel.dkdv_query_tiles``; a dQ block owns as many queries and visits
-the key tiles of ``kernel.dq_key_tiles``. Every product takes operands
-rounded to the input dtype and sums in fp32, one 16-wide k-step of
-``mma.sync.m16n8k16`` at a time, in the kernels' tile and k-step order;
-p = exp2(s * scale * log2 e - lse * log2 e) with s the unscaled fp32 dot,
-masked (p = 0) only on the tiles where a warp's 16 rows cross the
-diagonal, the window's edge or T; p enters dV rounded once, as the
-reference's ``pb``; ds = p (dp - delta) scale enters dQ and dK rounded
-once, as its ``dsb``. With GQA the dK / dV partials of each q head are
+the key tiles of ``kernel.dq_key_tiles`` (the same plan in every dtype).
+p = exp2(s * scale * log2 e - lse * log2 e) with s the unscaled fp32
+dot, masked (p = 0) only on the tiles where a warp's 16 rows cross the
+diagonal, the window's edge or T; ds = p (dp - delta) scale. bf16 /
+fp16: every product takes operands rounded to the input dtype and sums
+in fp32, one 16-wide k-step at a time, in the kernels' tile and k-step
+order; p enters dV rounded once, as the reference's ``pb``, and ds
+enters dQ and dK rounded once, as its ``dsb``. fp32: every operand, p
+and ds included, is split into hi = tf32(v) and lo = tf32(v - hi)
+(``cvt.rna.tf32``) and each 8-wide k-step adds lo.hi, then hi.lo, then
+hi.hi to the fp32 accumulators (``mma3``), the k-steps that take p or ds
+from the accumulators in the kernels' permuted order (column 2t at k t,
+2t + 1 at k t + 4). With GQA the dK / dV partials of each q head are
 summed in head order before the one rounding. The CUDA kernels are held
 against the plain version on the card by ``chip_smoke.py`` phase 1.
 """
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,38 +36,73 @@ import torch
 from repro.models.layers.attention import blockwise_attention
 from repro_torch.kernels.flash_attention import kernel, ref
 
-# tests/test_torch_flash_bwd.py's bf16 tolerance (the reference's bf16
-# attention tolerance); fp16 is held to the same
-TOL = dict(rtol=5e-2, atol=5e-2)
+# tests/test_torch_flash_bwd.py's tolerances: bf16 the reference's bf16
+# attention tolerance (fp16 is held to the same), fp32 rtol / atol 1e-5
+TOL = {torch.bfloat16: dict(rtol=5e-2, atol=5e-2),
+       torch.float16: dict(rtol=5e-2, atol=5e-2),
+       torch.float32: dict(rtol=1e-5, atol=1e-5)}
 LOG2E = 1.4426950408889634
-JDT = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
+JDT = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16,
+       torch.float32: jnp.float32}
+# acc_frag_split's k order in an 8-wide k-step fed from the accumulators
+PERM8 = [0, 2, 4, 6, 1, 3, 5, 7]
 
 
-def _products(a, b):
-    """a (..., m, hd) . b (..., n, hd)^T in fp32, one 16-wide k-step at a
-    time, in order."""
+def tf32(a: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 as cvt.rna.tf32.f32 does: the low 13 mantissa
+    bits dropped, to nearest, ties away from zero (half an ulp added to
+    the magnitude, then masked)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _step(acc, a, b, passes):
+    """acc + a @ b for one k-step in fp32: the operands as they are
+    (``passes`` 0: the half route, whose operands are the rounded
+    values), or split into TF32 hi + lo and added as lo.hi, hi.lo, hi.hi
+    (3), or hi.hi alone (1)."""
+    if passes == 0:
+        return acc + a @ b
+    ah, bh = tf32(a), tf32(b)
+    if passes == 3:
+        acc = acc + tf32(a - ah) @ bh
+        acc = acc + ah @ tf32(b - bh)
+    return acc + ah @ bh
+
+
+def _products(a, b, kw, passes):
+    """a (..., m, hd) . b (..., n, hd)^T in fp32, one ``kw``-wide k-step
+    at a time, in order."""
     acc = torch.zeros(a.shape[:-1] + (b.shape[-2],))
-    for k0 in range(0, a.shape[-1], 16):
-        acc = acc + a[..., k0:k0 + 16] @ b[..., k0:k0 + 16].transpose(-1, -2)
+    for k0 in range(0, a.shape[-1], kw):
+        acc = _step(acc, a[..., k0:k0 + kw],
+                    b[..., k0:k0 + kw].transpose(-1, -2), passes)
     return acc
 
 
-def _accumulate(acc, a, b):
+def _accumulate(acc, a, b, kw, passes):
     """acc (..., m, n) + a (..., m, K) @ b (..., K, n) in fp32, one
-    16-wide k-step of K at a time, in order."""
-    for k0 in range(0, a.shape[-1], 16):
-        acc = acc + a[..., k0:k0 + 16] @ b[..., k0:k0 + 16, :]
+    ``kw``-wide k-step of K at a time, in order; a TF32 k-step (a taken
+    from the accumulators) in ``PERM8`` order."""
+    for k0 in range(0, a.shape[-1], kw):
+        x, y = a[..., k0:k0 + kw], b[..., k0:k0 + kw, :]
+        if passes:
+            x, y = x[..., PERM8], y[..., PERM8, :]
+        acc = _step(acc, x, y, passes)
     return acc
 
 
 def bwd_model(q, k, v, out, lse, dout, window=0, *, split_p=False,
-              cast=True):
-    """The tensor-core kernels' arithmetic: (dq, dk, dv) of q (B, T, nq,
-    hd), k / v (B, T, nkv, hd), the forward's out and lse (B, nq, T) and
+              cast=True, passes=3):
+    """The tile kernels' arithmetic: (dq, dk, dv) of q (B, T, nq, hd),
+    k / v (B, T, nkv, hd), the forward's out and lse (B, nq, T) and
     dout, in q's dtype (fp32, before the one rounding, when ``cast`` is
-    False). ``split_p`` feeds p to dV as hi + lo, two rounded terms (the
-    forward's bf16 split), where the kernel rounds it once."""
+    False). ``split_p`` feeds bf16 / fp16 p to dV as hi + lo, two rounded
+    terms (the forward's bf16 split), where the kernel rounds it once.
+    fp32 takes 8-wide k-steps of ``passes`` TF32 products (the kernel's
+    3, or 1 to show what one pass would give)."""
     dt = q.dtype
+    kw, passes = (8, passes) if dt == torch.float32 else (16, 0)
     B, T, nq, hd = q.shape
     nkv = k.shape[2]
     group = nq // nkv
@@ -108,8 +152,10 @@ def bwd_model(q, k, v, out, lse, dout, window=0, *, split_p=False,
             edge = (q0 < kw0 + 15) | (q0 + bq > T)
             if window > 0:
                 edge |= q0 + bq - 1 - kw0 >= window
-            s = _products(qf[:, :, q0:q0 + bq], kf[:, :, k0:k0 + rows])
-            dp = _products(gf[:, :, q0:q0 + bq], vf[:, :, k0:k0 + rows])
+            s = _products(qf[:, :, q0:q0 + bq], kf[:, :, k0:k0 + rows], kw,
+                          passes)
+            dp = _products(gf[:, :, q0:q0 + bq], vf[:, :, k0:k0 + rows], kw,
+                           passes)
             p, ds = p_ds(s, dp, t, keys, edge[None, :], T)
             pt, dst = p.transpose(-1, -2), ds.transpose(-1, -2)
             if split_p:
@@ -120,8 +166,9 @@ def bwd_model(q, k, v, out, lse, dout, window=0, *, split_p=False,
                     dv_acc = dv_acc + rounded(pt - hi)[..., kk:kk + 16] @ g_kk
             else:
                 dv_acc = _accumulate(dv_acc, rounded(pt),
-                                     gf[:, :, q0:q0 + bq])
-            dk_acc = _accumulate(dk_acc, rounded(dst), qf[:, :, q0:q0 + bq])
+                                     gf[:, :, q0:q0 + bq], kw, passes)
+            dk_acc = _accumulate(dk_acc, rounded(dst), qf[:, :, q0:q0 + bq],
+                                 kw, passes)
         dk_part[:, :, k0:k0 + rows] = dk_acc
         dv_part[:, :, k0:k0 + rows] = dv_acc
 
@@ -137,11 +184,14 @@ def bwd_model(q, k, v, out, lse, dout, window=0, *, split_p=False,
             edge = k0 + bk - 1 > qw0
             if window > 0:
                 edge |= qw0 + 15 - k0 >= window
-            s = _products(qf[:, :, q0:q0 + rows], kf[:, :, k0:k0 + bk])
-            dp = _products(gf[:, :, q0:q0 + rows], vf[:, :, k0:k0 + bk])
+            s = _products(qf[:, :, q0:q0 + rows], kf[:, :, k0:k0 + bk], kw,
+                          passes)
+            dp = _products(gf[:, :, q0:q0 + rows], vf[:, :, k0:k0 + bk], kw,
+                           passes)
             _, ds = p_ds(s, dp, t, keys, edge[:, None], pad)   # rows past T
             # are dropped at the end
-            acc = _accumulate(acc, rounded(ds), kf[:, :, k0:k0 + bk])
+            acc = _accumulate(acc, rounded(ds), kf[:, :, k0:k0 + bk], kw,
+                              passes)
         dq[:, :, q0:q0 + rows] = acc
 
     def summed(part):   # a kv head's q heads in head order, from 0
@@ -176,8 +226,9 @@ def _jax_vjp(q, k, v, g, window):
 
 # (B, T, nq, nkv, hd, window, dtype): GQA, MQA, MHA; ragged T = 1, 17,
 # 70, 150; windows 1, 5 and T - 1; hd 32 and 64 (64-row query tiles, A
-# fragments in registers), 128 (32-row query tiles) and 256 (32-row
-# blocks, the head dim split over two warps)
+# fragments in registers in bf16 / fp16), 128 (32-row query tiles) and
+# 256 (32-row blocks, the head dim split over two warps); fp32 at each
+# head dim
 CASES = [
     (2, 70, 4, 2, 64, 0, torch.bfloat16),      # GQA, two 64-row tiles
     (1, 70, 4, 1, 32, 5, torch.bfloat16),      # MQA, window 5, hd 32
@@ -189,6 +240,15 @@ CASES = [
     (1, 150, 4, 2, 64, 40, torch.bfloat16),    # three key blocks
     (1, 70, 4, 1, 128, 0, torch.bfloat16),     # hd 128
     (1, 70, 2, 1, 256, 20, torch.float16),     # hd 256
+    (2, 70, 4, 2, 64, 0, torch.float32),       # GQA, two 64-row tiles
+    (1, 70, 4, 1, 32, 5, torch.float32),       # MQA, window 5, hd 32
+    (2, 17, 4, 4, 32, 0, torch.float32),       # MHA, T = 17
+    (2, 1, 6, 2, 64, 0, torch.float32),        # T = 1
+    (2, 17, 14, 2, 64, 16, torch.float32),     # Qwen2's group of 7
+    (1, 150, 4, 2, 64, 40, torch.float32),     # three key blocks
+    (1, 70, 4, 1, 128, 1, torch.float32),      # hd 128, window 1
+    (1, 70, 2, 1, 256, 20, torch.float32),     # hd 256, MQA
+    (1, 100, 4, 1, 256, 0, torch.float32),     # hd 256, four key blocks
 ]
 IDS = [f"B{c[0]}-T{c[1]}-{c[2]}x{c[3]}-hd{c[4]}-w{c[5]}-"
        f"{str(c[6]).split('.')[-1]}" for c in CASES]
@@ -215,7 +275,8 @@ def test_model_matches_blockwise_attention_vjp(B, T, nq, nkv, hd, window,
     want = _jax_vjp(q, k, v, g, window)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and a.shape == b.shape
-        np.testing.assert_allclose(a.float().numpy(), b, err_msg=name, **TOL)
+        np.testing.assert_allclose(a.float().numpy(), b, err_msg=name,
+                                   **TOL[dtype])
 
 
 @pytest.mark.parametrize("B,T,nq,nkv,hd,window,dtype", CASES, ids=IDS)
@@ -225,7 +286,7 @@ def test_model_matches_attention_bwd_ref(B, T, nq, nkv, hd, window, dtype):
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == b.dtype == dtype
         np.testing.assert_allclose(a.float().numpy(), b.float().numpy(),
-                                   err_msg=name, **TOL)
+                                   err_msg=name, **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
@@ -254,6 +315,29 @@ def test_one_split_of_p_moves_the_model_off_the_reference(dtype):
     err_once = (once - want).abs().mean().item()
     err_split = (split - want).abs().mean().item()
     assert err_split > 20 * err_once, (err_once, err_split)
+
+
+def _violation(got, want, tol):
+    """max |got - want| / (atol + rtol |want|): at most 1 where
+    ``assert_allclose`` passes."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want)
+                  / (tol["atol"] + tol["rtol"] * np.abs(want))).max())
+
+
+def test_one_tf32_pass_breaks_the_tolerance():
+    """One TF32 pass a product (operands rounded to 10-bit mantissas)
+    moves the fp32 gradients far past rtol / atol 1e-5 of the reference's
+    VJP at the Qwen2 head dim; the kernels' three passes stay inside."""
+    B, T, nq, nkv, hd, window = 1, 150, 4, 2, 64, 0
+    q, k, v, g = _inputs(11, B, T, nq, nkv, hd, torch.float32)
+    out, lse = ref.attention_lse_ref(q, k, v)
+    want = _jax_vjp(q, k, v, g, window)
+    tol = TOL[torch.float32]
+    for passes, ok in ((3, True), (1, False)):
+        got = bwd_model(q, k, v, out, lse, g, window, passes=passes)
+        worst = max(_violation(a.numpy(), b, tol) for a, b in zip(got, want))
+        assert (worst < 1.0) if ok else (worst > 5.0), (passes, worst)
 
 
 def _visits(tiles_of, T, window, hd, block, tile, owner_is_key):
@@ -309,7 +393,10 @@ def test_bwd_tiles_and_instances():
     inst = kernel.bwd_instances()
     assert len(inst) == len(set(inst)) == 30
     assert kernel.bwd_route(torch.bfloat16).startswith("tensor cores")
-    assert kernel.bwd_route(torch.float32) == "cuda cores"
+    assert kernel.bwd_route(torch.float32) == \
+        "tensor cores (mma.sync, 3 x TF32)"
+    assert kernel.BWD_TILE_KERNELS[torch.float32] == (
+        "bwd_dkdv_split_kernel", "bwd_dq_split_kernel")
 
 
 def test_bwd_kernels_are_the_source_kernels():
@@ -327,3 +414,44 @@ def test_bwd_kernels_are_the_source_kernels():
         src))
     named = {name for name, _, _ in kernel.bwd_instances()}
     assert found == named
+
+
+def test_the_tf32_helpers_live_in_one_header():
+    """``tf32``, ``split``, ``mma_tf32`` and ``mma3`` are defined once, in
+    ``csrc/mma_tf32.cuh``, which both the SSD scan and the attention
+    backward include."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    header = _build.CSRC / "mma_tf32.cuh"
+    assert header in _build.headers()
+    defs = r"__device__ __forceinline__ \w+ (tf32|split|mma_tf32|mma3)\("
+    assert sorted(set(re.findall(defs, header.read_text()))) == [
+        "mma3", "mma_tf32", "split", "tf32"]
+    for name in ("ssd_chunk", "flash_attention"):
+        src = _build.sources(name)[0].read_text()
+        assert '#include "mma_tf32.cuh"' in src
+        assert not re.findall(defs, src), name
+        assert str(header) not in _build.nvcc_command(name, Path("x.so"))
+
+
+def test_library_path_hashes_the_headers(tmp_path, monkeypatch):
+    """A library's build directory keys on its source and on every
+    header in ``csrc``: an edited header builds anew, and the header is
+    never handed to nvcc as a source of its own."""
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "lib_a.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    first = _build.library_path("lib_a")
+    assert _build.library_path("lib_a") == first
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    second = _build.library_path("lib_a")
+    assert second != first and second.parent.parent == _build.BUILD_ROOT
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert _build.library_path("lib_a") != second
+    cmd = _build.nvcc_command("lib_a", second)
+    assert cmd[-1] == str(tmp_path / "lib_a.cu")
+    assert not any(c.endswith(".cuh") for c in cmd)

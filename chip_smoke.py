@@ -101,7 +101,19 @@ round's fused params against float64 Eq. 1; (c) ``save_pytree`` /
 ``repro_torch.launch.train``; and (e) (a)'s step for full-width
 Gemma3-1B in fp32 on 1 x 1280 tokens (52 forward and 26 backward
 launches; loss within 1e-4 relative, every gradient leaf at cosine
-0.9999 or more). Phases 2-9
+0.9999 or more). Phase 10, run after phase 8 on the same data, drives
+the distributed engine and the mesh service over NCCL at world size 1
+((1, 1) and (1, 1, 1) meshes, every collective called): FedAvg, IterAvg
+and ClippedAvg Resnet50 x 48 map-reduce rounds against float64 Eq. 1,
+TrimmedMean and CoordMedian through the all-to-all against float64
+order statistics, Krum, Zeno and GeometricMedian at CNN4.6 x 64 against
+the local engine, the fp32, hierarchical, int8 and TrimmedMean Resnet50
+streams off ``UpdateStore.iter_chunks`` (exactly 48 / 48 / 24 / 48
+launches), a store round and two gamma 0.5 async rounds through
+``AggregationService(mesh=)``, and a carry handed from a ``LocalEngine``
+stream into the mesh engine; each case prints both engines' walls
+(median of 5), its launches and NCCL's share of its device time.
+Phases 2-10
 each start with the launch counts at 0, and every serving run must
 launch exactly what its prefills, decode steps and fusions take. The
 second-to-last line is ``{"kernels": [...]}`` and the last
@@ -1807,6 +1819,388 @@ def phase_edge_serving(dev, U, W, Uc):
         out["cli"][name] = {"wall": wall, "launches": delta,
                             "shed_429": m.get("shed_429", 0)}
     return out
+
+# -- phase 10: the distributed engine ------------------------------------------
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _runs(fn, dev, reps: int = 5):
+    """(the first run's result, the launches it made, the median host wall
+    seconds of ``reps`` runs, each synced before and after)."""
+    walls, first, delta = [], None, None
+    for i in range(reps):
+        before = _all_launches()
+        _sync(dev)
+        t0 = time.perf_counter()
+        result = fn()
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            first = result
+            delta = {k: v for k, v in _launch_delta(before).items() if v}
+    return first, delta, statistics.median(walls)
+
+
+def _comm_share(fn, dev, tries: int = 5):
+    """(NCCL's device ms, device busy ms, fusion kernels recorded) in one
+    profiled run of ``fn``: the device events whose name holds "nccl"
+    against all of them. As in ``_device_kernels``, the session opens
+    with a spin kernel and a synchronize, and is taken again, up to
+    ``tries`` times, while it records no device time: on the H100 the
+    first session of a short run has come back empty, and long sessions
+    lose a few of their first kernels, so the fusion kernels it
+    did record are returned to be printed beside the launches. The spin
+    kernel is left out of the busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if dev.type != "cuda":
+        fn()
+        return 0.0, 0.0, 0
+    ours = ("wsum_kernel", "wsum_dequant_kernel", "carve_", "stat_")
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES // 10)
+            _sync(dev)
+            fn()
+            _sync(dev)
+        dev_events = [e for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA")
+                      and "spin" not in e.key]
+        busy = sum(e.self_device_time_total for e in dev_events) / 1e3
+        if busy > 0:
+            break
+        print(f"[profile] no device time recorded; profile {attempt + 1} "
+              f"of {tries}", flush=True)
+    nccl = sum(e.self_device_time_total for e in dev_events
+               if "nccl" in e.key.lower()) / 1e3
+    fused = sum(e.count for e in dev_events if any(k in e.key for k in ours))
+    return nccl, busy, fused
+
+
+def _f64_wsum(rows, w):
+    """(sum_i w_i u_i, sum_i w_i) in float64 on the rows' device, a row
+    at a time."""
+    import torch
+
+    acc = torch.zeros(rows.shape[1], dtype=torch.float64, device=rows.device)
+    for i in range(rows.shape[0]):
+        acc.add_(rows[i].double(), alpha=float(w[i]))
+    return acc, float(sum(float(x) for x in w))
+
+
+def _f64_order_stats(rows, trim):
+    """(trimmed mean, median) per column in float64 on the rows' device,
+    a column slice at a time."""
+    import torch
+
+    n, P = rows.shape
+    tm = torch.empty(P, dtype=torch.float64, device=rows.device)
+    med = torch.empty_like(tm)
+    for lo in range(0, P, ORACLE_COLS * 4):
+        s = torch.sort(rows[:, lo:lo + ORACLE_COLS * 4].double(), dim=0)[0]
+        tm[lo:lo + s.shape[1]] = s[trim:n - trim].mean(dim=0)
+        med[lo:lo + s.shape[1]] = 0.5 * (s[(n - 1) // 2] + s[n // 2])
+    return tm, med
+
+
+def phase_distributed(dev, U, W, Uc, Wc, cu_rows):
+    """Phase 10: ``DistributedEngine`` and ``AggregationService(mesh=)``
+    over NCCL at world size 1, on (1, 1) ("data", "model") and (1, 1, 1)
+    ("pod", "data", "model") meshes: every collective runs through NCCL
+    on the card; each case beside ``LocalEngine`` on the same inputs."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import DistributedEngine
+    from repro_torch.core.fusion import get_fusion
+    from repro_torch.core.local import LocalEngine
+    from repro_torch.core.service import AggregationService
+    from repro_torch.core.store import UpdateStore
+    from repro_torch.launch.aggregate import _report_line
+    from repro_torch.launch.mesh import make_local_mesh
+
+    cuda = dev.type == "cuda"
+    # NCCL's bootstrap on a machine whose only interface is loopback
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    rdv = os.path.join(HERE, "build", "phase10", "rendezvous")
+    os.makedirs(os.path.dirname(rdv), exist_ok=True)
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    if cuda:   # the rank's card, before NCCL binds to one
+        torch.cuda.set_device(dev.index if dev.index is not None
+                              else torch.cuda.current_device())
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl" if cuda else "gloo", store=dist.FileStore(rdv, 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    out = {}
+    try:
+        mesh = make_local_mesh(1, 1, device_type=dev.type)
+        pod = make_local_mesh(1, 1, pod=1, device_type=dev.type)
+        flat = DistributedEngine(mesh=mesh)
+        hier = DistributedEngine(mesh=pod, hierarchical=True)
+        local = LocalEngine(device=dev)
+        # the first collective builds NCCL's communicator: out of the walls
+        flat.broadcast(None)
+        print(f"[phase10] {dist.get_backend()} world 1, meshes "
+              f"{tuple(mesh.mesh.shape)} / {tuple(pod.mesh.shape)} on "
+              f"{flat.device}: setup {time.perf_counter() - t0:.3f}s",
+              flush=True)
+        n, P = U.shape
+        U_dev = torch.from_numpy(U).to(dev)
+        Wt = torch.from_numpy(np.ascontiguousarray(W))
+
+        lib = {"weighted_sum": "fused_fusion", "weighted_sum_dequant":
+               "fused_fusion", "topk_carve": "robust_fusion",
+               "trimmed_mean": "robust_fusion",
+               "coord_median": "robust_fusion"}
+
+        def case(what, dist_fn, local_fn, expect, local=None):
+            """Both sides five times, synced (the first run's launches
+            must be ``expect``; median walls), then one profiled run of
+            the distributed side. ``local``: the (result, wall) of an
+            identical local run already timed."""
+            want = {k: v for k, v in expect.items() if v}
+            got, delta, d_wall = _runs(dist_fn, dev)
+            if delta != want:
+                raise AssertionError(f"{what}: launches {delta}, want {want}")
+            if local is None:
+                ref, local_delta, l_wall = _runs(local_fn, dev)
+                if local_delta != want:
+                    raise AssertionError(f"{what}: local launches "
+                                         f"{local_delta}")
+            else:
+                ref, l_wall = local
+            nccl_ms, busy_ms, seen = _comm_share(dist_fn, dev)
+            libs = {k: f"{lib[k]}:{v}" for k, v in delta.items()}
+            print(f"[phase10] {what}: distributed {d_wall:.4f}s local "
+                  f"{l_wall:.4f}s (median of 5) launches={libs} nccl "
+                  f"{nccl_ms:.3f} of {busy_ms:.3f} device ms "
+                  f"({nccl_ms / max(busy_ms, 1e-9):.1%}; the profile "
+                  f"recorded {seen} fusion kernels)", flush=True)
+            out[what] = {"dist_s": round(d_wall, 4),
+                         "local_s": round(l_wall, 4)}
+            return got, ref, l_wall
+
+        def k(name, count):
+            return {name: count if cuda else 0}
+
+        # -- dense rounds, Resnet50 x 48 on the card -----------------------
+        ws, tot = _f64_wsum(U_dev, W)
+        for name, kw in (("fedavg", {}), ("iteravg", {}),
+                         ("clippedavg", {"clip_norm": 10.0})):
+            f = get_fusion(name, **kw)
+            got, ref, _ = case(
+                f"{name} Resnet50 x {n} dense",
+                lambda f=f: flat.fuse(f, U_dev, Wt),
+                lambda f=f: local.fuse(f, U_dev, Wt),
+                k("weighted_sum", 0 if name == "clippedavg" else 1))
+            if name == "fedavg":
+                want = ws / (tot + 1e-6)
+            elif name == "iteravg":
+                want = _f64_wsum(U_dev, [1.0] * n)[0] / (n + 1e-6)
+            else:
+                norms = torch.linalg.vector_norm(U_dev.double(), dim=1)
+                scale = torch.clamp(10.0 / (norms + 1e-6), max=1.0)
+                want = _f64_wsum(U_dev, (scale.cpu() * Wt.double()).tolist()
+                                 )[0] / (tot + 1e-6)
+            err = _check_close(got.cpu().numpy(), want.cpu().numpy(), 2e-5,
+                               1e-6, f"{name} distributed vs float64")
+            # the same kernel on the same rows: bit for bit the local
+            # engine's, but ClippedAvg, whose row norms sum in another order
+            same = torch.equal(got, ref)
+            if not same and name != "clippedavg":
+                raise AssertionError(f"{name}: distributed != local")
+            print(f"[phase10] {name}: max_abs_err={err} bitwise_local={same}",
+                  flush=True)
+        trim = get_fusion("trimmedmean", beta=0.1).trim_count(n)
+        want_tm, want_med = _f64_order_stats(U_dev, trim)
+        for name, want in (("trimmedmean", want_tm),
+                           ("coordmedian", want_med)):
+            f = get_fusion(name, **({"beta": 0.1} if name == "trimmedmean"
+                                    else {}))
+            kname = "trimmed_mean" if name == "trimmedmean" \
+                else "coord_median"
+            got, ref, _ = case(f"{name} Resnet50 x {n} dense (all-to-all)",
+                            lambda f=f: flat.fuse(f, U_dev, None),
+                            lambda f=f: local.fuse(f, U_dev, None),
+                            k(kname, 1))
+            err = _check_close(got.cpu().numpy(), want.cpu().numpy(), 1e-5,
+                               1e-6, f"{name} distributed vs float64")
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{name}: distributed != local")
+            print(f"[phase10] {name}: max_abs_err={err} (== local)",
+                  flush=True)
+        del want_med
+        rows = torch.from_numpy(np.ascontiguousarray(Uc[:64])).to(dev)
+        wc = torch.from_numpy(np.ascontiguousarray(Wc[:64]))
+        for name in ("krum", "zeno", "geomedian"):
+            f = get_fusion(name)
+            got, ref, _ = case(f"{name} CNN4.6 x 64 dense (all-reduced)",
+                            lambda f=f: flat.fuse(f, rows, wc),
+                            lambda f=f: local.fuse(f, rows, wc), {})
+            err = _check_close(got.cpu().numpy(),
+                               ref.double().cpu().numpy(), 1e-4, 1e-5,
+                               f"{name} distributed vs local")
+            print(f"[phase10] {name}: max_abs_err vs local={err}", flush=True)
+        del rows
+
+        # -- streamed rounds off UpdateStore.iter_chunks, Resnet50 x 48 -----
+        store = UpdateStore()
+        for i in range(n):
+            store.write(f"client{i:05d}", U[i], weight=float(W[i]))
+        chunk = max(1, (64 << 20) // (4 * P))      # 1 row a block
+        blocks = list(store.iter_chunks(chunk))
+        qstore = UpdateStore()
+        for i, cu in enumerate(cu_rows):
+            qstore.write(f"client{i:05d}", cu, weight=float(W[i]))
+        qrow = cu_rows[0].codes.nbytes + cu_rows[0].scales.nbytes
+        qchunk = max(1, (64 << 20) // qrow)       # 2 rows a block
+        qblocks = list(qstore.iter_chunks(qchunk))
+        del store, qstore
+        want = ws / (tot + 1e-6)
+        fedavg = get_fusion("fedavg")
+        local_run = None   # the local side of both is the same stream
+        for what, eng in (("FedAvg fp32", flat), ("FedAvg fp32 hierarchical",
+                                                  hier)):
+            got, ref, l_wall = case(
+                f"{what} Resnet50 x {n} streamed, {len(blocks)} blocks",
+                lambda eng=eng: eng.fuse_stream(fedavg, iter(blocks),
+                                                chunk_rows=chunk)[0],
+                lambda: local.fuse_stream(fedavg, iter(blocks),
+                                          chunk_rows=chunk)[0],
+                k("weighted_sum", len(blocks)), local=local_run)
+            local_run = (ref, l_wall)
+            err = _check_close(got.cpu().numpy(), want.cpu().numpy(), 2e-5,
+                               1e-6, f"{what} streamed vs float64")
+            print(f"[phase10] {what} streamed: max_abs_err={err}", flush=True)
+        # dequantize-then-Eq. 1 in float64, a row at a time on the card
+        qwant = torch.zeros(P, dtype=torch.float64, device=dev)
+        for cu, wi in zip(cu_rows, W):
+            q = torch.from_numpy(cu.codes).to(dev).double()
+            sc = torch.from_numpy(cu.scales).to(dev).double()
+            qwant += float(wi) * (q.reshape(sc.shape[0], -1)
+                                  * sc[:, None]).reshape(-1)[:P]
+        qwant = qwant / (float(W.sum(dtype=np.float64)) + 1e-6)
+        got, ref, _ = case(
+            f"FedAvg int8 Resnet50 x {n} streamed, {len(qblocks)} blocks",
+            lambda: flat.fuse_stream(fedavg, iter(qblocks),
+                                     chunk_rows=qchunk)[0],
+            lambda: local.fuse_stream(fedavg, iter(qblocks),
+                                      chunk_rows=qchunk)[0],
+            k("weighted_sum_dequant", len(qblocks)))
+        err = _check_close(got.cpu().numpy(), qwant.cpu().numpy(), 2e-5,
+                           1e-6, "int8 streamed vs float64")
+        print(f"[phase10] FedAvg int8 streamed: max_abs_err={err}", flush=True)
+        tmf = get_fusion("trimmedmean", beta=0.1)
+        got, ref, _ = case(
+            f"TrimmedMean Resnet50 x {n} streamed (carve), {len(blocks)} "
+            "blocks",
+            lambda: flat.fuse_stream(tmf, iter(blocks), chunk_rows=chunk,
+                                     n_hint=n)[0],
+            lambda: local.fuse_stream(tmf, iter(blocks), chunk_rows=chunk,
+                                      n_hint=n)[0],
+            k("topk_carve", len(blocks)))
+        err = _check_close(got.cpu().numpy(), want_tm.cpu().numpy(), 1e-5,
+                           1e-6, "TrimmedMean streamed vs float64")
+        if not torch.equal(got, ref):
+            raise AssertionError("TrimmedMean streamed: distributed != local")
+        print(f"[phase10] TrimmedMean streamed: max_abs_err={err} (== local)",
+              flush=True)
+        del blocks, qblocks, U_dev, want_tm, ws, want
+
+        # -- service rounds, CNN4.6 ------------------------------------------
+        m = Uc.shape[0]
+        ids = [f"client{i:05d}" for i in range(m)]
+        store = UpdateStore()
+        for i in range(m):
+            store.write(ids[i], Uc[i], weight=float(Wc[i]))
+        svc = AggregationService(store=store, mesh=mesh)
+        plain = AggregationService(store=store, device=dev)
+        (fused, report), delta, d_wall = _runs(lambda: svc.aggregate(
+            from_store=True, expected_clients=m), dev)
+        delta = {"weighted_sum": 0, **delta}
+        print(f"[phase10] {_report_line(report)}", flush=True)
+        cw = _eq1_f64(Uc, Wc)
+        err = _check_close(fused.cpu().numpy(), cw, 2e-5, 1e-6,
+                           "mesh service store round vs float64 Eq. 1")
+        sblocks = -(-m // svc._chunk_rows(m, 4 * Uc.shape[1]))
+        if report.client_ids != tuple(ids) or not report.streamed \
+                or report.plan.n_devices != 1 \
+                or delta["weighted_sum"] != (sblocks if cuda else 0):
+            raise AssertionError(f"mesh service round: {report} {delta}")
+        _, _, l_wall = _runs(lambda: plain.aggregate(
+            from_store=True, expected_clients=m), dev)
+        nccl_ms, busy_ms, _ = _comm_share(lambda: svc.aggregate(
+            from_store=True, expected_clients=m), dev)
+        print(f"[phase10] store round CNN4.6 x {m} through "
+              f"AggregationService(mesh=): engine={report.plan.engine} (one "
+              f"device: no mesh plan) mesh service {d_wall:.4f}s plain "
+              f"service {l_wall:.4f}s (median of 5) launches=fused_fusion:"
+              f"weighted_sum:{delta['weighted_sum']} max_abs_err={err} nccl "
+              f"{nccl_ms:.3f} of {busy_ms:.3f} device ms (the membership "
+              "broadcasts)", flush=True)
+        out["service store round"] = {"dist_s": round(d_wall, 4),
+                                      "local_s": round(l_wall, 4)}
+
+        # a gamma 0.5 carry from a LocalEngine stream into the mesh engine
+        half, g = m // 2, 0.5
+        cblocks = [(Uc[i:i + 16], Wc[i:i + 16]) for i in range(0, m, 16)]
+        _, rep1 = local.fuse_stream(fedavg, iter(cblocks[:half // 16]),
+                                    chunk_rows=16)
+        init = fedavg.discount_state(rep1.acc_state, g)
+        got, ref, _ = case(
+            f"gamma {g} carry LocalEngine -> DistributedEngine, CNN4.6 x "
+            f"{half} + {m - half}",
+            lambda: flat.fuse_stream(fedavg, iter(cblocks[half // 16:]),
+                                     init=init, chunk_rows=16)[0],
+            lambda: local.fuse_stream(fedavg, iter(cblocks[half // 16:]),
+                                      init=init, chunk_rows=16)[0],
+            k("weighted_sum", len(cblocks) - half // 16))
+        a, ta = _wsum_f64(Uc[:half], Wc[:half])
+        b, tb = _wsum_f64(Uc[half:], Wc[half:])
+        err = _check_close(got.cpu().numpy(), (g * a + b) / (g * ta + tb
+                                                             + 1e-6),
+                           2e-5, 1e-6, "carried stream vs float64")
+        print(f"[phase10] carry handed over: max_abs_err={err}", flush=True)
+
+        # two async rounds through the mesh service with gamma 0.5: the
+        # second folds its rows on the first's discounted carry
+        store = UpdateStore()
+        svc = AggregationService(store=store, mesh=mesh,
+                                 staleness_discount=g, threshold_frac=1.0)
+        walls = []
+        for r, part in enumerate((slice(0, half), slice(half, m))):
+            for i in range(part.start, part.stop):
+                store.write(ids[i], Uc[i], weight=float(Wc[i]))
+            t0 = time.perf_counter()
+            fused, report = svc.aggregate(from_store=True, async_round=True,
+                                          expected_clients=half)
+            _sync(dev)
+            walls.append(time.perf_counter() - t0)
+            if report.client_ids != tuple(ids[part]) \
+                    or not report.async_round:
+                raise AssertionError(f"async round {r}: {report}")
+        err = _check_close(fused.cpu().numpy(),
+                           (g * a + b) / (g * ta + tb + 1e-6), 2e-5, 1e-6,
+                           "mesh service async carry vs float64")
+        print(f"[phase10] async rounds through AggregationService(mesh=), "
+              f"gamma {g}: walls {walls[0]:.4f}s / {walls[1]:.4f}s (one "
+              f"round each) engine={report.plan.engine} max_abs_err={err}",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    return out
+
 
 # rtol, atol. Kernel 6 and its plain version both compute in fp32 and
 # round the output once, so at bf16 / fp16 they differ by about one ulp
@@ -3551,6 +3945,8 @@ def main() -> int:
     run_phase("phase7", phase_concurrent, dev, U, W, cu_rows)
     # the Edge serving path: HTTP uploads into rounds on the card
     run_phase("phase8", phase_edge_serving, dev, U, W, Uc)
+    # the distributed engine and the mesh service over NCCL
+    run_phase("phase10", phase_distributed, dev, U, W, Uc, Wc, cu_rows)
     del U, Uc, cu_rows
     run_phase("phase4", phase_serving, dev, cases)      # a fused decoder
     run_phase("phase5", phase_hybrid_serving, dev, cases)   # fused Zamba2
@@ -3567,7 +3963,10 @@ def main() -> int:
             or any(by_phase["phase8"].get(k, 0) == 0 for k in (
                 "weighted_sum", "weighted_sum_dequant", "topk_carve")) \
             or any(by_phase["phase9"].get(k, 0) == 0 for k in (
-                "weighted_sum", "flash_attention", "flash_attention_bwd")):
+                "weighted_sum", "flash_attention", "flash_attention_bwd")) \
+            or any(by_phase["phase10"].get(k, 0) == 0 for k in (
+                "weighted_sum", "weighted_sum_dequant", "topk_carve",
+                "trimmed_mean", "coord_median")):
         raise AssertionError(f"main path never launched {missing}: "
                              f"{by_phase}")
 

@@ -1,5 +1,5 @@
 """The aggregation service: workload classes, planner, store, monitor,
-local engine, fusions, quantized transport, secure masking, and the
+local and distributed engines, fusions, quantized transport, secure masking, and the
 round schedulers.
 
 The names below are exported as ``repro.core`` exports them, loaded on
@@ -12,6 +12,7 @@ _EXPORTS = {
     "AdaptiveController": "adaptive",
     "ArrivalModel": "adaptive",
     "ClosePolicy": "adaptive",
+    "DistributedEngine": "distributed",
     "REGISTRY": "fusion",
     "FusionAlgorithm": "fusion",
     "get_fusion": "fusion",

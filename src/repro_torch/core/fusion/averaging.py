@@ -72,6 +72,7 @@ class ClippedAvg(FusionAlgorithm):
     clip_norm: float = 10.0
     name = "clippedavg"
     reducible = True
+    needs_row_norms = True   # the clip norm is over the FULL row
 
     def fuse(self, updates, weights):
         return self.combine(*self.partial(updates, weights))

@@ -55,6 +55,10 @@ class FusionAlgorithm(abc.ABC):
     reducible: bool = False
     coordinatewise: bool = False
     weighted: bool = True
+    # the fusion needs each client's FULL-row norm before its weighted sum
+    # (ClippedAvg): the distributed engine all-reduces squared row norms
+    # over the parameter shards and calls ``partial_with_norms``
+    needs_row_norms: bool = False
 
     @abc.abstractmethod
     def fuse(self, updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -69,6 +73,11 @@ class FusionAlgorithm(abc.ABC):
     def partial(self, updates: torch.Tensor, weights: torch.Tensor):
         """Local 'map' stage: returns (weighted_sum (P,), weight_sum ())."""
         raise NotImplementedError(f"{self.name} is not reducible")
+
+    def partial_with_norms(self, updates: torch.Tensor,
+                           weights: torch.Tensor, row_norms: torch.Tensor):
+        """Like ``partial`` but given the exact full-row L2 norms (n,)."""
+        raise NotImplementedError(f"{self.name} does not use row norms")
 
     def combine(self, weighted_sum: torch.Tensor, weight_sum: torch.Tensor):
         """Final 'reduce' stage after summing partials."""

@@ -79,6 +79,22 @@ def _host_weights(w) -> torch.Tensor:
     return torch.tensor(np.asarray(host_array(w), np.float32))
 
 
+def _block_weights(fusion, w, scale, rows: int, width: int) -> torch.Tensor:
+    """The block's (width,) fp32 fold weights on the host: effective
+    weights, times the per-row scale, and zero on padded rows; for an
+    order-statistic fold, 1 on each real row (validity only)."""
+    wt = torch.zeros((width,), dtype=torch.float32)
+    if not fusion.weighted:
+        wt[:rows] = 1.0
+        return wt
+    wt[:rows] = _host_weights(w)[:rows]
+    wt = fusion.effective_weights(wt).clone()
+    if scale is not None:
+        wt[:rows] *= torch.tensor(np.asarray(scale, np.float32)[:rows])
+    wt[rows:] = 0.0   # effective_weights may remap pads
+    return wt
+
+
 def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     out = torch.zeros((rows,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
@@ -299,7 +315,7 @@ class LocalEngine:
                 rep.compile_seconds = compile_total
                 self.last_compile_seconds = compile_total
             pad = self.strategy == "torch" and rows < chunk
-            wt = self._block_weights(fusion, w, scale, rows,
+            wt = _block_weights(fusion, w, scale, rows,
                                      chunk if pad else rows)
             t0 = time.perf_counter()
             with sem:
@@ -334,22 +350,6 @@ class LocalEngine:
             synchronize(dev)
         rep.compute_seconds += time.perf_counter() - t0
         return fused, rep
-
-    @staticmethod
-    def _block_weights(fusion, w, scale, rows: int, width: int) -> torch.Tensor:
-        """The block's (width,) fp32 fold weights on the host: effective
-        weights, times the per-row scale, and zero on padded rows; for
-        an order-statistic fold, 1 on each real row (validity only)."""
-        wt = torch.zeros((width,), dtype=torch.float32)
-        if not fusion.weighted:
-            wt[:rows] = 1.0
-            return wt
-        wt[:rows] = _host_weights(w)[:rows]
-        wt = fusion.effective_weights(wt).clone()
-        if scale is not None:
-            wt[:rows] *= torch.tensor(np.asarray(scale, np.float32)[:rows])
-        wt[rows:] = 0.0   # effective_weights may remap pads
-        return wt
 
     def _stream_state(self, fusion, dim, n_hint, init):
         """Fresh (or carried) reducer state as a tuple of device tensors.

@@ -13,8 +13,12 @@ plan's time as
   compile — the step build a cold engine pays before any byte moves,
 
 and reports it as a feasible plan when S fits device memory or the fusion
-streams. The distributed and hierarchical plans of ``repro.core.planner``
-wait for the port of the distributed engine.
+streams. Over a mesh of ``n_devices`` cards (``n_pods`` of them pods) it
+adds the reference's mesh plan, ``"distributed"`` or, with more than one
+pod, ``"hierarchical"``: each card ingests and reads S / d, plus the
+collective (the partials' all-reduce, the shuffle's all-to-all, or the
+Gram / score reductions) over NVLink at ``hw.nvlink_bw``, where the
+reference prices ICI links, and a fixed ``dispatch_overhead``.
 
 Beyond engine choice the planner owns the round-timing economics, as in
 ``repro.core.planner``: ``overlap_estimate`` / ``prefer_async`` cost the
@@ -43,18 +47,24 @@ H2D_BYTES_PER_S = 6.5e9
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    engine: str               # "local"
+    engine: str               # "local" | "distributed" | "hierarchical"
     workload_class: WorkloadClass
     est_seconds: float
     breakdown: Dict[str, float]
     feasible: bool
     reason: str = ""
+    n_devices: int = 1
 
 
 @dataclasses.dataclass
 class Planner:
     hw: HardwareSpec = H100_SXM
+    n_devices: int = 1
+    n_pods: int = 1
     store_bw: float = H2D_BYTES_PER_S
+    # fixed cost of going distributed: dispatch and the collectives'
+    # launch latencies
+    dispatch_overhead: float = 5e-3
     # reuse term: an engine without a built step for this round's shape
     # pays the build (and, on the first kernel round, the nvcc build of
     # the library) before any byte moves, so warm engines cost less
@@ -66,13 +76,14 @@ class Planner:
     def candidate_plans(self, load: Workload, fusion: FusionAlgorithm,
                         warm_engines: Collection[str] = ()) -> List[Plan]:
         s = float(load.total_bytes)
+        wl = classify(load, self.hw)
         hbm_cap = self.hw.hbm_bytes * HBM_HEADROOM
         mem_t = s / self.hw.hbm_bw
         passes = 1.0 if fusion.reducible else 2.0
         compile_t = 0.0 if "local" in warm_engines else self.compile_overhead
-        return [Plan(
+        plans = [Plan(
             engine="local",
-            workload_class=classify(load, self.hw),
+            workload_class=wl,
             est_seconds=s / self.store_bw + passes * mem_t + compile_t,
             breakdown={
                 "ingest": s / self.store_bw,
@@ -85,6 +96,50 @@ class Planner:
             feasible=s <= hbm_cap or fusion.streamable,
             reason="streams client chunks" if s > hbm_cap else "fits HBM",
         )]
+        if self.n_devices > 1:
+            plans.append(self._mesh_plan(load, fusion, wl, hbm_cap,
+                                         warm_engines))
+        return plans
+
+    def _mesh_plan(self, load: Workload, fusion: FusionAlgorithm,
+                   wl: WorkloadClass, hbm_cap: float,
+                   warm_engines: Collection[str]) -> Plan:
+        """The reference's mesh plan, with NVLink for the collectives."""
+        s = float(load.total_bytes)
+        p_bytes = float(load.update_bytes)
+        d = self.n_devices
+        per_dev = s / d
+        # a streamable fusion streams store partitions through each card,
+        # so only its working set has to fit
+        working_set = p_bytes / d if fusion.streamable else per_dev
+        link = self.hw.nvlink_bw
+        if fusion.reducible:
+            # ring all-reduce of the fp32 partials over the client axes
+            coll = 2.0 * p_bytes / max(d, 1) / link * 4
+        elif fusion.coordinatewise:
+            coll = per_dev / link   # the all-to-all moves ~1/d of a shard
+        else:
+            coll = p_bytes / link   # Gram / score reductions
+        name = "hierarchical" if self.n_pods > 1 else "distributed"
+        compile_t = 0.0 if name in warm_engines else self.compile_overhead
+        return Plan(
+            engine=name,
+            workload_class=wl,
+            est_seconds=per_dev / self.store_bw + per_dev / self.hw.hbm_bw
+            + coll + self.dispatch_overhead + compile_t,
+            breakdown={
+                "ingest": per_dev / self.store_bw,
+                "memory": per_dev / self.hw.hbm_bw,
+                "compute": 2 * load.num_params * load.n_clients
+                / (d * self.hw.peak_flops_bf16),
+                "collective": coll,
+                "compile": compile_t,
+            },
+            feasible=working_set <= hbm_cap,
+            reason=f"shards S over {d} cards"
+            + (" (streamed from store)" if per_dev > hbm_cap else ""),
+            n_devices=d,
+        )
 
     # -- async overlap costing (Algorithm 1, straggler wait) -----------------
     def overlap_estimate(

@@ -56,8 +56,19 @@ SECURE AGGREGATION: ``secure=SecureMasking(...)`` declares that clients
 write pairwise-masked updates; the masks cancel only under a plain sum,
 so it needs a sum-reducible fusion.
 
-Not yet ported (raises ``NotImplementedError`` naming its ROADMAP item):
-the distributed engines over a mesh.
+MESH ROUNDS (``mesh=`` a ``torch.distributed`` ``DeviceMesh``, see
+``repro_torch.launch.mesh``): the service adds the distributed engine,
+and the hierarchical one when the mesh has a "pod" dim, and the planner
+costs them beside the local engine, as ``repro.core.service`` does. The
+reference is one controller; here every rank of the mesh runs the
+service (SPMD), and ranks that disagreed on a round's rows would call
+different collectives and hang. So the mesh's first rank alone decides
+each round — the monitor's close, the plan, which client ids each block
+folds, the staleness scales — and broadcasts it; the other ranks fold
+exactly those rows, reading them from the spool they share with it
+(the disk backend; ``UpdateStore.read_spooled``), and every rank returns
+the same fused vector. Only the first rank consumes folded updates.
+Rounds on a mesh run one at a time, in the same order on every rank.
 """
 from __future__ import annotations
 
@@ -78,10 +89,12 @@ from repro_torch.checkpoint import (
 from repro_torch.core.adaptive import AdaptiveController, ClosePolicy
 from repro_torch.core.compress import (
     BLOCK,
+    CompressedBlock,
     CompressedUpdate,
     ErrorFeedbackCompressor,
     compressed_bytes,
 )
+from repro_torch.core.distributed import DistributedEngine
 from repro_torch.core.fusion import FusionAlgorithm, get_fusion
 from repro_torch.core.local import LocalEngine
 from repro_torch.core.monitor import Monitor, MonitorResult
@@ -100,11 +113,16 @@ from repro_torch.utils.pytree import (
 PyTree = Any
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to repro_torch (ROADMAP, modules to "
-        f"port, item {item})"
-    )
+def _stack_rows(rows) -> object:
+    """Updates read from the spool, stacked as ``iter_chunks`` stacks a
+    homogeneous block: a (c, P) array or a ``CompressedBlock``."""
+    if isinstance(rows[0], CompressedUpdate):
+        return CompressedBlock(
+            codes=np.stack([r.codes for r in rows]),
+            scales=np.stack([r.scales for r in rows]),
+            dim=rows[0].dim,
+        )
+    return np.stack(rows)
 
 
 # Monitor threshold sentinel: no client count can close the gate — the
@@ -141,10 +159,14 @@ class RoundReport:
     # scales on compressed rounds, the dense matrix bytes otherwise
     bytes_ingested: int = 0
     notes: Tuple[str, ...] = ()
+    # store rounds: the client ids folded, in fold order (on a mesh as
+    # its first rank decided them, the same on every rank)
+    client_ids: Tuple[str, ...] = ()
 
 
 class AggregationService:
-    """Aggregation rounds on one GPU (or the CPU on request)."""
+    """Aggregation rounds on one GPU (or the CPU on request), or over a
+    device mesh, one process per device."""
 
     def __init__(
         self,
@@ -195,13 +217,28 @@ class AggregationService:
           secure: a ``repro_torch.core.secure.SecureMasking`` declaring
             that clients write pairwise-masked updates; needs a
             sum-reducible fusion (``ValueError`` otherwise).
-          mesh: not yet ported; raises ``NotImplementedError``.
+          mesh: a ``DeviceMesh`` over the ranks of an initialized
+            process group — adds the distributed engine (and, with a
+            "pod" dim, the hierarchical one). Every rank of the mesh
+            constructs the service and calls ``aggregate`` alike; the
+            device then defaults to the rank's card, and store rounds
+            need a disk spool the ranks share.
         """
-        if mesh is not None:
-            raise _not_ported("the distributed engine over a mesh", "8")
         if staleness_discount is not None and not 0 < staleness_discount <= 1:
             raise ValueError("staleness_discount must be in (0, 1] or None")
         self.staleness_discount = staleness_discount
+        self.mesh = mesh
+        self.distributed: Optional[DistributedEngine] = None
+        self.hierarchical: Optional[DistributedEngine] = None
+        n_dev, n_pods = 1, 1
+        if mesh is not None:
+            self.distributed = DistributedEngine(mesh=mesh, device=device)
+            device = self.distributed.device
+            sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+            if "pod" in sizes:
+                self.hierarchical = DistributedEngine(
+                    mesh=mesh, hierarchical=True, device=device)
+            n_dev, n_pods = int(mesh.size()), int(sizes.get("pod", 1))
         self.device = resolve_device(device)
         self.fusion = (
             get_fusion(fusion) if isinstance(fusion, str) else fusion
@@ -233,7 +270,7 @@ class AggregationService:
             strategy=local_strategy, memory_cap_bytes=memory_cap_bytes,
             device=self.device,
         )
-        self.planner = Planner(hw=self.hw)
+        self.planner = Planner(hw=self.hw, n_devices=n_dev, n_pods=n_pods)
         if not 0 <= cost_bias <= 1:
             raise ValueError("cost_bias must be in [0, 1]")
         self.cost_bias = cost_bias
@@ -346,13 +383,28 @@ class AggregationService:
         """Engines holding a built step for this round's shape — dense
         keys, or (with ``chunk_rows``) the streamed step keys."""
         fusion = fusion if fusion is not None else self.fusion
-        if chunk_rows is not None:
-            warm = self.local.is_warm_stream(
-                fusion, chunk_rows, p, dtype,
-                block=self.compress_block or BLOCK, n_hint=n_hint)
-        else:
-            warm = self.local.is_warm(fusion, n, p, dtype)
-        return {"local"} if warm else set()
+        engines = [("local", self.local), ("distributed", self.distributed),
+                   ("hierarchical", self.hierarchical)]
+        warm = set()
+        for name, engine in engines:
+            if engine is None:
+                continue
+            if chunk_rows is not None:
+                hit = engine.is_warm_stream(
+                    fusion, chunk_rows, p, dtype,
+                    block=self.compress_block or BLOCK, n_hint=n_hint)
+            else:
+                hit = engine.is_warm(fusion, n, p, dtype)
+            if hit:
+                warm.add(name)
+        return warm
+
+    def _stream_engine(self, name: str):
+        if name == "hierarchical" and self.hierarchical is not None:
+            return self.hierarchical
+        if name == "distributed" and self.distributed is not None:
+            return self.distributed
+        return self.local
 
     def _round_lock(self, tenant: str) -> threading.Lock:
         """The tenant's round-serialization lock (created on first use)."""
@@ -452,124 +504,41 @@ class AggregationService:
                     "fusions"
                 )
             fusion = fusion.with_val_grad(val_grad)
-        dev = self.device
-        monitor_result = None
-        phase: Dict[str, float] = {}
-        notes: Tuple[str, ...] = ()
-        policy = arrivals = t_round_store = None
-        expected = expected_clients
-
         if from_store:
-            expected = expected_clients or self.store.count(tenant)
-            use_async = self._resolve_async(
-                async_round, expected, tenant, fusion=fusion,
-            )
-            threshold = max(int(expected * self.threshold_frac), 1)
-            timeout = self.monitor_timeout
-            if self.controller is not None and expected > 0:
-                # the adaptive gate: the tenant's learned threshold and
-                # deadline (static until its arrival curve has history)
-                policy = self.controller.policy(tenant, expected)
-                threshold, timeout = policy.threshold, policy.deadline
-            if use_async and expected == 0:
-                # async rounds start before any arrival; with no expected
-                # count a threshold of 1 would close on the first client,
-                # so the timeout alone gates (monitor.ready stays False)
-                threshold = _TIMEOUT_GATED
-                policy = None
-            monitor = Monitor(
-                self.store,
-                threshold=threshold,
-                timeout=timeout,
-                poll_interval=self.poll_interval,
-                clock=self.clock, sleep=self.sleep,
-                policy=policy,
-                tenant=tenant,
-            )
-            t_round = self.clock()
-            # arrival offsets are taken on the STORE's clock (the
-            # timestamps' timebase), which may differ from the service's
-            # under injected test clocks
-            t_round_store = self.store.clock()
-            if use_async:
-                return self._aggregate_async(
-                    monitor, expected, template, tenant, t_round, policy,
-                    t_round_store, fusion=fusion,
-                )
-            monitor_result = monitor.wait()
-            # arrival snapshot at close — the controller's training
-            # signal; later stragglers belong to the next round's curve
-            arrivals = self.store.arrival_times(tenant)
-            if self.store.count(tenant) == 0:
-                return self._empty_round(monitor_result, tenant=tenant,
-                                         expected=expected)
-            n, p, dtype = self.store.meta(tenant)
-            row_bytes = self._row_bytes(p, dtype)
-            chunk_rows = self._chunk_rows(n, row_bytes)
-            load = Workload(
-                update_bytes=row_bytes, n_clients=n,
-                dtype_bytes=dtype.itemsize, params=p,
-            )
-            n_hint = max(n, expected or 0, 1)
-            can_stream, stream_note = self._stream_mode(fusion, p, n_hint)
-            notes = (stream_note,) if stream_note else ()
-            plan = self.planner.plan(
-                load, fusion,
-                warm_engines=self._warm_engines(
-                    n, p, dtype,
-                    chunk_rows=chunk_rows if can_stream else None,
-                    fusion=fusion,
-                    n_hint=n_hint if can_stream else None,
-                ),
-            )
-            if can_stream:
-                t0 = time.perf_counter()
-                fused, srep = self.local.fuse_stream(
-                    fusion,
-                    self.store.iter_chunks(chunk_rows, tenant=tenant),
-                    chunk_rows=chunk_rows,
-                    device_sem=self.device_sem,
-                    n_hint=n_hint,
-                )
-                dt = time.perf_counter() - t0
-                phase = {
-                    "ingest": srep.ingest_seconds,
-                    "compile": srep.compile_seconds,
-                    "compute": srep.compute_seconds,
-                }
-                return self._finish(
-                    fused, template, plan, n, load, dt, monitor_result,
-                    expected_clients, True, phase, tenant=tenant,
-                    policy=policy, t_round=t_round_store, expected=expected,
-                    arrivals=arrivals, ingest_bytes=srep.ingest_bytes,
-                    fusion=fusion, notes=notes,
-                )
-            t0 = time.perf_counter()
-            raw, w = self.store.read_stacked(tenant)
+            return self._store_round(fusion, expected_clients, async_round,
+                                     tenant, template)
+        if updates is None or len(updates) == 0:
+            raise ValueError("an in-memory round needs updates")
+        t0 = time.perf_counter()
+        flat = [
+            u if getattr(u, "ndim", None) == 1
+            else tree_to_flat_vector(u)
+            for u in updates
+        ]
+        if all(isinstance(f, torch.Tensor) for f in flat):
+            raw = torch.stack([f.to(flat[0].device) for f in flat])
         else:
-            if updates is None or len(updates) == 0:
-                raise ValueError("an in-memory round needs updates")
-            t0 = time.perf_counter()
-            flat = [
-                u if getattr(u, "ndim", None) == 1
-                else tree_to_flat_vector(u)
-                for u in updates
-            ]
-            if all(isinstance(f, torch.Tensor) for f in flat):
-                raw = torch.stack([f.to(flat[0].device) for f in flat])
-            else:
-                raw = np.stack([host_array(f) for f in flat])
-            w = (
-                np.asarray(host_array(weights), np.float32)
-                if weights is not None
-                else np.ones((len(flat),), np.float32)
-            )
+            raw = np.stack([host_array(f) for f in flat])
+        w = (
+            np.asarray(host_array(weights), np.float32)
+            if weights is not None
+            else np.ones((len(flat),), np.float32)
+        )
         # ingest ends with the rows staged on the host; their copy to
         # the device is timed in compute, as the reference times it
-        phase["ingest"] = time.perf_counter() - t0
+        phase = {"ingest": time.perf_counter() - t0}
+        return self._dense_round(fusion, raw, w, template, phase, None,
+                                 expected_clients, tenant)
 
-        # dense path (in-memory round, or a store round that can't
-        # stream): one plan against the materialized matrix
+    def _dense_round(
+        self, fusion, raw, w, template, phase, monitor_result,
+        expected_clients, tenant, policy=None, t_round=None, expected=None,
+        arrivals=None, notes: Tuple[str, ...] = (),
+        client_ids: Tuple[str, ...] = (),
+    ) -> Tuple[PyTree, RoundReport]:
+        """The dense path (in-memory round, or a store round that can't
+        stream): one plan against the materialized matrix — on a mesh,
+        the first rank's plan — then one fuse."""
         n, p = raw.shape
         raw_dtype = host_dtype(raw)
         load = Workload(update_bytes=p * raw_dtype.itemsize, n_clients=n,
@@ -578,23 +547,44 @@ class AggregationService:
             load, fusion,
             warm_engines=self._warm_engines(n, p, raw_dtype, fusion=fusion),
         )
+        if self.distributed is not None:
+            plan = self.distributed.broadcast(plan)
         t0 = time.perf_counter()
-        stacked = updates_to_device(raw, dev)   # one copy to the device
-        # the engine holds the semaphore around execution only, so a cold
-        # build (outside it, single-flight) never stalls other folds
-        fused = self.local.fuse(fusion, stacked, w,
-                                device_sem=self.device_sem)
-        phase["compile"] = self.local.last_compile_seconds
-        synchronize(dev)
+        fused, phase["compile"] = self._fuse_dense(plan, fusion, raw, w)
+        synchronize(self.device)
         dt = time.perf_counter() - t0
         phase["compute"] = dt - phase["compile"]
         return self._finish(
             fused, template, plan, n, load, dt, monitor_result,
             expected_clients, False, phase, tenant=tenant,
-            policy=policy, t_round=t_round_store, expected=expected,
+            policy=policy, t_round=t_round, expected=expected,
             arrivals=arrivals, ingest_bytes=n * p * raw_dtype.itemsize,
-            fusion=fusion, notes=notes,
+            fusion=fusion, notes=notes, client_ids=client_ids,
         )
+
+    def _fuse_dense(self, plan: Plan, fusion, raw, w):
+        """(fused, build seconds) of a dense round on the plan's engine."""
+        if plan.engine == "local":
+            stacked = updates_to_device(raw, self.device)  # one copy
+            # the engine holds the semaphore around execution only, so a
+            # cold build (outside it, single-flight) never stalls others
+            fused = self.local.fuse(fusion, stacked, w,
+                                    device_sem=self.device_sem)
+            return fused, self.local.last_compile_seconds
+        if plan.engine == "hierarchical" and self.hierarchical is not None:
+            engine = self.hierarchical
+        else:
+            assert self.distributed is not None, (
+                "planner chose the distributed engine but no mesh was given"
+            )
+            engine = self.distributed
+        # each rank copies only its shard to its device; the mesh engines
+        # build inside their fuse paths, so a cold dense mesh round holds
+        # the semaphore through its build
+        with self.device_sem:
+            fused = engine.fuse(fusion, raw, w)
+            synchronize(self.device)  # lint: disable=sync-under-sem -- deliberate: the permit must cover device EXECUTION, not just dispatch, or device_concurrency would not bound real device work
+        return fused, engine.last_compile_seconds
 
     # -- async (monitor-overlapped) rounds ------------------------------------
     def _resolve_async(
@@ -649,63 +639,196 @@ class AggregationService:
             load, fusion, expected_wait, warm_engines=warm,
         )
 
-    def _aggregate_async(
-        self, monitor: Monitor, expected: int, template,
-        tenant: str = DEFAULT_TENANT, t_round: Optional[float] = None,
-        policy: Optional[ClosePolicy] = None,
-        t_round_store: Optional[float] = None,
-        fusion: Optional[FusionAlgorithm] = None,
+    # -- store rounds: decide, then fold (on a mesh: the first rank decides) --
+    def _store_round(
+        self, fusion: FusionAlgorithm, expected_clients: Optional[int],
+        async_round: bool | str, tenant: str, template,
     ) -> Tuple[PyTree, RoundReport]:
-        """Arrival-driven round: fuse while stragglers write. The gate
-        closes the stream; folded updates are consumed from the tenant's
-        partition; stragglers that miss the close age into the tenant's
-        next round."""
-        fusion = fusion if fusion is not None else self.fusion
-        if t_round is None:
-            t_round = monitor.clock()
-        if t_round_store is None:
-            t_round_store = self.store.clock()
-        # learn (P, dtype) from the first arrival — or time out empty
-        while True:
-            count = self.store.count(tenant)
-            waited = monitor.clock() - t_round
-            if count > 0 or monitor.should_close(count, waited):
-                break
-            self.store.wait_for_arrival(monitor.poll_interval,
-                                        monitor.sleep)
-        if self.store.count(tenant) == 0:
-            mr = monitor.result(0, monitor.clock() - t_round)
+        """A store round: ``_decide_round`` gates and plans it, then the
+        plan's engine folds the decided blocks. On a mesh only the first
+        rank decides; the decision reaches the others by broadcast."""
+        eng = self.distributed
+        monitor = decision = None
+        if eng is None or eng.is_root:
+            monitor, decision = self._decide_round(
+                fusion, expected_clients, async_round, tenant)
+        if eng is not None:
+            decision = eng.broadcast(decision)
+        if decision["kind"] == "empty":
             return self._empty_round(
-                mr, async_round=True, tenant=tenant, expected=expected,
+                decision["monitor"], async_round=decision["async"],
+                tenant=tenant, expected=decision["expected"],
             )
-        n_now, p, dtype = self.store.meta(tenant)
-        row_bytes = self._row_bytes(p, dtype)
-        n_proj = max(expected, n_now, 1)
-        chunk_rows = self._chunk_rows(n_proj, row_bytes)
-        load = Workload(
-            update_bytes=row_bytes, n_clients=n_proj,
-            dtype_bytes=dtype.itemsize, params=p,
+        if decision["kind"] == "async":
+            return self._async_round(fusion, decision, monitor, tenant,
+                                     template)
+        return self._sync_round(fusion, decision, expected_clients, tenant,
+                                template)
+
+    def _decide_round(self, fusion, expected_clients, async_round, tenant):
+        """(monitor, decision): the gate; for a synchronous round the wait,
+        the stream-or-dense choice, the chunking and the plan; for an
+        async round the wait for the first arrival and the plan."""
+        expected = expected_clients or self.store.count(tenant)
+        use_async = self._resolve_async(async_round, expected, tenant,
+                                        fusion=fusion)
+        threshold = max(int(expected * self.threshold_frac), 1)
+        timeout = self.monitor_timeout
+        policy = None
+        if self.controller is not None and expected > 0:
+            # the adaptive gate: the tenant's learned threshold and
+            # deadline (static until its arrival curve has history)
+            policy = self.controller.policy(tenant, expected)
+            threshold, timeout = policy.threshold, policy.deadline
+        if use_async and expected == 0:
+            # async rounds start before any arrival; with no expected
+            # count a threshold of 1 would close on the first client, so
+            # the timeout alone gates (monitor.ready stays False)
+            threshold = _TIMEOUT_GATED
+            policy = None
+        monitor = Monitor(
+            self.store, threshold=threshold, timeout=timeout,
+            poll_interval=self.poll_interval, clock=self.clock,
+            sleep=self.sleep, policy=policy, tenant=tenant,
         )
+        t_round = self.clock()
+        # arrival offsets are taken on the STORE's clock (the timestamps'
+        # timebase), which may differ from the service's under injected
+        # test clocks
+        base = {"expected": expected, "policy": policy, "async": use_async,
+                "t_round": t_round, "t_round_store": self.store.clock()}
+        if use_async:
+            while True:   # learn (P, dtype) from the first arrival
+                count = self.store.count(tenant)
+                if count > 0 or monitor.should_close(
+                        count, monitor.clock() - t_round):
+                    break
+                self.store.wait_for_arrival(monitor.poll_interval,
+                                            monitor.sleep)
+            if self.store.count(tenant) == 0:
+                return monitor, dict(base, kind="empty", monitor=monitor
+                                     .result(0, monitor.clock() - t_round))
+            n_now, p, dtype = self.store.meta(tenant)
+            n = max(expected, n_now, 1)
+            can_stream, notes = True, ()
+        else:
+            base["monitor"] = monitor.wait()
+            # arrival snapshot at close — the controller's training
+            # signal; later stragglers belong to the next round's curve
+            base["arrivals"] = self.store.arrival_times(tenant)
+            if self.store.count(tenant) == 0:
+                return monitor, dict(base, kind="empty")
+            n, p, dtype = self.store.meta(tenant)
+            can_stream, note = self._stream_mode(
+                fusion, p, max(n, expected or 0, 1))
+            notes = (note,) if note else ()
+        row_bytes = self._row_bytes(p, dtype)
+        chunk_rows = self._chunk_rows(n, row_bytes)
+        n_hint = max(n, expected or 0, 1)
+        load = Workload(update_bytes=row_bytes, n_clients=n,
+                        dtype_bytes=dtype.itemsize, params=p)
         plan = self.planner.plan(
             load, fusion,
             warm_engines=self._warm_engines(
-                n_proj, p, dtype, chunk_rows=chunk_rows,
-                fusion=fusion, n_hint=n_proj,
+                n, p, dtype, chunk_rows=chunk_rows if can_stream else None,
+                fusion=fusion, n_hint=n_hint if can_stream else None,
             ),
         )
+        return monitor, dict(
+            base, kind="async" if use_async else "sync", n=n, load=load,
+            chunk_rows=chunk_rows, n_hint=n_hint, can_stream=can_stream,
+            notes=notes, plan=plan,
+        )
 
-        closed_at: Dict[str, float] = {}
+    def _relay(self, source, tenant: str, folded: List[str], end: Dict,
+               end_fn=None):
+        """A round's blocks, ``(payload, w[, scale])``, drawn from
+        ``source``'s ``(payload, w, ids, scale)``; ``folded`` gets the ids
+        in order and ``end`` what ``end_fn()`` returns once the blocks are
+        done. On a mesh the first rank draws them and broadcasts each
+        block's ids, weights and scales, and ``end``; the other ranks
+        (``source`` None) read the same rows from the shared spool."""
+        eng = self.distributed
+        if eng is None or eng.is_root:
+            for payload, w, ids, scale in source:
+                if eng is not None:
+                    eng.broadcast(("block", list(ids),
+                                   np.asarray(w, np.float32), scale))
+                folded.extend(ids)
+                yield (payload, w) if scale is None else (payload, w, scale)
+            info = end_fn() if end_fn is not None else {}
+            end.update(eng.broadcast(("end", info))[1] if eng is not None
+                       else info)
+            return
+        while True:
+            msg = eng.broadcast(None)
+            if msg[0] == "end":
+                end.update(msg[1])
+                return
+            _, ids, w, scale = msg
+            folded.extend(ids)
+            payload = _stack_rows(
+                [self.store.read_spooled(cid, tenant) for cid in ids])
+            yield (payload, w) if scale is None else (payload, w, scale)
 
-        def should_close(count: int, _stream_waited: float) -> bool:
-            # waited is measured from ROUND start: the pre-first-arrival
-            # poll above is part of the same monitor window
-            waited = monitor.clock() - t_round
-            done = monitor.should_close(count, waited)
-            if done and "waited" not in closed_at:
-                closed_at["count"] = count
-                closed_at["waited"] = waited
-            return done
+    def _sync_round(self, fusion, d, expected_clients, tenant, template):
+        """A synchronous store round: the plan's engine streams the
+        snapshot's blocks, or the dense path fuses them stacked."""
+        plan, n, load = d["plan"], d["n"], d["load"]
+        folded: List[str] = []
+        source = None
+        if self.distributed is None or self.distributed.is_root:
+            # zero-materialization pipeline: (chunk, P) blocks flow from
+            # the store into the engine; the dense path stacks one block
+            # a payload kind (as ``read_stacked``)
+            rows = d["chunk_rows"] if d["can_stream"] else 1 << 62
+            source = ((payload, w, ids, None) for payload, w, ids
+                      in self.store.iter_chunk_ids(
+                          rows, prefetch=d["can_stream"], tenant=tenant))
+        blocks = self._relay(source, tenant, folded, {})
+        common = dict(tenant=tenant, policy=d["policy"],
+                      t_round=d["t_round_store"], expected=d["expected"],
+                      arrivals=d["arrivals"], notes=d["notes"])
+        if not d["can_stream"]:
+            t0 = time.perf_counter()
+            ups, ws = [], []
+            for block, w in blocks:
+                if isinstance(block, CompressedBlock):
+                    block = block.dequantize()
+                ups.append(block)
+                ws.append(w)
+            phase = {"ingest": time.perf_counter() - t0}
+            return self._dense_round(
+                fusion, np.concatenate(ups), np.concatenate(ws), template,
+                phase, d["monitor"], expected_clients,
+                client_ids=tuple(folded), **common)
+        engine = self._stream_engine(plan.engine)
+        t0 = time.perf_counter()
+        fused, srep = engine.fuse_stream(
+            fusion, blocks, chunk_rows=d["chunk_rows"],
+            device_sem=self.device_sem, n_hint=d["n_hint"],
+        )
+        dt = time.perf_counter() - t0
+        phase = {
+            "ingest": srep.ingest_seconds,
+            "compile": srep.compile_seconds,
+            "compute": srep.compute_seconds,
+        }
+        return self._finish(
+            fused, template, plan, n, load, dt, d["monitor"],
+            expected_clients, True, phase, ingest_bytes=srep.ingest_bytes,
+            fusion=fusion, client_ids=tuple(folded), **common,
+        )
 
+    def _async_round(self, fusion, d, monitor, tenant, template):
+        """Arrival-driven round: fuse while stragglers write. The gate
+        closes the stream; folded updates are consumed from the tenant's
+        partition; stragglers that miss the close age into the tenant's
+        next round. On a mesh the first rank streams the arrivals, with
+        their staleness scales, and consumes; the carry stays on every
+        rank."""
+        plan, load, chunk_rows = d["plan"], d["load"], d["chunk_rows"]
+        engine = self._stream_engine(plan.engine)
         gamma = self.staleness_discount
         # the maps are shared across tenant round threads; the tenant's
         # round lock keeps this tenant's entries still for the round
@@ -713,77 +836,97 @@ class AggregationService:
             ages = self._stale_ages.get(tenant, {})
             carry = self._carry.get(tenant)
         folded: List[str] = []
-        folded_versions: Dict[str, int] = {}
-        io_stats: Dict[str, float] = {}
+        end: Dict[str, Any] = {}
+        source = end_fn = None
+        versions: Dict[str, int] = {}
+        lead = self.distributed is None or self.distributed.is_root
+        if lead:
+            t_round = d["t_round"]
+            closed_at: Dict[str, float] = {}
+            io_stats: Dict[str, float] = {}
 
-        def blocks():
-            for block, w, ids in self.store.iter_arrivals(
-                chunk_rows, should_close,
-                poll_interval=monitor.poll_interval,
-                clock=monitor.clock, sleep=monitor.sleep,
-                versions_out=folded_versions, stats_out=io_stats,
-                tenant=tenant,
-            ):
-                folded.extend(ids)
-                if gamma is not None and ages:
-                    scale = np.asarray(
-                        [gamma ** ages.get(cid, 0) for cid in ids],
-                        np.float32,
-                    )
-                    yield block, w, scale
-                else:
-                    yield block, w
+            def should_close(count: int, _stream_waited: float) -> bool:
+                # waited is measured from ROUND start: the pre-first-
+                # arrival poll is part of the same monitor window
+                waited = monitor.clock() - t_round
+                done = monitor.should_close(count, waited)
+                if done and "waited" not in closed_at:
+                    closed_at["count"] = count
+                    closed_at["waited"] = waited
+                return done
 
+            def arrivals():
+                for block, w, ids in self.store.iter_arrivals(
+                    chunk_rows, should_close,
+                    poll_interval=monitor.poll_interval,
+                    clock=monitor.clock, sleep=monitor.sleep,
+                    versions_out=versions, stats_out=io_stats,
+                    tenant=tenant,
+                ):
+                    scale = None
+                    if gamma is not None and ages:
+                        scale = np.asarray(
+                            [gamma ** ages.get(cid, 0) for cid in ids],
+                            np.float32)
+                    yield block, w, ids, scale
+
+            def end_fn():
+                waited = closed_at.get("waited", 0.0)
+                return {
+                    "overlap": waited,
+                    "monitor": monitor.result(
+                        int(closed_at.get("count", len(folded))), waited),
+                    # the arrival snapshot BEFORE the consume drops
+                    # timestamps
+                    "arrivals": self.store.arrival_times(tenant),
+                    # the engine's ingest clock times next(it), here
+                    # mostly the idle poll: report the block staging I/O
+                    # (the wait itself is the overlap phase)
+                    "load_seconds": io_stats.get("load_seconds", 0.0),
+                }
+
+            source = arrivals()
         # the discounted carry is a new tensor on the device, and
         # fuse_stream copies it again, so no fold writes into _carry
         init = None
         if gamma is not None and carry is not None:
             init = fusion.discount_state(carry, gamma)
         t0 = time.perf_counter()
-        fused, srep = self.local.fuse_stream(
-            fusion, blocks(), init=init, chunk_rows=chunk_rows,
-            device_sem=self.device_sem, n_hint=n_proj,
+        fused, srep = engine.fuse_stream(
+            fusion, self._relay(source, tenant, folded, end, end_fn),
+            init=init, chunk_rows=chunk_rows, device_sem=self.device_sem,
+            n_hint=d["n"],
         )
         dt = time.perf_counter() - t0
-
-        # arrival snapshot BEFORE the consume drops timestamps
-        arrivals = self.store.arrival_times(tenant)
-        # queue semantics: what was folded is consumed (version-checked —
-        # an update re-written mid-round survives for the next round);
-        # what raced past the close stays, one round staler
-        self.store.remove(folded, versions=folded_versions, tenant=tenant)
-        # the next-age map is built BEFORE taking the state lock:
-        # client_ids() takes the store lock, and the declared order
-        # (state inner-most) forbids acquiring it under _state_lock
-        next_ages = {
-            cid: ages.get(cid, 0) + 1
-            for cid in self.store.client_ids(tenant)
-        }
+        next_ages: Dict[str, int] = {}
+        if lead:
+            # queue semantics: what was folded is consumed (version-
+            # checked — an update re-written mid-round survives for the
+            # next round); what raced past the close stays, one round
+            # staler. The next-age map is built BEFORE taking the state
+            # lock: client_ids() takes the store lock, and the declared
+            # order (state inner-most) forbids acquiring it under
+            # _state_lock
+            self.store.remove(folded, versions=versions, tenant=tenant)
+            next_ages = {cid: ages.get(cid, 0) + 1
+                         for cid in self.store.client_ids(tenant)}
         with self._state_lock:
             if gamma is not None:
                 self._carry[tenant] = srep.acc_state
             self._stale_ages[tenant] = next_ages
-
-        overlap = closed_at.get("waited", 0.0)
-        mr = monitor.result(
-            int(closed_at.get("count", len(folded))), overlap,
-        )
-        # the engine's ingest clock times next(it), which here is mostly
-        # the idle poll; report the block staging I/O instead (the wait
-        # itself is the overlap phase)
         phase = {
-            "ingest": io_stats.get("load_seconds", 0.0),
+            "ingest": end["load_seconds"],
             "compile": srep.compile_seconds,
             "compute": srep.compute_seconds,
-            "overlap": overlap,
+            "overlap": end["overlap"],
         }
         return self._finish(
-            fused, template, plan, srep.n_rows, load, dt, mr,
-            expected, True, phase,
-            overlap_seconds=overlap, async_round=True,
-            tenant=tenant, policy=policy, t_round=t_round_store,
-            expected=expected, arrivals=arrivals,
-            ingest_bytes=srep.ingest_bytes, fusion=fusion,
+            fused, template, plan, srep.n_rows, load, dt, end["monitor"],
+            d["expected"], True, phase, overlap_seconds=end["overlap"],
+            async_round=True, tenant=tenant, policy=d["policy"],
+            t_round=d["t_round_store"], expected=d["expected"],
+            arrivals=end["arrivals"], ingest_bytes=srep.ingest_bytes,
+            fusion=fusion, client_ids=tuple(folded),
         )
 
     def _empty_round(
@@ -825,6 +968,7 @@ class AggregationService:
         ingest_bytes: int = 0,
         fusion: Optional[FusionAlgorithm] = None,
         notes: Tuple[str, ...] = (),
+        client_ids: Tuple[str, ...] = (),
     ):
         fusion = fusion if fusion is not None else self.fusion
         # §III-D3 seamless transition: if next round's projected load
@@ -860,6 +1004,7 @@ class AggregationService:
             store_stats=self.store.stats_for(tenant),
             bytes_ingested=ingest_bytes,
             notes=notes,
+            client_ids=client_ids,
         )
         with self._state_lock:
             self.history.append(report)

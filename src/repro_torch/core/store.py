@@ -911,6 +911,22 @@ class UpdateStore:
         regardless of n. The iterator works over a snapshot of the client
         index — updates written after the call don't shift the blocks.
         """
+        blocks = self.iter_chunk_ids(chunk_rows, prefetch, tenant)
+        try:
+            for payload, w, _ in blocks:
+                yield payload, w
+        finally:
+            blocks.close()   # an abandoned consumer releases the reader
+
+    def iter_chunk_ids(
+        self,
+        chunk_rows: int,
+        prefetch: bool = True,
+        tenant: Optional[str] = None,
+    ) -> Iterator[Tuple[object, np.ndarray, List[str]]]:
+        """``iter_chunks`` with each block's client ids: ``(updates,
+        weights, ids)``. A mesh service's first rank reads its rounds so,
+        to tell the other ranks which rows each block holds."""
         with self._lock:
             keys = self._keys(tenant)
         chunk_rows = max(int(chunk_rows), 1)
@@ -919,12 +935,15 @@ class UpdateStore:
         ]
         load = self._load_block
 
+        def ided(blks):
+            return [(payload, w, [cid for _, cid in loaded])
+                    for payload, w, loaded in blks]
+
         if not prefetch:
             for batch in batches:
                 blks = load(batch)
                 if blks is not None:  # None: whole batch raced a consume
-                    for payload, w, _ in blks:
-                        yield payload, w
+                    yield from ided(blks)
             return
 
         q: "queue.Queue" = queue.Queue(maxsize=1)
@@ -947,8 +966,8 @@ class UpdateStore:
                     blks = load(batch)
                     if blks is None:  # whole batch raced a consume
                         continue
-                    for payload, w, _ in blks:
-                        if not put(("block", (payload, w))):
+                    for item in ided(blks):
+                        if not put(("block", item)):
                             return
                 put(("done", None))
             except BaseException as exc:  # surface in the consumer
@@ -972,6 +991,28 @@ class UpdateStore:
             # a staged block
             stop.set()
             t.join()
+
+    def read_spooled(
+        self, client_id: str, tenant: str = DEFAULT_TENANT,
+    ) -> object:
+        """One update read straight from the disk spool, without the
+        index: a dense array (bf16 as ``BF16`` words) or a
+        ``CompressedUpdate``. The other ranks of a mesh service share
+        the first rank's spool, not its index, and read the rows it
+        chose this way. Raises ``ValueError`` on the memory backend."""
+        if self.backend != "disk":
+            raise ValueError("read_spooled needs the disk backend: the "
+                             "ranks of a mesh share a spool directory")
+        path = self._path(client_id, tenant)
+        blob = np.load(path)
+        scales = self._sidecar_scales(path)
+        if scales is not None:
+            return CompressedUpdate(
+                codes=blob, scales=scales,
+                dim=self._sidecar_dim(path, default=int(blob.shape[0])),
+            )
+        dt = self._sidecar_dtype(path)
+        return blob.view(dt) if dt is not None else blob
 
     def _load_block(
         self,
@@ -1089,7 +1130,7 @@ class UpdateStore:
         NOTE the third tuple element is the block's client ids — the
         engines' ``fuse_stream`` block protocol instead expects an
         optional numeric per-row scale there, so adapt (as
-        ``AggregationService._aggregate_async`` does) rather than feeding
+        ``AggregationService._async_round`` does) rather than feeding
         this iterator to an engine directly. ``versions_out`` collects
         write-versions as read (for version-checked ``remove``);
         ``stats_out["load_seconds"]`` accumulates actual block-staging

@@ -36,6 +36,8 @@ TRAINING_MODULES = ["repro_torch.optim", "repro_torch.optim.optimizers",
                     *(f"repro_torch.data.{m}" for m in (
                         "synthetic", "partition", "loader")),
                     "repro_torch.fl.client", "repro_torch.launch.train"]
+# the distributed engine and its mesh tooling
+MESH_MODULES = ["repro_torch.core.distributed", "repro_torch.launch.mesh"]
 
 
 def _modules():
@@ -65,7 +67,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.core.adaptive",
             "repro_torch.checkpoint",
             "repro_torch.checkpoint.ckpt",
-            *SLICE_MODULES, *SERVING_MODULES, *TRAINING_MODULES} <= set(mods)
+            *SLICE_MODULES, *SERVING_MODULES, *TRAINING_MODULES,
+            *MESH_MODULES} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -135,6 +138,22 @@ def test_serving_layer_loads_no_jax_no_ml_dtypes_and_no_kernel(module):
 def test_training_substrate_loads_no_jax_and_no_kernel(module):
     """Each module of the training substrate, imported alone, loads
     neither JAX nor the JAX package nor a kernel library."""
+    code = (
+        f"import {module}, sys\n"
+        "from repro_torch.kernels import _build\n"
+        "print('BAD', sorted(m for m in sys.modules if m.split('.')[0]\n"
+        "                    in ('jax', 'jaxlib', 'repro')),\n"
+        "      'LOADED', sorted(_build._LOADED))\n"
+    )
+    res = _run(["-c", code])
+    assert res.returncode == 0, res.stderr
+    assert "BAD [] LOADED []" in res.stdout, res.stdout
+
+
+@pytest.mark.parametrize("module", MESH_MODULES)
+def test_distributed_engine_loads_no_jax_and_no_kernel(module):
+    """The distributed engine and the mesh tooling, each imported alone,
+    load neither JAX nor the JAX package nor a kernel library."""
     code = (
         f"import {module}, sys\n"
         "from repro_torch.kernels import _build\n"

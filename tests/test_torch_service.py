@@ -367,13 +367,31 @@ def test_concurrent_tenants_cli_reports_every_tenant():
                                    err_msg=str(key))
 
 
-def test_not_yet_ported_options_raise():
-    """The mesh still raises, naming its ROADMAP item; secure
-    aggregation (ported since) and the async and adaptive options it
-    once sat beside build."""
-    with pytest.raises(NotImplementedError, match="item 8\\)"):
-        AggregationService(device="cpu", adaptive=True,
-                           staleness_discount=0.5, mesh=object())
+def test_mesh_and_the_other_options_build_a_service(tmp_path):
+    """``mesh=`` (ported since) builds a service whose planner counts the
+    mesh's devices, with a hierarchical engine when the mesh has a "pod"
+    dim; secure aggregation and the async and adaptive options build
+    beside it."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp_path / "rendezvous"), 1),
+        rank=0, world_size=1)
+    try:
+        for pod in (0, 1):
+            mesh = make_local_mesh(1, 1, pod=pod, device_type="cpu")
+            svc = AggregationService(device="cpu", adaptive=True,
+                                     staleness_discount=0.5, mesh=mesh)
+            assert svc.planner.n_devices == mesh.size() == 1
+            assert svc.distributed is not None
+            assert (svc.hierarchical is not None) == bool(pod)
+            if pod:
+                assert svc.hierarchical.hierarchical
+                assert svc.hierarchical.client_axes == ("pod", "data")
+    finally:
+        dist.destroy_process_group()
     masking = SecureMasking(n_clients=4)
     assert AggregationService(device="cpu", adaptive=True,
                               staleness_discount=0.5,

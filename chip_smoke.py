@@ -44,7 +44,11 @@ instruction mix in its SASS and times ``mma.sync`` TF32 alone, the
 ceiling of the SSD kernels' products. Phase 1 also holds the SSD
 chunked-scan kernels against their plain version (two calls bit-equal,
 the device kernels of a call and each one's device time from the
-profiler, the Zamba2 layer also at a head tile of 1), and phase 5
+profiler, the Zamba2 layer also at a head tile of 1) and the scan's
+backward kernels against ``ssd_scan_bwd_ref`` from the forward's saved
+prefix sums and states (the Zamba2 layer, L = T = 600, 16 chunks of one
+lane, odd N / P / H; each gradient within 1e-4 of its scale, two calls
+bit-equal, the device kernels of a call), and phase 5
 serves the hybrid the same way:
 a FedAvg fusion of 2 full-width, full-depth Zamba2-1.2B bf16 clients
 checked against float64 Eq. 1 a parameter at a time, a 4 x 1024 prefill
@@ -94,14 +98,23 @@ phase 0's mma.sync TF32 rate), beside the backward of
 ``scaled_dot_product_attention``. Phase 9, last, trains full-width
 Qwen2-0.5B bf16: (a) one local step through the attention kernels
 (exactly 48 forward and 24 backward launches) against the same step
-through the plain attention, timed and profiled; (b) two FedAvg rounds
-of 4 clients through ``FederatedServer`` and a gradavg round, each
-round's fused params against float64 Eq. 1; (c) ``save_pytree`` /
-``load_pytree`` of the trained params, bitwise; (d)
-``repro_torch.launch.train``; and (e) (a)'s step for full-width
+through the plain attention, timed and profiled; (b) a FedAvg round
+of 4 clients x 1 local step through ``FederatedServer`` and a gradavg
+round, each round's fused params against float64 Eq. 1; (c)
+``save_pytree`` / ``load_pytree`` of the trained params, bitwise; (d)
+``repro_torch.launch.train`` (1 round of 2 clients); and (e) (a)'s step for full-width
 Gemma3-1B in fp32 on 1 x 1280 tokens (52 forward and 26 backward
 launches; loss within 1e-4 relative, every gradient leaf at cosine
-0.9999 or more). Phase 10, run after phase 8 on the same data, drives
+0.9999 or more); (f) full-width Zamba2-1.2B, one 4 x 1024 local step
+through the SSD scan's forward and backward kernels (76 and 38
+launches: each Mamba layer under remat) and the attention's (12 and 6)
+against every plain version, the bf16 weights in fp32 at (e)'s limits
+(every leaf), then in bf16 at (a)'s loss and norm limits with the
+cosine limit on the whole gradient (each leaf's cosines printed beside
+the plain and kernel gradients' against the fp32 step), each timed and
+profiled, then a FedAvg round of 2 clients x 1 step at 2 x 512 against
+float64 Eq. 1.
+Phase 10, run after phase 8 on the same data, drives
 the distributed engine and the mesh service over NCCL at world size 1
 ((1, 1) and (1, 1, 1) meshes, every collective called): FedAvg, IterAvg
 and ClippedAvg Resnet50 x 48 map-reduce rounds against float64 Eq. 1,
@@ -2463,8 +2476,9 @@ def _sass_functions(sass: str):
 def _ssd_build():
     """What the build of the SSD scan shows: tensor-core TF32 products
     (HMMA.1688.F32.TF32) and asynchronous copies (LDGSTS) in its SASS,
-    each instance's registers and spills from ``ptxas -v``, which must be
-    none, and the instruction mix of the Zamba2 layer's two kernels (fp32,
+    each instance's registers (the forward's 48 and the backward's 15)
+    and spills from ``ptxas -v``, which must be none, and the
+    instruction mix of the Zamba2 layer's two kernels (fp32,
     N_pad 64, head tile 2): how many instructions each tensor-core
     product takes with it."""
     from collections import Counter
@@ -2478,6 +2492,11 @@ def _ssd_build():
         for (t, n_pad, heads), (r, st, ld) in sorted(
                 _ptxas_report("ssd_chunk", entry).items()):
             regs[f"{short} {t} N{n_pad} x{heads}"] = r
+    bwd_regs = {}
+    for fn, (r, _, _) in _ptxas_entries("ssd_chunk").items():
+        m = re.search(r"ssd_bwd_([a-z]+)_kernel(?:ILi(\d+)E)?", fn)
+        if m:
+            bwd_regs[m.group(1) + (f" N{m.group(2)}" if m.group(2) else "")] = r
     spills = [line.strip() for line in
               _build.build_log("ssd_chunk").read_text().splitlines()
               if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
@@ -2491,10 +2510,13 @@ def _ssd_build():
                               "per_HMMA": len(ops) / max(ops.count("HMMA"), 1),
                               "top": dict(top)}
     print(f"[phase0] ssd_chunk SASS {counts}; ptxas: {len(regs)} templated "
-          f"kernels, registers {regs}; spills {spills or 'none'}", flush=True)
+          f"kernels, registers {regs}; the backward's {len(bwd_regs)} "
+          f"kernels, registers {bwd_regs}; spills {spills or 'none'}",
+          flush=True)
     print(f"[phase0] ssd_chunk static instruction mix, fp32 N_pad 64 head "
           f"tile 2: {json.dumps(mix)}", flush=True)
-    if not all(counts.values()) or spills or len(regs) != 48 or len(mix) != 2:
+    if not all(counts.values()) or spills or len(regs) != 48 \
+            or len(bwd_regs) != 15 or len(mix) != 2:
         raise AssertionError(f"ssd_chunk build: SASS {counts}, {len(regs)} "
                              f"kernels, spills {spills}, mix of {list(mix)}")
 
@@ -3114,6 +3136,113 @@ def phase_ssd_kernel(dev, hbm_bw, mma_peak):
     return cases
 
 
+# rtol of the SSD backward against ssd_scan_bwd_ref, the forward's fp32
+# limit. Each gradient sums up to L * N products whose size the data
+# sets (dlam up to ~1e4 at the Zamba2 layer on unit-normal inputs), so
+# the absolute part of the limit is that rtol times the output's
+# largest magnitude, as tests/test_torch_training.py holds gradient
+# leaves (there 1e-5 times the leaf's scale on fp32 CPU sums).
+SSD_BWD_RTOL = 1e-4
+
+
+def _ssd_bwd_work(B, T, H, N, P, L):
+    """(bytes, FLOPs) of one SSD backward, the least work: lam, B, C, x
+    and dy read, dlam, dB, dC and dx written, fp32; C B^T once per (batch,
+    chunk) (L(L+1)/2 * 2N); per lane and chunk dy x^T and W^T dy
+    (L(L+1)/2 * 2P each), Q B and Q^T C (L(L+1)/2 * 2N each) and four (N,
+    P) products a step (the state terms, the increment of G, C h dy)."""
+    nbytes = 4 * (2 * B * T * H + 4 * B * T * N + 3 * B * T * H * P)
+    nc = T // L
+    flops = B * nc * (L * (L + 1) / 2 * 2 * N) + B * H * nc * (
+        L * (L + 1) * (2.0 * P + 2 * N) + 8.0 * L * N * P)
+    return nbytes, flops
+
+
+def phase_ssd_bwd_kernel(dev, hbm_bw):
+    """The SSD scan's backward kernels against ``ssd_scan_bwd_ref`` at the
+    Zamba2-1.2B layer's shape and at edge shapes, from the forward
+    kernel's saved prefix sums and states: each case checks the four
+    gradients, that two calls agree bit for bit, and gives the device
+    kernels a call runs and each one's device time; times the backward
+    and its plain version (no single PyTorch call computes it)."""
+    import torch
+
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.kernels.ssd_chunk import ref as sref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    cases = {"ssd_chunk_bwd": []}
+    for B, T, H, N, P, chunk, label in [
+        (4, 1024, 64, 64, 64, 256, "Zamba2-1.2B layer"),
+        (2, 600, 64, 64, 64, 256, "ragged T = 600: L = T"),
+        (1, 4096, 1, 64, 64, 256, "B = H = 1: 16 chunks"),
+        (1, 300, 3, 10, 7, 256, "odd N, P, H: one chunk of 300"),
+    ]:
+        lam = -torch.randn((B, T, H), generator=g, device=dev).abs() * 0.1
+        Bm = torch.randn((B, T, N), generator=g, device=dev)
+        Cm = torch.randn((B, T, N), generator=g, device=dev)
+        xdt = torch.randn((B, T, H, P), generator=g, device=dev)
+        dy = torch.randn((B, T, H, P), generator=g, device=dev)
+        _, saved = sk.ssd_chunk(lam, Bm, Cm, xdt, chunk=chunk,
+                                return_saved=True)
+
+        def call():
+            return sk.ssd_chunk_bwd(lam, Bm, Cm, xdt, dy, chunk=chunk,
+                                    saved=saved)
+
+        got, again = call(), call()
+        want = sref.ssd_scan_bwd_ref(lam, Bm, Cm, xdt, dy, chunk=chunk)
+        torch.cuda.synchronize()
+        errs, shares = {}, {}
+        for name, a, b, w in zip(("dlam", "dBm", "dCm", "dxdt"), got, again,
+                                 want):
+            if a.shape != w.shape or not torch.isfinite(a).all():
+                raise AssertionError(f"ssd_chunk_bwd {label} {name}: shape "
+                                     f"{tuple(a.shape)} or non-finite")
+            if not torch.equal(a, b):
+                raise AssertionError(f"ssd_chunk_bwd {label} {name}: two "
+                                     "calls differ")
+            atol = SSD_BWD_RTOL * w.abs().max().item()
+            errs[name] = (a - w).abs().max().item()
+            shares[name] = _limit_share(a, w, SSD_BWD_RTOL, atol)
+            torch.testing.assert_close(a, w, rtol=SSD_BWD_RTOL, atol=atol)
+        del got, again, want
+        L = sref.chunk_len(T, chunk)
+        planned = sk.bwd_device_kernels(T, chunk)
+        kernels = _device_kernels(call, planned, tag="ssd_bwd_")
+        n_kernels = sum(n for n, _ in kernels.values())
+        if n_kernels != planned:
+            raise AssertionError(f"ssd_chunk_bwd {label}: device kernels a "
+                                 f"call {kernels}, planned {planned}")
+        nbytes, flops = _ssd_bwd_work(B, T, H, N, P, L)
+        bound_ms, bound_by = _bound(nbytes, flops, hbm_bw, TF32X3_FLOPS)
+        ms = _ms_median(call)
+        cases["ssd_chunk_bwd"].append({
+            "shape": [B, T, H, N, P], "L": L, "chunks": T // L,
+            "dtype": "fp32", "what": label, "device_kernels": n_kernels,
+            "kernel_ms": {re.search(r"ssd_bwd_[a-z]+", k).group(0): t
+                          for k, (_, t) in kernels.items()},
+            "max_abs_err": max(errs.values()), "errs": errs,
+            "limit_share": shares, "rtol": SSD_BWD_RTOL,
+            "atol": "rtol x the output's largest magnitude",
+            "flops": flops, "ms": ms,
+            "plain_ms": _ms_median(
+                lambda: sref.ssd_scan_bwd_ref(lam, Bm, Cm, xdt, dy,
+                                              chunk=chunk), reps=5),
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes the backward",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_rate": "TF32 x3, 165 TFLOP/s",
+            "bound_fma_ms": flops / FP32_FLOPS * 1e3,
+            "fp32_tflops": flops / ms * 1e-9,
+        })
+        print(f"[phase1] ssd_chunk_bwd "
+              f"{json.dumps(cases['ssd_chunk_bwd'][-1])}", flush=True)
+        del lam, Bm, Cm, xdt, dy, saved
+    torch.cuda.empty_cache()
+    return cases
+
+
 def _profile(fn, what, top=6, phase="phase4"):
     """Device busy time and the kernels and host ops that take the most
     time in one run of ``fn``, under ``torch.profiler`` (CPU + CUDA).
@@ -3568,73 +3697,112 @@ TRAIN_STEP_REPS = 5
 
 
 def _leaf_cosines(got, want):
-    """{leaf: cosine} of two gradient trees, in fp64, and the relative
-    difference of their global norms."""
+    """{leaf: cosine} of two gradient trees, in fp64, the relative
+    difference of their global norms, and the cosine of the whole
+    gradients."""
     import torch
 
-    cos, na, nb = {}, 0.0, 0.0
+    cos, na, nb, dot = {}, 0.0, 0.0, 0.0
     for name, a in got.items():
         a, b = a.double().reshape(-1), want[name].double().reshape(-1)
         den = (a.norm() * b.norm()).item()
-        cos[name] = 1.0 if den == 0.0 else (a @ b).item() / den
+        ab = (a @ b).item()
+        cos[name] = 1.0 if den == 0.0 else ab / den
         na += a.square().sum().item()
         nb += b.square().sum().item()
+        dot += ab
+    whole = dot / max(math.sqrt(na) * math.sqrt(nb), 1e-300)
     return cos, abs(math.sqrt(na) - math.sqrt(nb)) / max(math.sqrt(nb),
-                                                         1e-30)
+                                                         1e-30), whole
 
 
-def _train_step(model, params, batch, cfg, what, case, key, *, loss_rel,
-                cos_min, norm_rel):
-    """One local SGD step of ``model`` (a ``Client`` with ``sgd(0.25)``) on
-    ``batch``: its loss and gradients through the attention kernels
-    (exactly 2 forward launches a layer, remat, and 1 backward) against
-    the same through ``attention_train_ref``, within ``loss_rel`` (the
-    loss), ``cos_min`` (every gradient leaf's cosine) and ``norm_rel``
-    (the global norm); then the step timed (synced, median of
-    ``TRAIN_STEP_REPS`` after one) and profiled. {key_*: number}."""
+def _step_grads(model, params, batch, **kw):
+    """(loss, {leaf: gradient}) of ``model.loss`` at the tree ``params`` on
+    ``batch``, as a ``Client`` step takes them (``functional_call`` on
+    leaves that require grad); ``kw`` go to the loss (the kernels by
+    default)."""
     import collections
 
     import torch
     from torch.func import functional_call
 
+    leaves = collections.OrderedDict(
+        (k, v.detach().requires_grad_(True)) for k, v in params.items())
+    loss, _ = functional_call(model, leaves, (batch,), kw)
+    g = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), collections.OrderedDict(zip(leaves, g))
+
+
+def _train_step(model, params, batch, cfg, what, case, key, *, loss_rel,
+                cos_min, norm_rel, launches=None, plain=None, truth=None):
+    """One local SGD step of ``model`` (a ``Client`` with ``sgd(0.25)``) on
+    ``batch``: its loss and gradients through the kernels (exactly
+    ``launches``; by default the attention's, 2 forward launches a layer,
+    remat, and 1 backward) against the same through the plain versions
+    (the keywords ``plain``; by default ``attention_train_ref``), within
+    ``loss_rel`` (the loss), ``cos_min`` (every gradient leaf's cosine)
+    and ``norm_rel`` (the global norm). With ``truth``, the plain step's
+    gradients of the same weights in fp32 (which the caller has held to
+    per-leaf limits in fp32): ``cos_min`` then holds the cosine of the
+    whole gradient, and the worst leaves' cosines are printed beside
+    each one's plain and kernel gradient against ``truth``, since this
+    dtype alone moves every leaf further than the kernels do. Then the
+    step timed (synced, median of
+    ``TRAIN_STEP_REPS`` after one) and profiled: the device busy share,
+    the device kernel launches, the attention's and the SSD scan's
+    backward kernels' device time, the peak memory. {key_*: number}."""
+    import torch
+
     from repro_torch.fl import Client
     from repro_torch.models.layers.attention import attention_train_ref
     from repro_torch.optim import sgd
 
+    if launches is None:
+        launches = {"flash_attention": 2 * cfg.n_layers,
+                    "flash_attention_bwd": cfg.n_layers}
+    if plain is None:
+        plain = {"attention": attention_train_ref}
     out = {}
     dev = next(iter(params.values())).device
 
-    def grads(**kw):   # the model's default attention: the kernels
-        leaves = collections.OrderedDict(
-            (k, v.detach().requires_grad_(True)) for k, v in params.items())
-        loss, _ = functional_call(model, leaves, (batch,), kw)
-        g = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), collections.OrderedDict(zip(leaves, g))
-
     before = _all_launches()
-    loss_k, g_k = grads()
+    loss_k, g_k = _step_grads(model, params, batch)
     torch.cuda.synchronize()
     delta = _launch_delta(before)
-    want = {"flash_attention": 2 * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers}
-    if any(delta[k] != n for k, n in want.items()) or any(
-            v for k, v in delta.items() if k not in want):
+    if any(delta[k] != n for k, n in launches.items()) or any(
+            v for k, v in delta.items() if k not in launches):
         raise AssertionError(f"{case} a training step launched {delta}, "
-                             f"expected {want}")
-    loss_p, g_p = grads(attention=attention_train_ref)
+                             f"expected {launches}")
+    loss_p, g_p = _step_grads(model, params, batch, **plain)
     rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    cos, nrel = _leaf_cosines(g_k, g_p)
+    cos, nrel, whole = _leaf_cosines(g_k, g_p)
     worst = min(cos, key=cos.get)
+    held, held_what = cos[worst], f"leaf {worst}"
+    if truth is not None:
+        plain_cos = _leaf_cosines(g_p, truth)[0]
+        kernel_cos = _leaf_cosines(g_k, truth)[0]
+        held, held_what = whole, "the whole gradient"
+        out[f"{key}_cos_whole"] = whole
+        out[f"{key}_plain_vs_fp32_cos_min"] = min(plain_cos.values())
+        out[f"{key}_kernels_vs_fp32_cos_min"] = min(kernel_cos.values())
+        print(f"[phase9] {case} {what}: worst leaves (cosine kernels vs "
+              f"plain; plain vs the fp32 step; kernels vs the fp32 step): "
+              + "; ".join(f"{k} {cos[k]:.6f} {plain_cos[k]:.6f} "
+                          f"{kernel_cos[k]:.6f}"
+                          for k in sorted(cos, key=cos.get)[:8])
+              + f"; the worst leaf against fp32: plain "
+              f"{min(plain_cos.values()):.6f}, kernels "
+              f"{min(kernel_cos.values()):.6f}", flush=True)
     print(f"[phase9] {case} {what}: loss kernels {loss_k.item():.6f} plain "
           f"{loss_p.item():.6f} (rel {rel:.2e}, limit {loss_rel:g}); "
-          f"gradient cosine min {cos[worst]:.6f} ({worst}; limit "
-          f"{cos_min:g}), global-norm rel diff {nrel:.2e} (limit "
-          f"{norm_rel:g}); launches {delta}", flush=True)
-    if not (rel <= loss_rel and cos[worst] >= cos_min and nrel <= norm_rel
+          f"gradient cosine min {cos[worst]:.6f} ({worst}), whole "
+          f"{whole:.6f}; held: {held_what} {held:.6f} (limit {cos_min:g}); "
+          f"global-norm rel diff {nrel:.2e} (limit {norm_rel:g}); launches "
+          f"{delta}", flush=True)
+    if not (rel <= loss_rel and held >= cos_min and nrel <= norm_rel
             and math.isfinite(loss_k.item())):
         raise AssertionError(f"{case} kernels vs plain step: loss rel {rel}, "
-                             f"cosine {cos[worst]} at {worst}, norm rel "
-                             f"{nrel}")
+                             f"cosine {held} ({held_what}), norm rel {nrel}")
     out[f"{key}_loss_rel"], out[f"{key}_cos_min"] = rel, cos[worst]
     out[f"{key}_norm_rel"] = nrel
     del g_k, g_p
@@ -3658,14 +3826,20 @@ def _train_step(model, params, batch, cfg, what, case, key, *, loss_rel,
     out[f"{key}_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     wall, busy, kernels = _profile(step, what, phase="phase9")
     out[f"{key}_device_busy_share"] = busy / wall
+    out[f"{key}_device_launches"] = sum(n for n, _ in kernels.values())
     bwd_ms = sum(ms for name, (_, ms) in kernels.items()
-                 if "bwd_" in name)
+                 if "bwd_" in name and "ssd_bwd_" not in name)
+    ssd_bwd_ms = sum(ms for name, (_, ms) in kernels.items()
+                     if "ssd_bwd_" in name)
     out[f"{key}_attention_bwd_device_ms"] = bwd_ms
+    out[f"{key}_ssd_bwd_device_ms"] = ssd_bwd_ms
     print(f"[phase9] {case} {what}: {out[f'{key}_ms']:.3f} ms (median of "
           f"{TRAIN_STEP_REPS}: {[round(t, 3) for t in times]}); device busy "
           f"{busy:.3f} of {wall:.3f} ms profiled ({busy / wall:.1%}), "
-          f"attention backward kernels {bwd_ms:.3f} ms; peak memory "
-          f"{out[f'{key}_peak_gb']:.2f} GB", flush=True)
+          f"{out[f'{key}_device_launches']} device kernels; attention "
+          f"backward kernels {bwd_ms:.3f} ms, SSD backward kernels "
+          f"{ssd_bwd_ms:.3f} ms; peak memory {out[f'{key}_peak_gb']:.2f} GB",
+          flush=True)
     return out
 
 
@@ -3677,7 +3851,11 @@ def phase_training(dev, attn_cases):
     round's fused params held against float64 Eq. 1, then a gradavg
     round; (c) ``save_pytree`` / ``load_pytree`` of the trained params;
     (d) the train CLI; then (e) (a)'s step for full-width Gemma3-1B in
-    fp32, 1 x 1280 tokens, through the fp32 attention backward."""
+    fp32, 1 x 1280 tokens, through the fp32 attention backward; (f) a
+    full-width Zamba2-1.2B 4 x 1024 step through the SSD scan's forward
+    and backward kernels, its weights in fp32 at (e)'s limits and in bf16
+    at (a)'s, then a FedAvg round of 2 Zamba2 clients."""
+    import collections
     import dataclasses
 
     import numpy as np
@@ -3690,7 +3868,9 @@ def phase_training(dev, attn_cases):
     from repro_torch.fl import Client, FederatedServer
     from repro_torch.fl.client import batch_to_device
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssd_chunk.ops import ssd_scan_train_ref
     from repro_torch.models import build_model
+    from repro_torch.models.layers.attention import attention_train_ref
     from repro_torch.optim import sgd
     from repro_torch.utils.pytree import flat_vector_to_tree, tree_leaves
 
@@ -3715,15 +3895,18 @@ def phase_training(dev, attn_cases):
     del batch
     torch.cuda.empty_cache()
 
-    # (b) FederatedServer: 4 clients x 2 local SGD steps x 2 rounds, then
-    # a gradavg round; each round's fp32 fused vector against float64
-    # Eq. 1 of the clients' updates before the cast to the params' dtype
-    def server_for(fusion, send_delta, start):
+    # (b) FederatedServer: 4 clients x 1 local SGD step, a FedAvg round
+    # then a gradavg round (the host's bigram sampler sets a round's wall:
+    # one step a client keeps the script's length); each round's fp32
+    # fused vector against float64 Eq. 1 of the clients' updates before
+    # the cast to the params' dtype
+    def server_for(model, gen, fusion, send_delta, start, n_clients=4,
+                   batch=4, seq_len=128):
         svc = AggregationService(fusion=fusion, device=dev)
-        loader = FederatedLoader(gen=gen, n_clients=4, batch=4, seq_len=128)
+        loader = FederatedLoader(gen=gen, n_clients=n_clients, batch=batch,
+                                 seq_len=seq_len)
         clients = [Client(client_id=i, model=model, optimizer=sgd(0.25),
-                          local_steps=2, send_delta=send_delta)
-                   for i in range(4)]
+                          send_delta=send_delta) for i in range(n_clients)]
         server = FederatedServer(model=model, clients=clients, loader=loader,
                                  service=svc, rng_seed=SEED, params=start)
         # the server's own call, template branch included, runs as it is;
@@ -3746,47 +3929,44 @@ def phase_training(dev, attn_cases):
         return server, seen
 
     rounds = []
-    for fusion, send_delta, n_rounds in (("fedavg", False, 2),
-                                         ("gradavg", True, 1)):
-        server, seen = server_for(fusion, send_delta,
+    for fusion, send_delta in (("fedavg", False), ("gradavg", True)):
+        server, seen = server_for(model, gen, fusion, send_delta,
                                   params if not rounds else trained)
-        for r in range(n_rounds):
-            before = _all_launches()
-            t0 = time.perf_counter()
-            res = server.run_round(r)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            delta = {k: v for k, v in _launch_delta(before).items() if v}
-            if not math.isfinite(res.mean_client_loss) or \
-                    delta.get("weighted_sum") != 1:
-                raise AssertionError(f"(b) {fusion} round {r}: loss "
-                                     f"{res.mean_client_loss}, {delta}")
-            err = _fused_vs_eq1(
-                seen["flat"], seen["updates"],
-                np.asarray(seen["weights"], np.float32), seen["template"],
-                f"(b) {fusion} round {r} fused params", "phase9")
-            # the tree the server applied is that vector cast leaf by leaf
-            want = flat_vector_to_tree(seen["flat"], seen["template"])
-            got_leaves, want_leaves = (tree_leaves(seen["tree"]),
-                                       tree_leaves(want))
-            if len(got_leaves) != len(want_leaves) or not all(
-                    a.dtype == b.dtype and torch.equal(a, b)
-                    for a, b in zip(got_leaves, want_leaves)):
-                raise AssertionError(f"(b) {fusion} round {r}: the returned "
-                                     "tree is not the fused vector cast")
-            rounds.append({"fusion": fusion, "round": r, "wall_s": wall,
-                           "loss": res.mean_client_loss,
-                           "fuse_s": res.report.fuse_seconds,
-                           "phase_seconds": res.report.phase_seconds,
-                           "launches": delta, "max_abs_err": err})
-            print(f"[phase9] (b) {fusion} round {r}: wall={wall:.3f}s "
-                  f"loss={res.mean_client_loss:.4f} "
-                  f"fuse={res.report.fuse_seconds:.4f}s "
-                  f"phases={res.report.phase_seconds} launches={delta}",
-                  flush=True)
-            seen.clear()
+        before = _all_launches()
+        t0 = time.perf_counter()
+        res = server.run_round(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delta = {k: v for k, v in _launch_delta(before).items() if v}
+        if not math.isfinite(res.mean_client_loss) or \
+                delta.get("weighted_sum") != 1:
+            raise AssertionError(f"(b) {fusion} round: loss "
+                                 f"{res.mean_client_loss}, {delta}")
+        err = _fused_vs_eq1(
+            seen["flat"], seen["updates"],
+            np.asarray(seen["weights"], np.float32), seen["template"],
+            f"(b) {fusion} round fused params", "phase9")
+        # the tree the server applied is that vector cast leaf by leaf
+        want = flat_vector_to_tree(seen["flat"], seen["template"])
+        got_leaves, want_leaves = (tree_leaves(seen["tree"]),
+                                   tree_leaves(want))
+        if len(got_leaves) != len(want_leaves) or not all(
+                a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(got_leaves, want_leaves)):
+            raise AssertionError(f"(b) {fusion} round: the returned "
+                                 "tree is not the fused vector cast")
+        rounds.append({"fusion": fusion, "round": 0, "wall_s": wall,
+                       "loss": res.mean_client_loss,
+                       "fuse_s": res.report.fuse_seconds,
+                       "phase_seconds": res.report.phase_seconds,
+                       "launches": delta, "max_abs_err": err})
+        print(f"[phase9] (b) {fusion} round: wall={wall:.3f}s "
+              f"loss={res.mean_client_loss:.4f} "
+              f"fuse={res.report.fuse_seconds:.4f}s "
+              f"phases={res.report.phase_seconds} launches={delta}",
+              flush=True)
         trained = server.params
-        del server
+        del server, seen   # the round's updates
         torch.cuda.empty_cache()
     out["rounds"] = rounds
 
@@ -3810,12 +3990,12 @@ def phase_training(dev, attn_cases):
     t0 = time.perf_counter()
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "qwen2-0.5b", "--full-config", "--rounds", "2", "--clients", "4",
+         "qwen2-0.5b", "--full-config", "--rounds", "1", "--clients", "2",
          "--local-steps", "1", "--seq-len", "128"],
         capture_output=True, text=True, timeout=600, cwd=HERE,
         env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
     print(res.stdout.strip(), flush=True)
-    if res.returncode != 0 or "[round   1]" not in res.stdout:
+    if res.returncode != 0 or "[round   0]" not in res.stdout:
         raise AssertionError(f"(d) train CLI: {res.stderr[-3000:]}")
     out["cli_s"] = time.perf_counter() - t0
     print(f"[phase9] (d) train CLI: {out['cli_s']:.3f} s", flush=True)
@@ -3841,6 +4021,82 @@ def phase_training(dev, attn_cases):
                            "gemma3_fp32_step", loss_rel=1e-4, cos_min=0.9999,
                            norm_rel=1e-3))
     del model, params, batch
+    torch.cuda.empty_cache()
+
+    # (f) full-width Zamba2-1.2B (38 Mamba2 layers of 64 SSM heads, N = P
+    # = 64; the shared block, 32 heads of 64 at window 2048, after every
+    # 6th layer): one 4 x 1024 local step through the SSD scan's forward
+    # and backward kernels and the attention's, every Mamba layer and
+    # call point under remat, against the same step through every plain
+    # version: first the bf16 weights in fp32, every leaf at (e)'s
+    # limits; then in bf16 at (a)'s loss and norm limits and its cosine
+    # limit on the whole gradient, each leaf's cosines printed beside its
+    # plain and kernel gradients' against the fp32 step (bf16 alone moves
+    # every leaf more than 0.001 from it, the dt_bias and d_skip leaves,
+    # sums over 4096 steps, down to ~0.92: no leaf limit holds there for
+    # the plain step either); then a FedAvg round of 2 clients x 1 step
+    # at 2 x 512
+    zcfg = get_config("zamba2-1.2b")
+    t0 = time.perf_counter()
+    model = build_model(zcfg, device=dev, seed=SEED)
+    params = model.state_dict()
+    tokens = rng.integers(0, zcfg.vocab, size=(4, 1024))
+    batch = batch_to_device({"tokens": tokens, "labels": tokens}, dev)
+    calls = sum(1 for _, _, shared in model.call_points if shared)
+    launches = {"ssd_chunk": 2 * zcfg.n_layers, "ssd_chunk_bwd": zcfg.n_layers,
+                "flash_attention": 2 * calls, "flash_attention_bwd": calls}
+    plain = {"ssd": ssd_scan_train_ref, "attention": attention_train_ref}
+    torch.cuda.synchronize()
+    print(f"[phase9] (f) zamba2-1.2b bf16 {zcfg.num_params()} params, "
+          f"{zcfg.n_layers} Mamba2 layers, {calls} shared-block call points, "
+          f"a 4 x 1024 batch, made in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    fcfg = dataclasses.replace(zcfg, dtype="float32")
+    fmodel = build_model(fcfg, device=dev, seed=SEED)
+    fparams = collections.OrderedDict(   # the state_dict's type and order
+        (k, v.float()) for k, v in params.items())
+    out.update(_train_step(
+        fmodel, fparams, batch, fcfg,
+        "zamba2-1.2b fp32 (the bf16 weights) local step 4x1024", "(f)",
+        "zamba2_fp32_step", loss_rel=1e-4, cos_min=0.9999, norm_rel=1e-3,
+        launches=launches, plain=plain))
+    _, truth = _step_grads(fmodel, fparams, batch, **plain)
+    del fmodel, fparams
+    torch.cuda.empty_cache()
+    out.update(_train_step(
+        model, params, batch, zcfg, "zamba2-1.2b bf16 local step 4x1024",
+        "(f)", "zamba2_step", loss_rel=1e-2, cos_min=0.99, norm_rel=5e-2,
+        launches=launches, plain=plain, truth=truth))
+    del truth
+    del batch
+    torch.cuda.empty_cache()
+    server, seen = server_for(model, SyntheticLM(vocab=zcfg.vocab, seed=SEED),
+                              "fedavg", False, params, n_clients=2,
+                              batch=2, seq_len=512)
+    before = _all_launches()
+    t0 = time.perf_counter()
+    res = server.run_round(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = {k: v for k, v in _launch_delta(before).items() if v}
+    want = {"weighted_sum": 1, "ssd_chunk": 4 * zcfg.n_layers,
+            "ssd_chunk_bwd": 2 * zcfg.n_layers, "flash_attention": 4 * calls,
+            "flash_attention_bwd": 2 * calls}
+    if not math.isfinite(res.mean_client_loss) or delta != want:
+        raise AssertionError(f"(f) fedavg round: loss "
+                             f"{res.mean_client_loss}, launches {delta}, "
+                             f"expected {want}")
+    err = _fused_vs_eq1(seen["flat"], seen["updates"],
+                        np.asarray(seen["weights"], np.float32),
+                        seen["template"], "(f) zamba2 fedavg fused params",
+                        "phase9")
+    out["zamba2_round"] = {"wall_s": wall, "loss": res.mean_client_loss,
+                           "fuse_s": res.report.fuse_seconds,
+                           "launches": delta, "max_abs_err": err}
+    print(f"[phase9] (f) zamba2 fedavg round, 2 clients x 1 step at 2 x 512: "
+          f"wall={wall:.3f}s loss={res.mean_client_loss:.4f} "
+          f"fuse={res.report.fuse_seconds:.4f}s launches={delta}", flush=True)
+    del server, seen, res, model, params
     torch.cuda.empty_cache()
     return out
 
@@ -3923,6 +4179,7 @@ def main() -> int:
     cases.update(phase_attention_bwd(dev, hw.hbm_bw, mma_peak))
     cases.update(phase_decode_kernel(dev, hw.hbm_bw))
     cases.update(phase_ssd_kernel(dev, hw.hbm_bw, mma_peak))
+    cases.update(phase_ssd_bwd_kernel(dev, hw.hbm_bw))
     print(f"[phase1] seconds={time.perf_counter() - t0:.3f}", flush=True)
 
     # -- phases 2-8: each path with the counts set to 0 just before it --
@@ -3963,7 +4220,8 @@ def main() -> int:
             or any(by_phase["phase8"].get(k, 0) == 0 for k in (
                 "weighted_sum", "weighted_sum_dequant", "topk_carve")) \
             or any(by_phase["phase9"].get(k, 0) == 0 for k in (
-                "weighted_sum", "flash_attention", "flash_attention_bwd")) \
+                "weighted_sum", "flash_attention", "flash_attention_bwd",
+                "ssd_chunk", "ssd_chunk_bwd")) \
             or any(by_phase["phase10"].get(k, 0) == 0 for k in (
                 "weighted_sum", "weighted_sum_dequant", "topk_carve",
                 "trimmed_mean", "coord_median")):
@@ -3981,6 +4239,8 @@ def main() -> int:
         "flash_attention_bwd": "src/repro/models/layers/attention.py:217",
         "flash_decode": "src/repro/kernels/flash_decode/kernel.py:65",
         "ssd_chunk": "src/repro/kernels/ssd_chunk/kernel.py:59",
+        # no pallas_call: jax.vjp of the model's chunk_step
+        "ssd_chunk_bwd": "src/repro/models/layers/mamba2.py:120",
     }
     sources = {name: src for mod, src in (
         (kernel, "fused_fusion"), (rk, "robust_fusion"),

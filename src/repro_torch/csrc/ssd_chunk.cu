@@ -716,6 +716,555 @@ __global__ void __launch_bounds__(128, 1)
 }
 
 // ---------------------------------------------------------------------------
+// the backward: gradients of the scan on the CUDA cores, fp32
+// ---------------------------------------------------------------------------
+//
+// ssd_chunk_bwd computes what jax.vjp of the reference's chunk_step gives
+// (repro/models/layers/mamba2.py:120-136; kernels/ssd_chunk/ref.py
+// ssd_scan_bwd_ref holds the closed form). Per lane and chunk, with cum
+// the forward's fp32 prefix sums, h the chunk-start state (the forward's
+// h_ws), G the gradient of the chunk-end state and e_s = exp(cum_last -
+// cum_s):
+//     dx_s  = sum_{t>=s} (C_t . B_s) exp(cum_t - cum_s) dy_t + e_s G^T B_s
+//     dC_t  = sum_{s<=t} exp(cum_t - cum_s) (dy_t . x_s) B_s + exp(cum_t) h dy_t
+//     dB_s  = sum_{t>=s} exp(cum_t - cum_s) (dy_t . x_s) C_t + e_s G x_s
+//     G_{c-1} = exp(cum_last) G_c + sum_t exp(cum_t) C_t (x) dy_t
+// and dlam from per-step sums of the score terms (Z_ts = (dy_t . x_s)
+// (C_t . B_s) exp(cum_t - cum_s), s < t), of the inter-chunk term iota_t
+// and of the state term sigma_s, scanned in float64 as ref.py scans them.
+//
+// Bound: operations. C B^T once per (batch, chunk) and, per lane and
+// chunk, dy x^T, W^T dy, Q B and Q^T C over the causal triangle
+// (L(L+1)/2 * 2K each) and four (N, P) products a step: 25.8 GFLOP at the
+// Zamba2-1.2B layer (B 4, T 1024, H 64, N = P = 64, L 256) against 207 MB
+// of inputs and outputs, 0.156 ms at the TF32 rate taken three times,
+// 0.385 ms at the 67 TFLOP/s of the CUDA cores' FMAs. This first design
+// is simple, not fast: every product on the CUDA cores in fp32, C B^T and
+// dy x^T formed twice (in the row and in the column kernel), each tile
+// staged by plain loads. Six kernels (four for one chunk):
+//   * ssd_bwd_state_kernel, a block per (batch, chunk >= 1, head): the
+//     chunk's increment sum_t exp(cum_t) C_t (x) dy_t into slot c - 1 of
+//     g_ws (B, nc - 1, H, N_pad, 64);
+//   * ssd_bwd_handoff_kernel, a thread per state element of a lane: G in
+//     reverse chunk order, in place (slot c becomes G_c), the mirror of
+//     ssd_handoff_kernel;
+//   * ssd_bwd_row_kernel, a block per (64-row tile, head, batch, chunk):
+//     dC of its rows for its head and the per-step sums of Z along s and
+//     iota, walking the column tiles s <= t;
+//   * ssd_bwd_col_kernel, a block per (64-column tile, head, batch,
+//     chunk): dx and dB of its steps for its head, the sums of Z along t
+//     and sigma, walking the row tiles t >= s, then the state terms of G_c;
+//   * ssd_bwd_dlam_kernel, a block per (chunk, head, batch): exp(cum_last)
+//     <G_c, h_c> and the float64 scans of the per-step sums into dlam;
+//   * ssd_bwd_headsum_kernel, a thread per element of dB and dC: the
+//     per-head partials summed in head order.
+// No float atomics: every sum runs in a fixed order, so two calls give
+// the same bits. Every exponent is cum_t - cum_s with s <= t (the mask
+// chosen before exp), cum_last - cum_s or cum_t, all <= 0 for decays
+// lam <= 0: exp(-cum) is never formed. Rows past L and columns past N
+// or P are zero-filled and never stored.
+
+// threads of a backward block (a 16 x 16 grid); the tile kernels ask for
+// two blocks an SM, which caps them at 128 registers: ptxas left to
+// itself squeezed two instances to 64 and spilled
+constexpr int kBT = 256;
+constexpr int kTS = kR + 1;   // row stride of a 64-wide fp32 tile (odd: no bank conflicts)
+
+template <int NT>
+struct BwdCfg {
+  static constexpr int NS = NT + 1;       // row stride of a B / C tile
+  static constexpr int NJ = NT / 16;      // 16-column groups of an N-wide output
+  static constexpr int NTILE = kR * NS;   // floats of a (64, N_pad) tile
+  static constexpr int XTILE = kR * kTS;  // floats of a (64, 64) tile
+  static constexpr int HTILE = NT * kTS;  // floats of an (N_pad, 64) state
+  static constexpr int QH = XTILE > HTILE ? XTILE : HTILE;
+  static constexpr int STATE_BYTES = (NTILE + XTILE + kR) * 4;
+  static constexpr int ROW_BYTES = (2 * NTILE + 2 * XTILE + QH + 2 * kR) * 4;
+  static constexpr int COL_BYTES = (2 * NTILE + 4 * XTILE + 2 * kR) * 4;
+  static_assert(2 * XTILE >= HTILE, "G_c fits the W and Q tiles");
+  static_assert(NTILE >= 16 * kR, "the column sums fit the C tile");
+};
+
+// dst[r * ds + c] = src[r * ld + c] for r < vr and c < vc, 0 elsewhere of
+// a ROWS x COLS tile, by the block's kBT threads.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void load_tile(float* dst, int ds, const float* __restrict__ src,
+                                          int64_t ld, int vr, int vc, int tid) {
+#pragma unroll 4
+  for (int i = tid; i < ROWS * COLS; i += kBT) {
+    const int r = i / COLS, c = i % COLS;
+    dst[r * ds + c] = r < vr && c < vc ? src[r * ld + c] : 0.f;
+  }
+}
+
+// acc[i][j] += sum_{k < K} A(ty + 16 i, k) B(k, tx + 16 j) over fp32 tiles
+// in shared memory: A(r, k) = A[r * lda + k] (A[k * lda + r] when AT),
+// B(k, c) = Bv[k * ldb + c] (Bv[c * ldb + k] when BT). A warp's loads of
+// A hit two addresses, of B sixteen in distinct banks (odd strides).
+template <bool AT, bool BT, int MI, int NJ>
+__device__ __forceinline__ void tile_mm(float (&acc)[MI][NJ], const float* A, int lda,
+                                        const float* Bv, int ldb, int K, int ty, int tx) {
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    float a[MI], b[NJ];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const int r = ty + 16 * i;
+      a[i] = AT ? A[k * lda + r] : A[r * lda + k];
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = tx + 16 * j;
+      b[j] = BT ? Bv[c * ldb + k] : Bv[k * ldb + c];
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// The sum over the 16 threads of a row of the block grid (tx = 0 .. 15,
+// one half of a warp), in a fixed order; every one of them gets it.
+__device__ __forceinline__ float row_sum16(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off, 16);
+  return v;
+}
+
+// grid (nc - 1, H, B), kBT threads: the increment R = sum_t exp(cum_t)
+// C_t (x) dy_t of chunk c = blockIdx.x + 1 of lane (b, h), into slot c - 1
+// of g_ws. Thread (ty, tx) holds R[ty + 16 i][tx + 16 j].
+template <int NT>
+__global__ void __launch_bounds__(kBT, 2)
+    ssd_bwd_state_kernel(const float* __restrict__ Cm, const float* __restrict__ dy,
+                         const float* __restrict__ cum_ws, float* __restrict__ g_ws, int T_len,
+                         int H, int N, int P, int L, int nc) {
+  using S = BwdCfg<NT>;
+  extern __shared__ float4 smem_raw[];
+  float* Cs = reinterpret_cast<float*>(smem_raw);
+  float* Ds = Cs + S::NTILE;
+  float* ec = Ds + S::XTILE;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int c = blockIdx.x + 1, h = blockIdx.y, b = blockIdx.z;
+  const int RT = (L + kR - 1) / kR, Lpad = RT * kR;
+  const int64_t row0 = static_cast<int64_t>(b) * T_len + static_cast<int64_t>(c) * L;
+  const int64_t xld = static_cast<int64_t>(H) * P;
+  const float* cum = cum_ws + ((static_cast<int64_t>(b) * H + h) * nc + c) * Lpad;
+  float acc[S::NJ][4];
+#pragma unroll
+  for (int i = 0; i < S::NJ; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int st = 0; st < RT; ++st) {
+    const int t0 = st * kR, vt = min(kR, L - t0);
+    __syncthreads();   // the last tile is used
+    load_tile<kR, NT>(Cs, S::NS, Cm + (row0 + t0) * N, N, vt, N, tid);
+    load_tile<kR, kR>(Ds, kTS, dy + (row0 + t0) * xld + h * P, xld, vt, P, tid);
+    if (tid < kR) ec[tid] = expf(cum[t0 + tid]);
+    __syncthreads();
+    for (int i = tid; i < kR * NT; i += kBT) Cs[(i / NT) * S::NS + i % NT] *= ec[i / NT];
+    __syncthreads();
+    tile_mm<true, false>(acc, Cs, S::NS, Ds, kTS, kR, ty, tx);
+  }
+  float* out = g_ws + ((static_cast<int64_t>(b) * (nc - 1) + c - 1) * H + h) * (NT * kPT);
+#pragma unroll
+  for (int i = 0; i < S::NJ; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[(ty + 16 * i) * kPT + tx + 16 * j] = acc[i][j];
+}
+
+// grid (N_pad * 64 / 256, H, B), 256 threads: G from the last chunk back,
+// one thread per state element of a lane, in place: slot c of g_ws holds
+// the increment of chunk c + 1 and becomes G_c = exp(cum_last of chunk
+// c + 1) G_{c+1} + that increment, from G_{nc-1} = 0.
+__global__ void __launch_bounds__(kStateThreads)
+    ssd_bwd_handoff_kernel(const float* __restrict__ cum_ws, float* __restrict__ g_ws, int H,
+                           int L, int nc, int elems) {
+  const int i = blockIdx.x * kStateThreads + threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int Lpad = (L + kR - 1) / kR * kR;
+  const float* cum = cum_ws + (static_cast<int64_t>(b) * H + h) * nc * Lpad + L - 1;
+  float* gp = g_ws + (static_cast<int64_t>(b) * (nc - 1) * H + h) * elems + i;
+  const int64_t slot = static_cast<int64_t>(H) * elems;
+  float g = 0.f;
+  for (int c = nc - 2; c >= 0; --c) {
+    g = fmaf(g, expf(cum[static_cast<int64_t>(c + 1) * Lpad]), gp[c * slot]);
+    gp[c * slot] = g;
+  }
+}
+
+// The 64-step tile, head, batch row and chunk that block blockIdx.x of a
+// row or column kernel takes (grid RT * H * B * nc).
+struct TileIdx {
+  int tile, h, b, c;
+};
+__device__ __forceinline__ TileIdx tile_index(int RT, int H, int B) {
+  int64_t lin = blockIdx.x;
+  TileIdx r;
+  r.tile = static_cast<int>(lin % RT);
+  lin /= RT;
+  r.h = static_cast<int>(lin % H);
+  lin /= H;
+  r.b = static_cast<int>(lin % B);
+  r.c = static_cast<int>(lin / B);
+  return r;
+}
+
+// Row kernel: rows t of one 64-step tile. Per column tile s <= t: the
+// scores C B^T and D = dy x^T, E = exp(cum_t - cum_s) (s <= t), Q = D E
+// into shared memory, dC += Q B, and the row sums of Z = D (C B^T) E
+// (s < t). Then, for c > 0, dC += exp(cum_t) h_c dy_t and iota. Writes
+// dC's per-head partial (B, T, H, N) and planes 0 (sum_s Z) and 1 (iota)
+// of part_ws. Thread (ty, tx) holds rows ty + 16 i and columns tx + 16 j.
+template <int NT>
+__global__ void __launch_bounds__(kBT, 2)
+    ssd_bwd_row_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
+                       const float* __restrict__ x, const float* __restrict__ dy,
+                       const float* __restrict__ cum_ws, const float* __restrict__ h_ws,
+                       float* __restrict__ dC_part, float* __restrict__ part_ws, int B, int T_len,
+                       int H, int N, int P, int L, int nc) {
+  using S = BwdCfg<NT>;
+  extern __shared__ float4 smem_raw[];
+  float* Ct = reinterpret_cast<float*>(smem_raw);
+  float* Dt = Ct + S::NTILE;     // dy of the rows
+  float* Bs = Dt + S::XTILE;
+  float* Xs = Bs + S::NTILE;
+  float* Qs = Xs + S::XTILE;     // Q of a tile pair, then h_c
+  float* cumt = Qs + S::QH;
+  float* cums = cumt + kR;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int RT = (L + kR - 1) / kR, Lpad = RT * kR;
+  const TileIdx ix = tile_index(RT, H, B);
+  const int h = ix.h, b = ix.b, c = ix.c, rt = ix.tile;
+  const int t0 = rt * kR, vt = min(kR, L - t0);
+  const int64_t row0 = static_cast<int64_t>(b) * T_len + static_cast<int64_t>(c) * L;
+  const int64_t xld = static_cast<int64_t>(H) * P;
+  const int64_t lane_off = ((static_cast<int64_t>(b) * H + h) * nc + c) * Lpad;
+  const float* cum = cum_ws + lane_off;
+  load_tile<kR, NT>(Ct, S::NS, Cm + (row0 + t0) * N, N, vt, N, tid);
+  load_tile<kR, kR>(Dt, kTS, dy + (row0 + t0) * xld + h * P, xld, vt, P, tid);
+  if (tid < kR) cumt[tid] = cum[t0 + tid];
+  float dc[4][S::NJ], rowz[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    rowz[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < S::NJ; ++j) dc[i][j] = 0.f;
+  }
+  for (int kt = 0; kt <= rt; ++kt) {
+    const int s0 = kt * kR, vs = min(kR, L - s0);
+    __syncthreads();   // the last tile's B, x and Q are used
+    load_tile<kR, NT>(Bs, S::NS, Bm + (row0 + s0) * N, N, vs, N, tid);
+    load_tile<kR, kR>(Xs, kTS, x + (row0 + s0) * xld + h * P, xld, vs, P, tid);
+    if (tid < kR) cums[tid] = cum[s0 + tid];
+    __syncthreads();
+    float cb[4][4], d[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) cb[i][j] = d[i][j] = 0.f;
+    tile_mm<false, true>(cb, Ct, S::NS, Bs, S::NS, NT, ty, tx);
+    tile_mm<false, true>(d, Dt, kTS, Xs, kTS, kR, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int t = ty + 16 * i, s = tx + 16 * j;
+        const bool live = t < vt && s < vs && (kt < rt || s <= t);
+        const float e = live ? expf(cumt[t] - cums[s]) : 0.f;
+        if (kt < rt || s < t) rowz[i] = fmaf(d[i][j], cb[i][j] * e, rowz[i]);
+        Qs[t * kTS + s] = d[i][j] * e;
+      }
+    __syncthreads();
+    tile_mm<false, false>(dc, Qs, kTS, Bs, S::NS, kR, ty, tx);
+  }
+  float iota[4] = {0.f, 0.f, 0.f, 0.f};
+  if (c > 0) {   // dC += exp(cum_t) h_c dy_t; iota_t = exp(cum_t) C_t . h_c dy_t
+    __syncthreads();   // Q is used
+    const float* hp =
+        h_ws + ((static_cast<int64_t>(b) * (nc - 1) + c - 1) * H + h) * (NT * kPT);
+    load_tile<NT, kR>(Qs, kTS, hp, kPT, NT, kPT, tid);
+    __syncthreads();
+    float v[4][S::NJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < S::NJ; ++j) v[i][j] = 0.f;
+    tile_mm<false, true>(v, Dt, kTS, Qs, kTS, kR, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = ty + 16 * i;
+      const float e = t < vt ? expf(cumt[t]) : 0.f;
+#pragma unroll
+      for (int j = 0; j < S::NJ; ++j) {
+        dc[i][j] = fmaf(e, v[i][j], dc[i][j]);
+        iota[i] = fmaf(Ct[t * S::NS + tx + 16 * j], v[i][j], iota[i]);
+      }
+      iota[i] *= e;
+    }
+  }
+  const int64_t plane = static_cast<int64_t>(B) * H * nc * Lpad;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = ty + 16 * i;
+    const float rz = row_sum16(rowz[i]), io = row_sum16(iota[i]);
+    if (t >= vt) continue;
+    if (tx == 0) {
+      part_ws[lane_off + t0 + t] = rz;
+      part_ws[plane + lane_off + t0 + t] = io;
+    }
+    float* out = dC_part + ((row0 + t0 + t) * H + h) * N;
+#pragma unroll
+    for (int j = 0; j < S::NJ; ++j)
+      if (tx + 16 * j < N) out[tx + 16 * j] = dc[i][j];
+  }
+}
+
+// Column kernel: steps s of one 64-step tile. Per row tile t >= s: the
+// scores, D and E as the row kernel forms them, W = (C B^T) E and Q = D E
+// into shared memory, dx += W^T dy, dB += Q^T C, and the column sums of Z
+// (t > s). Then, for c < nc - 1, dx += e_s G_c^T B_s, dB += e_s G_c x_s
+// and sigma. Writes dx (B, T, H, P), dB's per-head partial (B, T, H, N)
+// and planes 2 (sum_t Z) and 3 (sigma) of part_ws.
+template <int NT>
+__global__ void __launch_bounds__(kBT, 2)
+    ssd_bwd_col_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
+                       const float* __restrict__ x, const float* __restrict__ dy,
+                       const float* __restrict__ cum_ws, const float* __restrict__ g_ws,
+                       float* __restrict__ dx, float* __restrict__ dB_part,
+                       float* __restrict__ part_ws, int B, int T_len, int H, int N, int P, int L,
+                       int nc) {
+  using S = BwdCfg<NT>;
+  extern __shared__ float4 smem_raw[];
+  float* Bs = reinterpret_cast<float*>(smem_raw);
+  float* Xs = Bs + S::NTILE;
+  float* Ct = Xs + S::XTILE;     // C of a row tile, then the column sums
+  float* Dt = Ct + S::NTILE;
+  float* Ws = Dt + S::XTILE;     // W and Q of a tile pair, then G_c
+  float* Qs = Ws + S::XTILE;
+  float* cums = Qs + S::XTILE;
+  float* cumt = cums + kR;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int RT = (L + kR - 1) / kR, Lpad = RT * kR;
+  const TileIdx ix = tile_index(RT, H, B);
+  const int h = ix.h, b = ix.b, c = ix.c, st = ix.tile;
+  const int s0 = st * kR, vs = min(kR, L - s0);
+  const int64_t row0 = static_cast<int64_t>(b) * T_len + static_cast<int64_t>(c) * L;
+  const int64_t xld = static_cast<int64_t>(H) * P;
+  const int64_t lane_off = ((static_cast<int64_t>(b) * H + h) * nc + c) * Lpad;
+  const float* cum = cum_ws + lane_off;
+  load_tile<kR, NT>(Bs, S::NS, Bm + (row0 + s0) * N, N, vs, N, tid);
+  load_tile<kR, kR>(Xs, kTS, x + (row0 + s0) * xld + h * P, xld, vs, P, tid);
+  if (tid < kR) cums[tid] = cum[s0 + tid];
+  float dxa[4][4], dba[4][S::NJ], colz[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    colz[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dxa[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < S::NJ; ++j) dba[i][j] = 0.f;
+  }
+  for (int rt = st; rt < RT; ++rt) {
+    const int t0 = rt * kR, vt = min(kR, L - t0);
+    __syncthreads();   // the last tile's C, dy, W and Q are used
+    load_tile<kR, NT>(Ct, S::NS, Cm + (row0 + t0) * N, N, vt, N, tid);
+    load_tile<kR, kR>(Dt, kTS, dy + (row0 + t0) * xld + h * P, xld, vt, P, tid);
+    if (tid < kR) cumt[tid] = cum[t0 + tid];
+    __syncthreads();
+    float cb[4][4], d[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) cb[i][j] = d[i][j] = 0.f;
+    tile_mm<false, true>(cb, Ct, S::NS, Bs, S::NS, NT, ty, tx);
+    tile_mm<false, true>(d, Dt, kTS, Xs, kTS, kR, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int t = ty + 16 * i, s = tx + 16 * j;
+        const bool live = t < vt && s < vs && (rt > st || s <= t);
+        const float e = live ? expf(cumt[t] - cums[s]) : 0.f;
+        const float w = cb[i][j] * e;
+        if (rt > st || s < t) colz[j] = fmaf(d[i][j], w, colz[j]);
+        Ws[t * kTS + s] = w;
+        Qs[t * kTS + s] = d[i][j] * e;
+      }
+    __syncthreads();
+    tile_mm<true, false>(dxa, Ws, kTS, Dt, kTS, kR, ty, tx);
+    tile_mm<true, false>(dba, Qs, kTS, Ct, S::NS, kR, ty, tx);
+  }
+  float sig[4] = {0.f, 0.f, 0.f, 0.f};
+  if (c < nc - 1) {   // the state terms of G_c
+    float* Gs = Ws;
+    __syncthreads();   // W and Q are used
+    load_tile<NT, kR>(Gs, kTS,
+                      g_ws + ((static_cast<int64_t>(b) * (nc - 1) + c) * H + h) * (NT * kPT),
+                      kPT, NT, kPT, tid);
+    __syncthreads();
+    float bg[4][4], u[4][S::NJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bg[i][j] = 0.f;
+#pragma unroll
+      for (int j = 0; j < S::NJ; ++j) u[i][j] = 0.f;
+    }
+    tile_mm<false, false>(bg, Bs, S::NS, Gs, kTS, NT, ty, tx);   // (B G)[s][p]
+    tile_mm<false, true>(u, Xs, kTS, Gs, kTS, kR, ty, tx);       // (G x_s)[n]
+    const float last = cum[L - 1];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = ty + 16 * i;
+      const float e = s < vs ? expf(last - cums[s]) : 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dxa[i][j] = fmaf(e, bg[i][j], dxa[i][j]);
+#pragma unroll
+      for (int j = 0; j < S::NJ; ++j) {
+        dba[i][j] = fmaf(e, u[i][j], dba[i][j]);
+        sig[i] = fmaf(Bs[s * S::NS + tx + 16 * j], u[i][j], sig[i]);
+      }
+      sig[i] *= e;
+    }
+  }
+  // the column sums of Z: thread (ty, tx) holds columns tx + 16 j of rows
+  // ty + 16 i; the 16 rows of the block grid are added in order
+  __syncthreads();   // C is used
+  float* red = Ct;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) red[ty * kR + tx + 16 * j] = colz[j];
+  __syncthreads();
+  const int64_t plane = static_cast<int64_t>(B) * H * nc * Lpad;
+  if (tid < vs) {
+    float z = 0.f;
+    for (int r = 0; r < 16; ++r) z += red[r * kR + tid];
+    part_ws[2 * plane + lane_off + s0 + tid] = z;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = ty + 16 * i;
+    const float sg = row_sum16(sig[i]);
+    if (s >= vs) continue;
+    if (tx == 0) part_ws[3 * plane + lane_off + s0 + s] = sg;
+    float* xo = dx + ((row0 + s0 + s) * H + h) * static_cast<int64_t>(P);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (tx + 16 * j < P) xo[tx + 16 * j] = dxa[i][j];
+    float* bo = dB_part + ((row0 + s0 + s) * H + h) * N;
+#pragma unroll
+    for (int j = 0; j < S::NJ; ++j)
+      if (tx + 16 * j < N) bo[tx + 16 * j] = dba[i][j];
+  }
+}
+
+// The sum of v over the block's kBT threads, in a fixed order (a warp's
+// butterfly, then the warps in order); every thread gets it.
+__device__ __forceinline__ double block_sum(double v, double* wred) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  __syncthreads();   // wred is free
+  if (lane == 0) wred[warp] = v;
+  __syncthreads();
+  double s = 0.0;
+  for (int w = 0; w < kBT / 32; ++w) s += wred[w];
+  return s;
+}
+
+// grid (nc, H, B), kBT threads: dlam of chunk c of lane (b, h). With a_t
+// = iota_t, b_t = sum_s Z_ts - sum_t' Z_t't (planes 0 - 2) and sigma_t
+// (plane 3), in float64: dlam_0 = sum_t a_t + gh, and for i >= 1 dlam_i =
+// sum_{t>=i} (a_t + b_t) + sum_{s<i} sigma_s + gh, gh = exp(cum_last)
+// <G_c, h_c>. Each thread scans a run of ceil(L / kBT) steps; a warp's
+// runs are scanned with shuffles and the warps' totals added in order
+// (as chunk_scan), so the sums' order is fixed.
+__global__ void __launch_bounds__(kBT)
+    ssd_bwd_dlam_kernel(const float* __restrict__ cum_ws, const float* __restrict__ part_ws,
+                        const float* __restrict__ g_ws, const float* __restrict__ h_ws,
+                        float* __restrict__ dlam, int B, int T_len, int H, int L, int nc,
+                        int elems) {
+  __shared__ double wred[kBT / 32], wab[kBT / 32], wsg[kBT / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int Lpad = (L + kR - 1) / kR * kR;
+  const int64_t lane_off = ((static_cast<int64_t>(b) * H + h) * nc + c) * Lpad;
+  const int64_t plane = static_cast<int64_t>(B) * H * nc * Lpad;
+  const float* rowz = part_ws + lane_off;
+  const float* iota = rowz + plane;
+  const float* colz = rowz + 2 * plane;
+  const float* sig = rowz + 3 * plane;
+  double gh = 0.0;
+  if (c > 0 && c < nc - 1) {   // h_0 = 0 and G_{nc-1} = 0
+    const float* gp = g_ws + ((static_cast<int64_t>(b) * (nc - 1) + c) * H + h) * elems;
+    const float* hp = h_ws + ((static_cast<int64_t>(b) * (nc - 1) + c - 1) * H + h) * elems;
+    double s = 0.0;
+    for (int i = tid; i < elems; i += kBT) s += static_cast<double>(gp[i]) * hp[i];
+    gh = static_cast<double>(expf(cum_ws[lane_off + L - 1])) * block_sum(s, wred);
+  }
+  const int seg = (L + kBT - 1) / kBT;
+  const int i0 = min(tid * seg, L), i1 = min(i0 + seg, L);
+  double ab = 0.0, sg = 0.0, bb = 0.0;
+  for (int t = i0; t < i1; ++t) {
+    const double bt = static_cast<double>(rowz[t]) - static_cast<double>(colz[t]);
+    ab += static_cast<double>(iota[t]) + bt;
+    sg += static_cast<double>(sig[t]);
+    bb += bt;
+  }
+  double iab = ab, isg = sg;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double va = __shfl_up_sync(0xffffffffu, iab, off);
+    const double vs = __shfl_up_sync(0xffffffffu, isg, off);
+    if (lane >= off) {
+      iab += va;
+      isg += vs;
+    }
+  }
+  double run_ab = __shfl_up_sync(0xffffffffu, iab, 1);
+  double run_sg = __shfl_up_sync(0xffffffffu, isg, 1);
+  if (lane == 0) run_ab = run_sg = 0.0;
+  if (lane == 31) {
+    wab[warp] = iab;
+    wsg[warp] = isg;
+  }
+  const double tot_b = block_sum(bb, wred);   // its barriers publish wab and wsg
+  double tot_ab = 0.0;
+  for (int w = 0; w < kBT / 32; ++w) {
+    if (w < warp) {
+      run_ab += wab[w];
+      run_sg += wsg[w];
+    }
+    tot_ab += wab[w];
+  }
+  float* out = dlam + (static_cast<int64_t>(b) * T_len + static_cast<int64_t>(c) * L) * H + h;
+  for (int t = i0; t < i1; ++t) {
+    const double v = (t == 0 ? tot_ab - tot_b : tot_ab - run_ab) + run_sg + gh;
+    out[static_cast<int64_t>(t) * H] = static_cast<float>(v);
+    run_ab += static_cast<double>(iota[t]) +
+              (static_cast<double>(rowz[t]) - static_cast<double>(colz[t]));
+    run_sg += static_cast<double>(sig[t]);
+  }
+}
+
+// grid (ceil(B T N / 256), 2), 256 threads: dB (blockIdx.y 0) or dC (1)
+// of one (b, t, n) each, the per-head partials (B, T, H, N) summed in
+// head order.
+__global__ void __launch_bounds__(kBT)
+    ssd_bwd_headsum_kernel(const float* __restrict__ dB_part, const float* __restrict__ dC_part,
+                           float* __restrict__ dB, float* __restrict__ dC, int64_t rows, int H,
+                           int N) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kBT + threadIdx.x;
+  if (i >= rows * N) return;
+  const int64_t r = i / N, n = i % N;
+  const float* src = (blockIdx.y == 0 ? dB_part : dC_part) + r * H * N + n;
+  float s = 0.f;
+  for (int h = 0; h < H; ++h) s += src[static_cast<int64_t>(h) * N];
+  (blockIdx.y == 0 ? dB : dC)[i] = s;
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -803,6 +1352,71 @@ cudaError_t dispatch_n(const Args& a, int head_tile) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+struct BwdArgs {
+  const float *Bm, *Cm, *x, *dy, *cum_ws, *h_ws;
+  float *dlam, *dB, *dC, *dx, *g_ws, *part_ws, *dB_part, *dC_part;
+  int B, T, H, N, P, L, nc;
+  cudaStream_t st;
+};
+
+// The backward's kernels in order: the increments and the reverse
+// hand-off of G (two chunks or more), the row and column kernels, dlam,
+// and the head sums of dB and dC.
+template <int NT>
+cudaError_t launch_bwd(const BwdArgs& a) {
+  using S = BwdCfg<NT>;
+  static std::once_flag flags[3][kMaxDevices];
+  static cudaError_t results[3][kMaxDevices];
+  constexpr int elems = NT * kPT;
+  cudaError_t err;
+  if (a.nc > 1) {
+    auto state = ssd_bwd_state_kernel<NT>;
+    err = allow_smem(state, S::STATE_BYTES, flags[0], results[0]);
+    if (err != cudaSuccess) return err;
+    state<<<dim3(static_cast<unsigned>(a.nc - 1), static_cast<unsigned>(a.H),
+                 static_cast<unsigned>(a.B)),
+            kBT, S::STATE_BYTES, a.st>>>(a.Cm, a.dy, a.cum_ws, a.g_ws, a.T, a.H, a.N, a.P, a.L,
+                                         a.nc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ssd_bwd_handoff_kernel<<<dim3(elems / kStateThreads, static_cast<unsigned>(a.H),
+                                  static_cast<unsigned>(a.B)),
+                             kStateThreads, 0, a.st>>>(a.cum_ws, a.g_ws, a.H, a.L, a.nc, elems);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t blocks = static_cast<int64_t>((a.L + kR - 1) / kR) * a.H * a.B * a.nc;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto row = ssd_bwd_row_kernel<NT>;
+  err = allow_smem(row, S::ROW_BYTES, flags[1], results[1]);
+  if (err != cudaSuccess) return err;
+  row<<<static_cast<unsigned>(blocks), kBT, S::ROW_BYTES, a.st>>>(
+      a.Bm, a.Cm, a.x, a.dy, a.cum_ws, a.h_ws, a.dC_part, a.part_ws, a.B, a.T, a.H, a.N, a.P,
+      a.L, a.nc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto col = ssd_bwd_col_kernel<NT>;
+  err = allow_smem(col, S::COL_BYTES, flags[2], results[2]);
+  if (err != cudaSuccess) return err;
+  col<<<static_cast<unsigned>(blocks), kBT, S::COL_BYTES, a.st>>>(
+      a.Bm, a.Cm, a.x, a.dy, a.cum_ws, a.g_ws, a.dx, a.dB_part, a.part_ws, a.B, a.T, a.H, a.N,
+      a.P, a.L, a.nc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_bwd_dlam_kernel<<<dim3(static_cast<unsigned>(a.nc), static_cast<unsigned>(a.H),
+                             static_cast<unsigned>(a.B)),
+                        kBT, 0, a.st>>>(a.cum_ws, a.part_ws, a.g_ws, a.h_ws, a.dlam, a.B, a.T,
+                                        a.H, a.L, a.nc, elems);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t rows = static_cast<int64_t>(a.B) * a.T;
+  const int64_t sum_blocks = (rows * a.N + kBT - 1) / kBT;
+  if (sum_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  ssd_bwd_headsum_kernel<<<dim3(static_cast<unsigned>(sum_blocks), 2), kBT, 0, a.st>>>(
+      a.dB_part, a.dC_part, a.dB, a.dC, rows, a.H, a.N);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -854,6 +1468,52 @@ int ssd_chunk_fwd(const void* lam, const void* Bm, const void* Cm, const void* x
     case kF16: return static_cast<int>(dispatch_n<__half>(a, ht));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The gradients of ssd_chunk_fwd's y against dy (B, T, H, P), all fp32
+// and row-major: Bm, Cm (B, T, N) and x (B, T, H, P) as the forward took
+// them, and the forward's cum_ws and (when nc > 1) h_ws, holding its
+// prefix sums and chunk-start states. Outputs dlam (B, T, H), dBm, dCm
+// (B, T, N), dx (B, T, H, P). Workspaces, fp32: g_ws (B, nc - 1, H, N_pad,
+// 64) when nc > 1, part_ws (4, B, H, nc, Lpad), dB_part and dC_part (B, T,
+// H, N). 1 <= N <= 128, 1 <= P <= 64. Six kernels on `stream` (four when
+// nc = 1).
+int ssd_chunk_bwd(const void* Bm, const void* Cm, const void* x, const void* dy,
+                  const void* cum_ws, const void* h_ws, void* dlam, void* dBm, void* dCm, void* dx,
+                  void* g_ws, void* part_ws, void* dB_part, void* dC_part, int64_t B,
+                  int64_t T_len, int64_t H, int64_t N, int64_t P, int64_t L, void* stream) {
+  if (B <= 0 || B > 65535 || T_len <= 0 || T_len > 0x7fffffffLL || H <= 0 || H > 65535 ||
+      N < 1 || N > 128 || P < 1 || P > kPT || L <= 0 || T_len % L != 0 ||
+      (T_len > L && (h_ws == nullptr || g_ws == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a{static_cast<const float*>(Bm),
+            static_cast<const float*>(Cm),
+            static_cast<const float*>(x),
+            static_cast<const float*>(dy),
+            static_cast<const float*>(cum_ws),
+            static_cast<const float*>(h_ws),
+            static_cast<float*>(dlam),
+            static_cast<float*>(dBm),
+            static_cast<float*>(dCm),
+            static_cast<float*>(dx),
+            static_cast<float*>(g_ws),
+            static_cast<float*>(part_ws),
+            static_cast<float*>(dB_part),
+            static_cast<float*>(dC_part),
+            static_cast<int>(B),
+            static_cast<int>(T_len),
+            static_cast<int>(H),
+            static_cast<int>(N),
+            static_cast<int>(P),
+            static_cast<int>(L),
+            static_cast<int>(T_len / L),
+            static_cast<cudaStream_t>(stream)};
+  cudaError_t err;
+  if (N <= 16) err = launch_bwd<16>(a);
+  else if (N <= 32) err = launch_bwd<32>(a);
+  else if (N <= 64) err = launch_bwd<64>(a);
+  else err = launch_bwd<128>(a);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

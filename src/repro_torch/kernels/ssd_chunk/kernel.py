@@ -13,7 +13,15 @@ state from chunk to chunk (``ssd_handoff_kernel``); one block per
 (``ssd_out_kernel``). Every product runs on the tensor cores in three
 TF32 passes. The wrapper allocates the fp32 workspaces (prefix sums,
 scores, chunk-start states) with ``torch.empty`` and pads bf16 / fp16
-rows to 16 bytes.
+rows to 16 bytes; with ``return_saved`` it hands back the prefix sums and
+the chunk-start states.
+
+``ssd_chunk_bwd`` is the scan's backward (no ``pallas_call`` of the
+reference: ``jax.vjp`` of its ``chunk_step``), fp32 only, from the
+forward's saved prefix sums and states: :func:`bwd_device_kernels` device
+kernels on the CUDA cores (the increments of the state's gradient and
+their reverse hand-off, a row and a column kernel over the causal tile
+pairs, the float64 scans into dlam, the head sums of dB and dC).
 
 On a CPU tensor the wrapper returns its plain version from ``ref.py``; on
 a CUDA tensor it launches the kernels on the current stream or raises. It
@@ -24,15 +32,19 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels._build import load_library
-from repro_torch.kernels.ssd_chunk.ref import chunk_len, ssd_scan_ref
+from repro_torch.kernels.ssd_chunk.ref import (
+    chunk_len,
+    ssd_scan_bwd_ref,
+    ssd_scan_ref,
+)
 from repro_torch.utils.device import sm_count
 
-LAUNCHES: Dict[str, int] = {"ssd_chunk": 0}
+LAUNCHES: Dict[str, int] = {"ssd_chunk": 0, "ssd_chunk_bwd": 0}
 _COUNT_LOCK = threading.Lock()
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -58,6 +70,8 @@ def _library() -> ctypes.CDLL:
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.ssd_chunk_fwd.argtypes = [ptr] * 8 + [i64] * 8 + [ptr]
         lib.ssd_chunk_fwd.restype = ctypes.c_int
+        lib.ssd_chunk_bwd.argtypes = [ptr] * 14 + [i64] * 6 + [ptr]
+        lib.ssd_chunk_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -71,6 +85,13 @@ def device_kernels(T: int, chunk: int = 256) -> int:
     the hand-off of the state from chunk to chunk (when there are two
     chunks or more), and the output."""
     return 3 if T // chunk_len(T, chunk) > 1 else 2
+
+
+def bwd_device_kernels(T: int, chunk: int = 256) -> int:
+    """Device kernels one backward call runs: the state gradient's
+    increments and their hand-off (when there are two chunks or more),
+    the row and column kernels, dlam, and the head sums."""
+    return 6 if T // chunk_len(T, chunk) > 1 else 4
 
 
 def state_pad(N: int) -> int:
@@ -139,21 +160,31 @@ def _rows16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+Saved = Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]]
+
+
 def ssd_chunk(lam: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
-              xdt: torch.Tensor, *, chunk: int = 256) -> torch.Tensor:
+              xdt: torch.Tensor, *, chunk: int = 256,
+              return_saved: bool = False):
     """The SSD scan: lam (B, T, H) log-decays, Bm / Cm (B, T, N) shared
     across heads, xdt (B, T, H, P) dt-scaled inputs -> y (B, T, H, P)
     fp32, in chunks of ``chunk_len(T, chunk)`` steps (the whole sequence
-    when ``chunk`` does not divide T). lam is taken in fp32."""
+    when ``chunk`` does not divide T). lam is taken in fp32. With
+    ``return_saved``, (y, saved): on the card ``saved`` is (the prefix
+    sums (B, H, nc, Lpad), the chunk-start states (B, nc - 1, H, N_pad,
+    64) or None for one chunk), what ``ssd_chunk_bwd`` takes; None on the
+    CPU and for empty inputs."""
     check_inputs(lam, Bm, Cm, xdt)
     L = chunk_len(lam.shape[1], int(chunk))
     if lam.device.type == "cpu":
-        return ssd_scan_ref(lam, Bm, Cm, xdt, chunk=chunk)
+        y = ssd_scan_ref(lam, Bm, Cm, xdt, chunk=chunk)
+        return (y, None) if return_saved else y
     B, T, H = lam.shape
     P_out = xdt.shape[3]
     if B == 0 or T == 0 or H == 0:
-        return torch.empty((B, T, H, P_out), dtype=torch.float32,
-                           device=lam.device)
+        y = torch.empty((B, T, H, P_out), dtype=torch.float32,
+                        device=lam.device)
+        return (y, None) if return_saved else y
     if Bm.dtype != torch.float32:
         Bm, Cm, xdt = (_rows16(t) for t in (Bm, Cm, xdt))
     N, P = Bm.shape[2], xdt.shape[3]
@@ -182,4 +213,71 @@ def ssd_chunk(lam: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ssd_chunk_fwd launch failed: CUDA error {err}")
     _count("ssd_chunk")
-    return y if P == P_out else y[..., :P_out].contiguous()
+    y = y if P == P_out else y[..., :P_out].contiguous()
+    return (y, (cum, states)) if return_saved else y
+
+
+def ssd_chunk_bwd(lam: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                  xdt: torch.Tensor, dy: torch.Tensor, *, chunk: int = 256,
+                  saved: Saved = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """The gradients (dlam (B, T, H), dBm, dCm (B, T, N), dxdt (B, T, H,
+    P)) of ``ssd_chunk``'s y against dy (B, T, H, P), fp32. Every input is
+    fp32 (the model feeds the scan fp32); dy may be non-contiguous. On the
+    card ``saved`` is what ``ssd_chunk(..., return_saved=True)`` returned
+    for the same inputs and chunk; on the CPU the plain version
+    ``ssd_scan_bwd_ref`` runs and ``saved`` is not read."""
+    check_inputs(lam, Bm, Cm, xdt)
+    if tuple(dy.shape) != tuple(xdt.shape) or dy.device != xdt.device:
+        raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} does not "
+                         f"match xdt {tuple(xdt.shape)} on {xdt.device}")
+    for name, t in (("lam", lam), ("Bm", Bm), ("Cm", Cm), ("xdt", xdt),
+                    ("dy", dy)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"the SSD backward takes fp32 only; {name} is "
+                            f"{t.dtype}")
+    dy = dy.contiguous()
+    B, T, H = lam.shape
+    N, P = Bm.shape[2], xdt.shape[3]
+    L = chunk_len(T, int(chunk))
+    if lam.device.type == "cpu":
+        return ssd_scan_bwd_ref(lam, Bm, Cm, xdt, dy, chunk=chunk)
+    dev = lam.device
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
+    if B == 0 or T == 0 or H == 0:
+        return zeros(B, T, H), zeros(B, T, N), zeros(B, T, N), \
+            zeros(B, T, H, P)
+    nc, Lpad, n_pad = T // L, -(-L // ROW_TILE) * ROW_TILE, state_pad(N)
+    if saved is None:
+        raise ValueError("ssd_chunk_bwd on the card needs the forward's "
+                         "saved prefix sums and states: pass ssd_chunk(..., "
+                         "return_saved=True)'s")
+    cum, states = saved
+    if tuple(cum.shape) != (B, H, nc, Lpad) or (
+            nc > 1 and (states is None or tuple(states.shape) != (
+                B, nc - 1, H, n_pad, MAX_HEAD_DIM))):
+        raise ValueError(f"saved prefix sums {tuple(cum.shape)} / states "
+                         f"{None if states is None else tuple(states.shape)} "
+                         f"are not the forward's of inputs {tuple(xdt.shape)}"
+                         f" at L = {L}")
+    empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
+    dlam, dB, dC, dx = empty(B, T, H), empty(B, T, N), empty(B, T, N), \
+        empty(B, T, H, P)
+    g_ws = empty(B, nc - 1, H, n_pad, MAX_HEAD_DIM) if nc > 1 else None
+    part = empty(4, B, H, nc, Lpad)
+    dB_part, dC_part = empty(B, T, H, N), empty(B, T, H, N)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.ssd_chunk_bwd(
+            Bm.data_ptr(), Cm.data_ptr(), xdt.data_ptr(), dy.data_ptr(),
+            cum.data_ptr(), ptr(states), dlam.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), dx.data_ptr(), ptr(g_ws), part.data_ptr(),
+            dB_part.data_ptr(), dC_part.data_ptr(), B, T, H, N, P, L,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ssd_chunk_bwd launch failed: CUDA error {err}")
+    _count("ssd_chunk_bwd")
+    return dlam, dB, dC, dx

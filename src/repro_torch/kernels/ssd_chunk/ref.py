@@ -2,8 +2,10 @@
 oracle ``ssd_chunk_ref`` of ``repro/kernels/ssd_chunk/ref.py`` and the
 full ``ssd_scan`` semantics of ``repro/kernels/ssd_chunk/ops.py``,
 computed as ``repro/models/layers/mamba2.py``'s ``chunk_step`` does
-(every lane at once, B and C shared across heads). What the CPU path
-runs, and what the CUDA kernel is held against on the card."""
+(every lane at once, B and C shared across heads), and ``ssd_scan_bwd_ref``,
+its gradients in closed form (what ``jax.vjp`` of ``chunk_step`` gives).
+What the CPU path runs, and what the CUDA kernels are held against on the
+card."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -89,3 +91,100 @@ def ssd_scan_ref(lam: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         return torch.zeros((B, T, H, P), dtype=torch.float32,
                            device=lam.device)
     return torch.stack(ys, dim=1).reshape(B, T, H, P)
+
+
+def _suffix_sum64(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """sum_{t >= i} v_t along ``dim``, in float64."""
+    return torch.flip(torch.cumsum(torch.flip(v.double(), (dim,)), dim),
+                      (dim,))
+
+
+def ssd_scan_bwd_ref(lam: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                     xdt: torch.Tensor, dy: torch.Tensor, *, chunk: int = 256
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """The gradients (dlam, dBm, dCm, dxdt) of ``sum(ssd_scan_ref(lam, Bm,
+    Cm, xdt, chunk=chunk) * dy)``, fp32, in closed form. Per lane and
+    chunk, with ``cum`` the chunk's prefix sums (``cumulative_decay``), h
+    the chunk-start state, G the gradient of the chunk-end state (0 after
+    the last chunk), ``e_s = exp(cum_last - cum_s)``, ``M_ts = (C_t . B_s)
+    exp(cum_t - cum_s)`` and ``D_ts = dy_t . x_s`` for s <= t:
+
+        dx_s  = sum_{t>=s} M_ts dy_t + e_s G^T B_s
+        dC_t  = sum_{s<=t} exp(cum_t - cum_s) D_ts B_s + exp(cum_t) h dy_t
+        dB_s  = sum_{t>=s} exp(cum_t - cum_s) D_ts C_t + e_s G x_s
+        dh    = exp(cum_last) G + sum_t exp(cum_t) C_t (x) dy_t
+
+    (dB, dC summed over the heads; dh is G of the chunk before). dlam_i =
+    sum_{t>=i} dcum_t, taken term by term so that nothing cancels: with
+    Z_ts = D_ts M_ts (s < t), iota_t = exp(cum_t) C_t . h dy_t and sigma_s
+    = e_s B_s . G x_s,
+
+        dlam_i = sum_{t>=i} iota_t + [i >= 1] sum_{t>=i} (sum_{s<t} Z_ts
+                 - sum_{t'>t} Z_t't) + sum_{s<i} sigma_s
+                 + exp(cum_last) <G, h>,
+
+    the sums over steps in float64 and rounded once: the Z terms of dlam_0
+    cancel exactly (no pair crosses i = 0), the state terms telescope.
+    Every exponent is a difference cum_t - cum_s with s <= t, or cum_t."""
+    B, T, H = lam.shape
+    N, P = Bm.shape[-1], xdt.shape[-1]
+    dev = lam.device
+    L = chunk_len(T, chunk)
+    nc = T // L if L else 0
+    if nc == 0:
+        z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
+        return z(B, T, H), z(B, T, N), z(B, T, N), z(B, T, H, P)
+    f = lambda a, *s: a.float().reshape(B, nc, L, *s)  # noqa: E731
+    lam_c, B_c, C_c = f(lam, H), f(Bm, N), f(Cm, N)
+    x_c, dy_c = f(xdt, H, P), f(dy, H, P)
+    cum = cumulative_decay(lam_c, 2)                           # (B, nc, L, H)
+    last = cum[:, :, -1, :]                                    # (B, nc, H)
+    # the chunk-start states, handed on as the forward hands them
+    hs = []
+    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=dev)
+    for c in range(nc):
+        hs.append(h)
+        dte = torch.exp(last[:, c, None, :] - cum[:, c])
+        S = torch.einsum("blh,blm,blhp->bhmp", dte, B_c[:, c], x_c[:, c])
+        h = h * torch.exp(last[:, c])[..., None, None] + S
+    ones = torch.ones((L, L), dtype=torch.bool, device=dev)
+    causal = ones.tril()[None, :, :, None]
+    strict = ones.tril(-1)[None, :, :, None]
+    G = torch.zeros((B, H, N, P), dtype=torch.float32, device=dev)
+    outs = [None] * nc
+    for c in reversed(range(nc)):
+        cum_, B_, C_, x_, dy_ = cum[:, c], B_c[:, c], C_c[:, c], x_c[:, c], \
+            dy_c[:, c]
+        hc = hs[c]
+        # E[t, s] = exp(cum_t - cum_s), s <= t: the mask before exp
+        diff = cum_[:, :, None, :] - cum_[:, None, :, :]      # (B, t, s, H)
+        E = torch.exp(diff.masked_fill(~causal, float("-inf")))
+        cb = torch.einsum("btm,bsm->bts", C_, B_)
+        W = cb[..., None] * E
+        D = torch.einsum("bthp,bshp->btsh", dy_, x_)
+        Q = D * E
+        Z = (D * W).masked_fill(~strict, 0.0)
+        es = torch.exp(last[:, c, None, :] - cum_)             # (B, L, H)
+        ec = torch.exp(cum_)
+        u = torch.einsum("bhnp,bshp->bshn", G, x_)             # G x_s
+        v = torch.einsum("bhnp,bthp->bthn", hc, dy_)           # h dy_t
+        dx = torch.einsum("btsh,bthp->bshp", W, dy_) \
+            + es[..., None] * torch.einsum("bsn,bhnp->bshp", B_, G)
+        dB = torch.einsum("btsh,btn->bsn", Q, C_) \
+            + torch.einsum("bsh,bshn->bsn", es, u)
+        dC = torch.einsum("btsh,bsn->btn", Q, B_) \
+            + torch.einsum("bth,bthn->btn", ec, v)
+        iota = ec * torch.einsum("btn,bthn->bth", C_, v)
+        sigma = es * torch.einsum("bsn,bshn->bsh", B_, u)
+        gh = torch.exp(last[:, c]) * torch.einsum("bhnp,bhnp->bh", G, hc)
+        intra = _suffix_sum64(Z.sum(2).double() - Z.sum(1).double(), 1)
+        intra[:, 0] = 0.0
+        before = torch.cumsum(sigma.double(), 1) - sigma.double()
+        dlam = _suffix_sum64(iota, 1) + intra + before \
+            + gh.double()[:, None, :]
+        outs[c] = (dlam.float(), dB, dC, dx)
+        G = G * torch.exp(last[:, c])[..., None, None] \
+            + torch.einsum("bth,btn,bthp->bhnp", ec, C_, dy_)
+    cat = lambda i, *s: torch.stack([o[i] for o in outs], 1).reshape(B, T, *s)  # noqa: E731
+    return cat(0, H), cat(1, N), cat(2, N), cat(3, H, P)

@@ -106,8 +106,7 @@ class Model(nn.Module):
 
     def loss(self, batch):
         raise NotImplementedError(
-            f"{self.config.arch_id}: this family has no training loss in "
-            "the port yet (ROADMAP modules item 6)")
+            f"{self.config.arch_id}: a family's Model implements loss")
 
     def forward(self, batch, **kwargs):
         return self.loss(batch, **kwargs)

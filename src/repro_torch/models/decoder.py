@@ -68,9 +68,9 @@ class DecoderLayer(nn.Module):
                        generator=generator)
 
 
-def _layer_forward(cfg: ModelConfig, layer: DecoderLayer, h: torch.Tensor,
-                   positions: torch.Tensor, window: int,
-                   attention: PrefillAttention) -> torch.Tensor:
+def layer_forward(cfg: ModelConfig, layer: DecoderLayer, h: torch.Tensor,
+                  positions: torch.Tensor, window: int,
+                  attention: PrefillAttention) -> torch.Tensor:
     x = rms_norm(h, layer.ln1, cfg.norm_eps)
     q, k, v = project_qkv(layer.attn, x, positions, cfg.rope_theta)
     h = h + attention_output(layer.attn, attention(q, k, v, window=window))
@@ -78,7 +78,7 @@ def _layer_forward(cfg: ModelConfig, layer: DecoderLayer, h: torch.Tensor,
     return h + mlp(layer.mlp, x)
 
 
-def _layer_tensors(layer: DecoderLayer) -> types.SimpleNamespace:
+def layer_tensors(layer: DecoderLayer) -> types.SimpleNamespace:
     """The layer's tensors as they are bound now, in its attribute tree.
     A checkpointed layer recomputes from these: under
     ``torch.func.functional_call`` the module's attributes are the
@@ -144,12 +144,12 @@ class Decoder(Model):
                                  device=h.device)[None].expand(B, T)
         for layer, window in zip(self.layers, self.windows):
             if remat:
-                h = checkpoint(_layer_forward, cfg, _layer_tensors(layer), h,
+                h = checkpoint(layer_forward, cfg, layer_tensors(layer), h,
                                positions, window, attention,
                                use_reentrant=False)
             else:
-                h = _layer_forward(cfg, layer, h, positions, window,
-                                   attention)
+                h = layer_forward(cfg, layer, h, positions, window,
+                                  attention)
         return rms_norm(h, self.final_norm, cfg.norm_eps)
 
     def loss(self, batch: Dict[str, torch.Tensor],

@@ -1,8 +1,10 @@
 """Mamba2 (SSD — state-space duality) block.
 
-Chunked SSD for prefill: the intra-chunk decay-masked C·Bᵀ term and the
-inter-chunk state recurrence, both inside the SSD kernel (its wrapper by
-default; a caller may pass the plain version). An O(1)-state recurrent
+Chunked SSD for prefill and training: the intra-chunk decay-masked C·Bᵀ
+term and the inter-chunk state recurrence, both inside the SSD kernel
+(its wrapper by default; a caller may pass the plain version, and
+training passes ``ssd_scan_train``, the forward and backward kernels
+behind an autograd function). An O(1)-state recurrent
 step for decode, in plain PyTorch (``repro`` has no decode kernel
 either).
 
@@ -29,6 +31,8 @@ from repro_torch.models.layers.norms import group_norm
 
 # (lam, Bm, Cm, xdt, chunk=) -> y (B, T, H, P) fp32: the kernel's wrapper
 # by default; ``kernels/ssd_chunk/ref.ssd_scan_ref`` is the plain version.
+# Training passes a differentiable one (``ops.ssd_scan_train``, or
+# ``ops.ssd_scan_train_ref`` for the plain forward and backward).
 SSD = Callable[..., torch.Tensor]
 
 

@@ -7,19 +7,33 @@ Prefill runs each Mamba layer's SSD through the SSD-scan kernel and the
 shared block's attention through the flash-attention kernel (windowed);
 a decode step carries each Mamba layer's (conv, ssm) state and gives
 each shared-block call point its own ring KV cache, read by the
-flash-decode kernel. ``repro`` stacks the Mamba layers for ``lax.scan``;
-here they are an ``nn.ModuleList`` walked by a plain loop.
+flash-decode kernel. ``loss`` trains: the scan through its forward and
+backward kernels (``ssd_scan_train``), the shared block's attention
+through flash attention's (``flash_attention_train``), each Mamba layer
+and each call point of the shared block under ``torch.utils.checkpoint``
+(as ``jax.checkpoint`` around the reference's ``m_body``), then the
+chunked next-token loss against the tied embedding. ``repro`` stacks the
+Mamba layers for ``lax.scan``; here they are an ``nn.ModuleList`` walked
+by a plain loop.
 """
 from __future__ import annotations
 
+import types
 from typing import Dict, List, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ssd_chunk.ops import ssd_scan
-from repro_torch.models.base import Model, embed_tokens, init_embedding, lm_logits
+from repro_torch.kernels.ssd_chunk.ops import ssd_scan, ssd_scan_train
+from repro_torch.models.base import (
+    Model,
+    embed_tokens,
+    init_embedding,
+    lm_logits,
+    next_token_loss,
+)
 from repro_torch.models.cache import (
     AttnCache,
     Pos,
@@ -27,10 +41,16 @@ from repro_torch.models.cache import (
     pos_tensor,
     update_attn_cache,
 )
-from repro_torch.models.decoder import DecodeAttention, PrefillAttention
+from repro_torch.models.decoder import (
+    DecodeAttention,
+    PrefillAttention,
+    layer_forward,
+    layer_tensors,
+)
 from repro_torch.models.layers.attention import (
     attention_output,
     flash_attention,
+    flash_attention_train,
     flash_decode,
     init_attention,
     project_qkv,
@@ -82,6 +102,25 @@ class MambaLayer(nn.Module):
                            device=device, generator=generator)
 
 
+def _mamba_forward(cfg: ModelConfig, dims, layer, h: torch.Tensor,
+                   ssd: SSD) -> torch.Tensor:
+    x = rms_norm(h, layer.norm, cfg.norm_eps)
+    return h + mamba2_forward(layer.cell, dims, x, ssd=ssd)
+
+
+def _mamba_tensors(layer: MambaLayer) -> types.SimpleNamespace:
+    """The layer's tensors as they are bound now (see
+    ``decoder.layer_tensors``: a checkpointed layer recomputes from the
+    tensors of the forward, the caller's under ``functional_call``)."""
+    c = layer.cell
+    return types.SimpleNamespace(
+        norm=layer.norm,
+        cell=types.SimpleNamespace(w_in=c.w_in, conv_w=c.conv_w,
+                                   dt_bias=c.dt_bias, a_log=c.a_log,
+                                   d_skip=c.d_skip,
+                                   norm_scale=c.norm_scale, w_out=c.w_out))
+
+
 class SharedBlock(nn.Module):
     """ln1, attention (no QKV bias), ln2, SwiGLU MLP: one copy, applied
     at every call point."""
@@ -121,32 +160,48 @@ class Zamba(Model):
         self.dims = dims_from_config(cfg)
         self.call_points = call_points(cfg)
 
-    def _shared_block(self, h: torch.Tensor, positions: torch.Tensor,
-                      attention: PrefillAttention) -> torch.Tensor:
-        cfg, s = self.config, self.shared
-        x = rms_norm(h, s.ln1, cfg.norm_eps)
-        q, k, v = project_qkv(s.attn, x, positions, cfg.rope_theta)
-        attn = attention(q, k, v, window=cfg.attn.sliding_window)
-        h = h + attention_output(s.attn, attn)
-        x = rms_norm(h, s.ln2, cfg.norm_eps)
-        return h + mlp(s.mlp, x)
-
     def hidden(self, tokens: torch.Tensor, ssd: SSD = ssd_scan,
-               attention: PrefillAttention = flash_attention) -> torch.Tensor:
+               attention: PrefillAttention = flash_attention,
+               remat: bool = False) -> torch.Tensor:
         """Embeds, runs the segments and the shared block between them,
-        final norm -> hidden (B, T, d)."""
+        final norm -> hidden (B, T, d). The shared block is the decoder's
+        layer (ln1, attention, ln2, SwiGLU MLP) at the config's window.
+        With ``remat`` each Mamba layer and each call point of the shared
+        block runs under ``torch.utils.checkpoint``: its activations are
+        recomputed in backward, the scan and attention included."""
         cfg = self.config
         h = embed_tokens(self.embed, tokens)
         B, T = h.shape[:2]
         positions = torch.arange(T, dtype=torch.int32,
                                  device=h.device)[None].expand(B, T)
+        window = cfg.attn.sliding_window
         for off, seg_len, shared in self.call_points:
             for layer in self.mamba[off: off + seg_len]:
-                x = rms_norm(h, layer.norm, cfg.norm_eps)
-                h = h + mamba2_forward(layer.cell, self.dims, x, ssd=ssd)
-            if shared:
-                h = self._shared_block(h, positions, attention)
+                if remat:
+                    h = checkpoint(_mamba_forward, cfg, self.dims,
+                                   _mamba_tensors(layer), h, ssd,
+                                   use_reentrant=False)
+                else:
+                    h = _mamba_forward(cfg, self.dims, layer, h, ssd)
+            if shared and remat:
+                h = checkpoint(layer_forward, cfg, layer_tensors(self.shared),
+                               h, positions, window, attention,
+                               use_reentrant=False)
+            elif shared:
+                h = layer_forward(cfg, self.shared, h, positions, window,
+                                  attention)
         return rms_norm(h, self.final_norm, cfg.norm_eps)
+
+    def loss(self, batch: Dict[str, torch.Tensor], ssd: SSD = ssd_scan_train,
+             attention: PrefillAttention = flash_attention_train,
+             remat: bool = True):
+        """(mean next-token CE, {"ce": loss}) of ``batch["tokens"]``
+        against ``batch["labels"]`` with the tied embedding as the head,
+        as ``repro.models.zamba.zamba_loss``."""
+        h = self.hidden(batch["tokens"], ssd=ssd, attention=attention,
+                        remat=remat)
+        loss = next_token_loss(h, self.embed, None, batch["labels"])
+        return loss, {"ce": loss}
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], ssd: SSD = ssd_scan,

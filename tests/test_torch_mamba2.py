@@ -30,7 +30,7 @@ DIMS = dict(d_model=32, d_inner=64, n_heads=4, head_dim=16, state=8,
 def _no_launches():
     sk.reset_launches()
     yield
-    assert sk.LAUNCHES == {"ssd_chunk": 0}
+    assert sk.LAUNCHES == {"ssd_chunk": 0, "ssd_chunk_bwd": 0}
 
 
 def _params(seed, chunk, dtype=jnp.float32):

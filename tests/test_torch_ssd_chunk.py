@@ -26,7 +26,7 @@ def _no_launches():
     plain version and leaves the launch count at zero."""
     kernel.reset_launches()
     yield
-    assert kernel.LAUNCHES == {"ssd_chunk": 0}
+    assert kernel.LAUNCHES == {"ssd_chunk": 0, "ssd_chunk_bwd": 0}
 
 
 def _inputs(seed, B, T, H, N, P, lam_scale=0.1):

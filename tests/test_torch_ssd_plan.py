@@ -47,7 +47,7 @@ H100_SMS = 132
 def _no_launches():
     kernel.reset_launches()
     yield
-    assert kernel.LAUNCHES == {"ssd_chunk": 0}
+    assert kernel.LAUNCHES == {"ssd_chunk": 0, "ssd_chunk_bwd": 0}
 
 
 def tf32(a: torch.Tensor) -> torch.Tensor:

@@ -2477,9 +2477,11 @@ def _ssd_build():
     """What the build of the SSD scan shows: tensor-core TF32 products
     (HMMA.1688.F32.TF32) and asynchronous copies (LDGSTS) in its SASS,
     each instance's registers (the forward's 48 and the backward's 15)
-    and spills from ``ptxas -v``, which must be none, and the
-    instruction mix of the Zamba2 layer's two kernels (fp32,
-    N_pad 64, head tile 2): how many instructions each tensor-core
+    and spills from ``ptxas -v``, which must be none, the TF32 products
+    of each backward instance (every instance of the state increment,
+    the row and the column kernel must have them), and the instruction
+    mix of the Zamba2 layer's four tile kernels (fp32, N_pad 64; the
+    forward's at head tile 2): how many instructions each tensor-core
     product takes with it."""
     from collections import Counter
 
@@ -2492,18 +2494,26 @@ def _ssd_build():
         for (t, n_pad, heads), (r, st, ld) in sorted(
                 _ptxas_report("ssd_chunk", entry).items()):
             regs[f"{short} {t} N{n_pad} x{heads}"] = r
-    bwd_regs = {}
+    bwd_regs, bwd_label = {}, {}
     for fn, (r, _, _) in _ptxas_entries("ssd_chunk").items():
         m = re.search(r"ssd_bwd_([a-z]+)_kernel(?:ILi(\d+)E)?", fn)
         if m:
-            bwd_regs[m.group(1) + (f" N{m.group(2)}" if m.group(2) else "")] = r
+            label = m.group(1) + (f" N{m.group(2)}" if m.group(2) else "")
+            bwd_regs[label], bwd_label[fn] = r, label
+    bwd_tf32 = {bwd_label[fn]: text.count("HMMA.1688.F32.TF32")
+                for fn, text in _sass_sections(sass).items()
+                if fn in bwd_label
+                and bwd_label[fn].split()[0] in ("state", "row", "col")}
     spills = [line.strip() for line in
               _build.build_log("ssd_chunk").read_text().splitlines()
               if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
     mix = {}
     for name, ops in _sass_functions(sass).items():
-        for entry in ("ssd_state_kernel", "ssd_out_kernel"):
-            if f"{entry}IfLi64ELi2E" in name:
+        for entry, inst in (("ssd_state_kernel", "IfLi64ELi2E"),
+                            ("ssd_out_kernel", "IfLi64ELi2E"),
+                            ("ssd_bwd_row_kernel", "ILi64E"),
+                            ("ssd_bwd_col_kernel", "ILi64E")):
+            if f"{entry}{inst}" in name:
                 top = Counter(ops).most_common(8)
                 mix[entry] = {"instructions": len(ops),
                               "HMMA": ops.count("HMMA"),
@@ -2511,14 +2521,19 @@ def _ssd_build():
                               "top": dict(top)}
     print(f"[phase0] ssd_chunk SASS {counts}; ptxas: {len(regs)} templated "
           f"kernels, registers {regs}; the backward's {len(bwd_regs)} "
-          f"kernels, registers {bwd_regs}; spills {spills or 'none'}",
+          f"kernels, registers {bwd_regs}; the backward's "
+          f"HMMA.1688.F32.TF32 a tile-kernel instance {bwd_tf32} "
+          f"({sum(bwd_tf32.values())} in all); spills {spills or 'none'}",
           flush=True)
-    print(f"[phase0] ssd_chunk static instruction mix, fp32 N_pad 64 head "
-          f"tile 2: {json.dumps(mix)}", flush=True)
+    print(f"[phase0] ssd_chunk static instruction mix, fp32 N_pad 64 (the "
+          f"forward's at head tile 2): {json.dumps(mix)}", flush=True)
     if not all(counts.values()) or spills or len(regs) != 48 \
-            or len(bwd_regs) != 15 or len(mix) != 2:
+            or len(bwd_regs) != 15 or len(bwd_tf32) != 12 \
+            or not all(bwd_tf32.values()) or len(mix) != 4:
         raise AssertionError(f"ssd_chunk build: SASS {counts}, {len(regs)} "
-                             f"kernels, spills {spills}, mix of {list(mix)}")
+                             f"kernels, backward {bwd_regs}, its TF32 "
+                             f"{bwd_tf32}, spills {spills}, mix of "
+                             f"{list(mix)}")
 
 
 # mma.sync m16n8k8 TF32 alone: every warp keeps MMA_ACC independent
@@ -3146,25 +3161,32 @@ SSD_BWD_RTOL = 1e-4
 
 
 def _ssd_bwd_work(B, T, H, N, P, L):
-    """(bytes, FLOPs) of one SSD backward, the least work: lam, B, C, x
-    and dy read, dlam, dB, dC and dx written, fp32; C B^T once per (batch,
-    chunk) (L(L+1)/2 * 2N); per lane and chunk dy x^T and W^T dy
-    (L(L+1)/2 * 2P each), Q B and Q^T C (L(L+1)/2 * 2N each) and four (N,
-    P) products a step (the state terms, the increment of G, C h dy)."""
-    nbytes = 4 * (2 * B * T * H + 4 * B * T * N + 3 * B * T * H * P)
+    """(bytes, FLOPs) of one SSD backward, the least work: lam, B, C, x,
+    dy and the forward's saved states and scores read, dlam, dB, dC and
+    dx written, fp32. C B^T is not counted: the backward reads it from
+    the forward's scores. Per lane and chunk dy x^T and W^T dy (L(L+1)/2
+    * 2P each), Q B and Q^T C (L(L+1)/2 * 2N each); per lane four (N, P)
+    products a step over nc - 1 chunks' steps, since h_0 = 0 and G of the
+    last chunk = 0: the increment of G and C h dy for chunks 1 .. nc - 1,
+    G^T B and G x for chunks 0 .. nc - 2."""
     nc = T // L
-    flops = B * nc * (L * (L + 1) / 2 * 2 * N) + B * H * nc * (
-        L * (L + 1) * (2.0 * P + 2 * N) + 8.0 * L * N * P)
+    nbytes = 4 * (2 * B * T * H + 4 * B * T * N + 3 * B * T * H * P
+                  + B * (nc - 1) * H * N * P + B * nc * L * (L + 1) // 2)
+    flops = B * H * (nc * L * (L + 1) * (2.0 * P + 2 * N)
+                     + 8.0 * L * N * P * (nc - 1))
     return nbytes, flops
 
 
-def phase_ssd_bwd_kernel(dev, hbm_bw):
+def phase_ssd_bwd_kernel(dev, hbm_bw, mma_peak):
     """The SSD scan's backward kernels against ``ssd_scan_bwd_ref`` at the
     Zamba2-1.2B layer's shape and at edge shapes, from the forward
-    kernel's saved prefix sums and states: each case checks the four
-    gradients, that two calls agree bit for bit, and gives the device
-    kernels a call runs and each one's device time; times the backward
-    and its plain version (no single PyTorch call computes it)."""
+    kernel's saved prefix sums, states and scores: each case checks the
+    four gradients, that two calls agree bit for bit, and gives the
+    device kernels a call runs and each one's device time; times the
+    backward and its plain version (no single PyTorch call computes it),
+    with the least work over that time (``tflops``), the bound's share
+    of it, and the bound at ``mma_peak`` (phase 0's measured rate of
+    mma.sync TF32) taken three times."""
     import torch
 
     from repro_torch.kernels.ssd_chunk import kernel as sk
@@ -3234,7 +3256,8 @@ def phase_ssd_bwd_kernel(dev, hbm_bw):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_rate": "TF32 x3, 165 TFLOP/s",
             "bound_fma_ms": flops / FP32_FLOPS * 1e3,
-            "fp32_tflops": flops / ms * 1e-9,
+            "bound_mma_sync_ms": 3 * flops / mma_peak * 1e3,
+            "tflops": flops / ms * 1e-9, "bound_share": bound_ms / ms,
         })
         print(f"[phase1] ssd_chunk_bwd "
               f"{json.dumps(cases['ssd_chunk_bwd'][-1])}", flush=True)
@@ -4179,7 +4202,7 @@ def main() -> int:
     cases.update(phase_attention_bwd(dev, hw.hbm_bw, mma_peak))
     cases.update(phase_decode_kernel(dev, hw.hbm_bw))
     cases.update(phase_ssd_kernel(dev, hw.hbm_bw, mma_peak))
-    cases.update(phase_ssd_bwd_kernel(dev, hw.hbm_bw))
+    cases.update(phase_ssd_bwd_kernel(dev, hw.hbm_bw, mma_peak))
     print(f"[phase1] seconds={time.perf_counter() - t0:.3f}", flush=True)
 
     # -- phases 2-8: each path with the counts set to 0 just before it --

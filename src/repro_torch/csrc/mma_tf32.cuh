@@ -32,6 +32,23 @@ __device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
   lo = tf32(v - __uint_as_float(hi));
 }
 
+// The same split in three instructions, for finite v: hi is v rounded as
+// cvt.rna rounds it (half a TF32 ulp added to the magnitude's bits, then
+// the low 13 bits masked), lo = v - hi exactly, handed over as it is:
+// mma.sync reads only the top 19 bits of a .tf32 operand, so lo enters
+// the product truncated to TF32 (error at most 2^-21 |v|, against 2^-22
+// for a rounded lo). On sm_90a cvt.rna.tf32.f32 is no single SASS
+// instruction, so split takes more than these three. The SSD backward,
+// whose products are mostly splits, uses this one
+// (tests/test_torch_ssd_bwd_plan.py models it and holds it to the
+// backward's tolerance). The SSD forward and the fp32 attention backward
+// keep split: whether they would stay within their tolerances on the
+// card with split_rz has not been checked.
+__device__ __forceinline__ void split_rz(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
 // d += a (16 x 8, row) . b (8 x 8, col), TF32 in, fp32 accumulators.
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -61,6 +78,39 @@ __device__ __forceinline__ void mma3(float (&d)[MI][NJ][4], const uint32_t (&ah)
   for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) mma_tf32(d[i][j], ah[i], bh[j][0], bh[j][1]);
+}
+
+// The same over the n-tiles j0 <= j < j1 only (runtime bounds: the causal
+// part of a diagonal tile). With kAloFirst false the first two passes
+// swap (hi.lo, lo.hi, hi.hi): B A^T then takes each accumulator's products
+// in the order A B^T takes them, so the transposed product comes out with
+// the same sums.
+template <bool kAloFirst = true, int MI, int NJ>
+__device__ __forceinline__ void mma3_cols(float (&d)[MI][NJ][4], const uint32_t (&ah)[MI][4],
+                                          const uint32_t (&al)[MI][4],
+                                          const uint32_t (&bh)[NJ][2],
+                                          const uint32_t (&bl)[NJ][2], int j0, int j1) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (j >= j0 && j < j1) {
+        if (kAloFirst) mma_tf32(d[i][j], al[i], bh[j][0], bh[j][1]);
+        else mma_tf32(d[i][j], ah[i], bl[j][0], bl[j][1]);
+      }
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (j >= j0 && j < j1) {
+        if (kAloFirst) mma_tf32(d[i][j], ah[i], bl[j][0], bl[j][1]);
+        else mma_tf32(d[i][j], al[i], bh[j][0], bh[j][1]);
+      }
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (j >= j0 && j < j1) mma_tf32(d[i][j], ah[i], bh[j][0], bh[j][1]);
 }
 
 // The same, skipping the m-tiles with live[i] false.

@@ -716,7 +716,7 @@ __global__ void __launch_bounds__(128, 1)
 }
 
 // ---------------------------------------------------------------------------
-// the backward: gradients of the scan on the CUDA cores, fp32
+// the backward: gradients of the scan on the tensor cores, fp32
 // ---------------------------------------------------------------------------
 //
 // ssd_chunk_bwd computes what jax.vjp of the reference's chunk_step gives
@@ -738,140 +738,209 @@ __global__ void __launch_bounds__(128, 1)
 // (L(L+1)/2 * 2K each) and four (N, P) products a step: 25.8 GFLOP at the
 // Zamba2-1.2B layer (B 4, T 1024, H 64, N = P = 64, L 256) against 207 MB
 // of inputs and outputs, 0.156 ms at the TF32 rate taken three times,
-// 0.385 ms at the 67 TFLOP/s of the CUDA cores' FMAs. This first design
-// is simple, not fast: every product on the CUDA cores in fp32, C B^T and
-// dy x^T formed twice (in the row and in the column kernel), each tile
-// staged by plain loads. Six kernels (four for one chunk):
+// 0.385 ms at the 67 TFLOP/s of the CUDA cores' FMAs. The design:
+//   * every product on the tensor cores, as the forward takes them:
+//     mma.sync.m16n8k8 TF32, each fp32 operand split into hi + lo and
+//     multiplied as lo.hi + hi.lo + hi.hi, each pass swept over all of a
+//     warp's n-tiles before the next (mma_tf32.cuh mma3). The split is
+//     split_rz, three instructions: on sm_90a cvt.rna.tf32 is no single
+//     SASS instruction (a compare, an add, a mask and a select), and with
+//     it the splits took most of the issue slots. W = (C B^T) E and
+//     Q = D E (D = dy x^T, E_ts = exp(cum_t - cum_s)) are formed in fp32
+//     from the accumulators and split again before their products;
+//   * C B^T is not formed at all: the forward's state kernel already
+//     wrote the scores of every (batch, chunk, tile pair) to cb_ws, which
+//     ssd_chunk(..., return_saved=True) hands on with the prefix sums and
+//     states. A warp reads its part of the pair's tile from L2 into
+//     registers before it forms D, so the load hides behind D's
+//     products. (At L = T the workspace grows with L^2, 0.54 GB at B 4,
+//     T 8191; under remat it lives one layer at a time);
+//   * D stays formed twice, once in a row and once in a column kernel:
+//     of the row kernel's two products and the column kernel's three, one
+//     each is D (2 of the 5 tile-pair products; one for all of them would
+//     need either dC's partials per column tile summed across blocks or
+//     dx's and dB's per row tile, 168 MB of round trips at the Zamba2
+//     layer). The column kernel forms D^T = x dy^T with the first two
+//     passes swapped, so that every entry of D takes its products in the
+//     row kernel's order, and both kernels form W = CB * E and take
+//     Z = D * W into their sums by the same instructions: the row sums and
+//     the column sums of Z add the same terms;
+//   * the accumulator of D (rows g, g + 8; columns 2t, 2t + 1 of each
+//     8-wide n-tile) is read as the A fragment of the next product's
+//     k-step in a permuted k order (slot t <-> column 2t, slot t + 4 <->
+//     2t + 1), so Q and W go from accumulator to product without shared
+//     memory, and the B operand (B, C or dy rows of the k-step) is read
+//     in the same permuted order;
+//   * ssd_bwd_row_kernel, a block of 4 warps per (64-row tile, head,
+//     batch, chunk), the tiles with the most column tiles first: warp w
+//     owns rows 16w .. 16w + 15 and all 64 columns; per column tile s <=
+//     t, D (dy fragments against x), Q and the row sums of Z, dC += Q B;
+//     then, for c > 0, dC += exp(cum_t) h_c dy_t and iota. On the diagonal
+//     tile a warp forms only the n-tiles at or left of its rows;
+//   * ssd_bwd_col_kernel, the same grid per 64-column tile: warp w owns
+//     steps s = 16w .. 16w + 15; per row tile t >= s, from the last to
+//     the diagonal one, D^T (x fragments against dy), W^T and Q^T and the
+//     column sums of Z, dx += W^T dy, dB += Q^T C; then, for c < nc - 1,
+//     the state terms of G_c (G^T B_s and G x_s) and sigma. On the
+//     diagonal tile a warp forms only the n-tiles at or below its steps;
+//   * registers set the pace of both: a warp forms D (D^T) 32 columns
+//     (steps) at a time (16 at N_pad 128), each part's accumulator turned
+//     into the next products' A fragments before the next part is formed,
+//     and runs an N-wide product over groups of 4 n-tiles, so that no
+//     instance spills and ptxas keeps room to schedule (with all 64
+//     columns at once the column kernel sat at ptxas' 255-register cap);
 //   * ssd_bwd_state_kernel, a block per (batch, chunk >= 1, head): the
-//     chunk's increment sum_t exp(cum_t) C_t (x) dy_t into slot c - 1 of
-//     g_ws (B, nc - 1, H, N_pad, 64);
-//   * ssd_bwd_handoff_kernel, a thread per state element of a lane: G in
-//     reverse chunk order, in place (slot c becomes G_c), the mirror of
-//     ssd_handoff_kernel;
-//   * ssd_bwd_row_kernel, a block per (64-row tile, head, batch, chunk):
-//     dC of its rows for its head and the per-step sums of Z along s and
-//     iota, walking the column tiles s <= t;
-//   * ssd_bwd_col_kernel, a block per (64-column tile, head, batch,
-//     chunk): dx and dB of its steps for its head, the sums of Z along t
-//     and sigma, walking the row tiles t >= s, then the state terms of G_c;
-//   * ssd_bwd_dlam_kernel, a block per (chunk, head, batch): exp(cum_last)
-//     <G_c, h_c> and the float64 scans of the per-step sums into dlam;
-//   * ssd_bwd_headsum_kernel, a thread per element of dB and dC: the
-//     per-head partials summed in head order.
-// No float atomics: every sum runs in a fixed order, so two calls give
-// the same bits. Every exponent is cum_t - cum_s with s <= t (the mask
-// chosen before exp), cum_last - cum_s or cum_t, all <= 0 for decays
-// lam <= 0: exp(-cum) is never formed. Rows past L and columns past N
-// or P are zero-filled and never stored.
+//     increment sum_t exp(cum_t) C_t (x) dy_t on the tensor cores over
+//     64-step tiles; ssd_bwd_handoff_kernel hands G back chunk by chunk,
+//     ssd_bwd_dlam_kernel scans the per-step sums into dlam in float64,
+//     ssd_bwd_headsum_kernel sums the per-head partials of dB and dC in
+//     head order. Six kernels (four for one chunk);
+//   * tiles are staged by cp.async (16-byte copies, 4-byte for rows that
+//     are not 16-byte multiples) through two-stage rings: the next column
+//     (row) tile's x and B (dy and C) and prefix sums copy while this one
+//     is multiplied. Shared rows have a stride of 4 mod 32 words where
+//     fragments read them along k or in the permuted order (8 mod 32 in
+//     the state kernel, which reads them across k), so those loads are
+//     free of bank conflicts. A row or column block takes 87.5 KB at
+//     N_pad 64, two blocks an SM.
+// No float atomics: every sum runs in a fixed order (a lane's columns in
+// order, then its quad by xor shuffles; the tiles in order), so two calls
+// give the same bits. Every exponent is cum_t - cum_s with s <= t (the
+// mask chosen before exp), cum_last - cum_s or cum_t, all <= 0 for decays
+// lam <= 0: exp(-cum) is never formed. Rows past L and columns past N or
+// P are zero-filled and never stored.
 
-// threads of a backward block (a 16 x 16 grid); the tile kernels ask for
-// two blocks an SM, which caps them at 128 registers: ptxas left to
-// itself squeezed two instances to 64 and spilled
+// threads of the dlam and head-sum blocks, and of a row / column block
 constexpr int kBT = 256;
-constexpr int kTS = kR + 1;   // row stride of a 64-wide fp32 tile (odd: no bank conflicts)
+constexpr int kPairThreads = 128;
+constexpr int kFS = kPT + 4;   // row stride of a 64-wide fp32 tile (4 mod 32)
 
 template <int NT>
 struct BwdCfg {
-  static constexpr int NS = NT + 1;       // row stride of a B / C tile
-  static constexpr int NJ = NT / 16;      // 16-column groups of an N-wide output
-  static constexpr int NTILE = kR * NS;   // floats of a (64, N_pad) tile
-  static constexpr int XTILE = kR * kTS;  // floats of a (64, 64) tile
-  static constexpr int HTILE = NT * kTS;  // floats of an (N_pad, 64) state
-  static constexpr int QH = XTILE > HTILE ? XTILE : HTILE;
-  static constexpr int STATE_BYTES = (NTILE + XTILE + kR) * 4;
-  static constexpr int ROW_BYTES = (2 * NTILE + 2 * XTILE + QH + 2 * kR) * 4;
-  static constexpr int COL_BYTES = (2 * NTILE + 4 * XTILE + 2 * kR) * 4;
-  static_assert(2 * XTILE >= HTILE, "G_c fits the W and Q tiles");
-  static_assert(NTILE >= 16 * kR, "the column sums fit the C tile");
+  static constexpr int NS = NT + 4;               // row stride of a B / C tile (4 mod 32)
+  static constexpr int NJ = NT / 8;               // 8-wide n-tiles of an N-wide output
+  // an N-wide product runs over groups of at most 4 n-tiles, so that
+  // its B fragments (4 registers an n-tile) take at most 16 registers
+  static constexpr int NG = NJ < 4 ? NJ : 4;      // n-tiles a group
+  static constexpr int NGRP = NJ / NG;            // groups
+  static constexpr int FT = kR * kFS;             // floats of a 64 x 64 tile
+  static constexpr int NTILE = kR * NS;           // floats of a (64, N_pad) tile
+  static constexpr int STAGE = FT + NTILE + kR;   // x or dy, B or C, and cum of a tile
+  // the fixed 64 x 64 tile (dy of the rows, x of the columns) and the ring
+  static constexpr int PAIR_BYTES = (FT + 2 * STAGE) * 4;
+  static_assert(NT * kFS <= STAGE, "h_c / G_c fits a stage");
+  // n-tiles of D (D^T) a warp forms at once: half its 64 columns, a
+  // quarter at N_pad 128, whose dB / dC accumulators take 64 registers
+  static constexpr int JH = NT >= 128 ? 2 : 4;
+  // the state kernel: C and dy read across k (8 mod 32 words)
+  static constexpr int SCS = NT + 8;
+  static constexpr int SDS = kPT + 8;
+  static constexpr int SSTAGE = kR * SCS + kR * SDS + kR;
+  static constexpr int STATE_BYTES = 2 * SSTAGE * 4;
+  static constexpr int MTOT = NT / 16;            // m-tiles of the state's rows
+  static constexpr int WM = MTOT < 2 ? MTOT : 2;  // warps along the rows
+  static constexpr int WN = 8 / WM;               // warps along P
+  static constexpr int MT = MTOT / WM;            // m-tiles a warp
+  static constexpr int NW = 8 / WN;               // n-tiles a warp
 };
 
-// dst[r * ds + c] = src[r * ld + c] for r < vr and c < vc, 0 elsewhere of
-// a ROWS x COLS tile, by the block's kBT threads.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_tile(float* dst, int ds, const float* __restrict__ src,
-                                          int64_t ld, int vr, int vc, int tid) {
-#pragma unroll 4
-  for (int i = tid; i < ROWS * COLS; i += kBT) {
-    const int r = i / COLS, c = i % COLS;
-    dst[r * ds + c] = r < vr && c < vc ? src[r * ld + c] : 0.f;
-  }
+// The sum over the 4 lanes of a quad (one accumulator row), in a fixed
+// order; every one of them gets it.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// acc[i][j] += sum_{k < K} A(ty + 16 i, k) B(k, tx + 16 j) over fp32 tiles
-// in shared memory: A(r, k) = A[r * lda + k] (A[k * lda + r] when AT),
-// B(k, c) = Bv[k * ldb + c] (Bv[c * ldb + k] when BT). A warp's loads of
-// A hit two addresses, of B sixteen in distinct banks (odd strides).
-template <bool AT, bool BT, int MI, int NJ>
-__device__ __forceinline__ void tile_mm(float (&acc)[MI][NJ], const float* A, int lda,
-                                        const float* Bv, int ldb, int K, int ty, int tx) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float a[MI], b[NJ];
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const int r = ty + 16 * i;
-      a[i] = AT ? A[k * lda + r] : A[r * lda + k];
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      b[j] = BT ? Bv[c * ldb + k] : Bv[k * ldb + c];
-    }
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// The sum over the 16 threads of a row of the block grid (tx = 0 .. 15,
-// one half of a warp), in a fixed order; every one of them gets it.
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off, 16);
-  return v;
-}
-
-// grid (nc - 1, H, B), kBT threads: the increment R = sum_t exp(cum_t)
+// grid (nc - 1, H, B), kStateThreads: the increment R = sum_t exp(cum_t)
 // C_t (x) dy_t of chunk c = blockIdx.x + 1 of lane (b, h), into slot c - 1
-// of g_ws. Thread (ty, tx) holds R[ty + 16 i][tx + 16 j].
+// of g_ws, as R[n][p] = sum_t (exp(cum_t) C[t][n]) dy[t][p] over 64-step
+// tiles through a two-stage ring. Warp w holds rows of m-tiles (w % WM) *
+// MT .. and columns of n-tiles (w / WM) * NW .., as ssd_state_kernel.
 template <int NT>
-__global__ void __launch_bounds__(kBT, 2)
+__global__ void __launch_bounds__(kStateThreads)
     ssd_bwd_state_kernel(const float* __restrict__ Cm, const float* __restrict__ dy,
                          const float* __restrict__ cum_ws, float* __restrict__ g_ws, int T_len,
-                         int H, int N, int P, int L, int nc) {
+                         int H, int N, int P, int L, int nc, bool vec_b, bool vec_x) {
   using S = BwdCfg<NT>;
   extern __shared__ float4 smem_raw[];
-  float* Cs = reinterpret_cast<float*>(smem_raw);
-  float* Ds = Cs + S::NTILE;
-  float* ec = Ds + S::XTILE;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  auto cst = [&](int st) { return ring + (st & 1) * S::SSTAGE; };
+  auto dst = [&](int st) { return ring + (st & 1) * S::SSTAGE + kR * S::SCS; };
+  auto est = [&](int st) { return ring + (st & 1) * S::SSTAGE + kR * (S::SCS + S::SDS); };
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp % S::WM, wn = warp / S::WM;
   const int c = blockIdx.x + 1, h = blockIdx.y, b = blockIdx.z;
   const int RT = (L + kR - 1) / kR, Lpad = RT * kR;
   const int64_t row0 = static_cast<int64_t>(b) * T_len + static_cast<int64_t>(c) * L;
   const int64_t xld = static_cast<int64_t>(H) * P;
   const float* cum = cum_ws + ((static_cast<int64_t>(b) * H + h) * nc + c) * Lpad;
-  float acc[S::NJ][4];
-#pragma unroll
-  for (int i = 0; i < S::NJ; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int st = 0; st < RT; ++st) {
+
+  auto issue = [&](int st) {
     const int t0 = st * kR, vt = min(kR, L - t0);
-    __syncthreads();   // the last tile is used
-    load_tile<kR, NT>(Cs, S::NS, Cm + (row0 + t0) * N, N, vt, N, tid);
-    load_tile<kR, kR>(Ds, kTS, dy + (row0 + t0) * xld + h * P, xld, vt, P, tid);
-    if (tid < kR) ec[tid] = expf(cum[t0 + tid]);
+    stage<float, kStateThreads, kR, NT, S::SCS>(cst(st), Cm + (row0 + t0) * N, N, vt, N, vec_b,
+                                                tid);
+    stage<float, kStateThreads, kR, kPT, S::SDS>(dst(st), dy + (row0 + t0) * xld + h * P, xld,
+                                                 vt, P, vec_x, tid);
+    stage<float, kStateThreads, 1, kR, kR>(est(st), cum + t0, 0, 1, kR, true, tid);
+    cp_async_commit();
+  };
+  issue(0);
+  if (RT > 1) issue(1);
+
+  float acc[S::MT][S::NW][4];
+#pragma unroll
+  for (int mi = 0; mi < S::MT; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < S::NW; ++nj)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][nj][q] = 0.f;
+  for (int st = 0; st < RT; ++st) {
+    if (st + 1 < RT) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    __syncthreads();   // tile st landed
+    if (tid < kR) {    // cum of the tile, made exp(cum_t) in place; 0 past L
+      float* e = est(st) + tid;
+      *e = st * kR + tid < L ? expf(*e) : 0.f;
+    }
     __syncthreads();
-    for (int i = tid; i < kR * NT; i += kBT) Cs[(i / NT) * S::NS + i % NT] *= ec[i / NT];
-    __syncthreads();
-    tile_mm<true, false>(acc, Cs, S::NS, Ds, kTS, kR, ty, tx);
+    const float* ct = cst(st);
+    const float* dt = dst(st);
+    const float* et = est(st);
+#pragma unroll 2
+    for (int kk = 0; kk < kR / 8; ++kk) {
+      const int ta = kk * 8 + t4, tb = ta + 4;
+      const float ea = et[ta], eb = et[tb];
+      uint32_t ah[S::MT][4], al[S::MT][4], bh[S::NW][2], bl[S::NW][2];
+#pragma unroll
+      for (int mi = 0; mi < S::MT; ++mi) {   // A[n][t] = exp(cum_t) C[t][n]
+        const int n = (wm * S::MT + mi) * 16 + g;
+        split_rz(ct[ta * S::SCS + n] * ea, ah[mi][0], al[mi][0]);
+        split_rz(ct[ta * S::SCS + n + 8] * ea, ah[mi][1], al[mi][1]);
+        split_rz(ct[tb * S::SCS + n] * eb, ah[mi][2], al[mi][2]);
+        split_rz(ct[tb * S::SCS + n + 8] * eb, ah[mi][3], al[mi][3]);
+      }
+#pragma unroll
+      for (int nj = 0; nj < S::NW; ++nj) {
+        const int p = (wn * S::NW + nj) * 8 + g;
+        split_rz(dt[ta * S::SDS + p], bh[nj][0], bl[nj][0]);
+        split_rz(dt[tb * S::SDS + p], bh[nj][1], bl[nj][1]);
+      }
+      mma3(acc, ah, al, bh, bl);
+    }
+    __syncthreads();   // every warp is done with stage st
+    if (st + 2 < RT) issue(st + 2);
   }
   float* out = g_ws + ((static_cast<int64_t>(b) * (nc - 1) + c - 1) * H + h) * (NT * kPT);
 #pragma unroll
-  for (int i = 0; i < S::NJ; ++i)
+  for (int mi = 0; mi < S::MT; ++mi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) out[(ty + 16 * i) * kPT + tx + 16 * j] = acc[i][j];
+    for (int nj = 0; nj < S::NW; ++nj) {
+      const int n = (wm * S::MT + mi) * 16 + g, p = (wn * S::NW + nj) * 8 + 2 * t4;
+      const float* v = acc[mi][nj];
+      *reinterpret_cast<float2*>(out + n * kPT + p) = make_float2(v[0], v[1]);
+      *reinterpret_cast<float2*>(out + (n + 8) * kPT + p) = make_float2(v[2], v[3]);
+    }
 }
 
 // grid (N_pad * 64 / 256, H, B), 256 threads: G from the last chunk back,
@@ -895,14 +964,17 @@ __global__ void __launch_bounds__(kStateThreads)
 }
 
 // The 64-step tile, head, batch row and chunk that block blockIdx.x of a
-// row or column kernel takes (grid RT * H * B * nc).
+// row or column kernel takes (grid RT * H * B * nc); tiles run in the
+// order of their work, the largest first: the row kernel's from the
+// last, the column kernel's from the first.
 struct TileIdx {
   int tile, h, b, c;
 };
-__device__ __forceinline__ TileIdx tile_index(int RT, int H, int B) {
+__device__ __forceinline__ TileIdx tile_index(int RT, int H, int B, bool last_first) {
   int64_t lin = blockIdx.x;
   TileIdx r;
-  r.tile = static_cast<int>(lin % RT);
+  const int k = static_cast<int>(lin % RT);
+  r.tile = last_first ? RT - 1 - k : k;
   lin /= RT;
   r.h = static_cast<int>(lin % H);
   lin /= H;
@@ -911,251 +983,575 @@ __device__ __forceinline__ TileIdx tile_index(int RT, int H, int B) {
   return r;
 }
 
-// Row kernel: rows t of one 64-step tile. Per column tile s <= t: the
-// scores C B^T and D = dy x^T, E = exp(cum_t - cum_s) (s <= t), Q = D E
-// into shared memory, dC += Q B, and the row sums of Z = D (C B^T) E
-// (s < t). Then, for c > 0, dC += exp(cum_t) h_c dy_t and iota. Writes
-// dC's per-head partial (B, T, H, N) and planes 0 (sum_s Z) and 1 (iota)
-// of part_ws. Thread (ty, tx) holds rows ty + 16 i and columns tx + 16 j.
+// A fragments of one k-step from the accumulator of an 8-wide n-tile, in
+// the permuted k order: slot t4 holds column 2 t4, slot t4 + 4 column
+// 2 t4 + 1 (the B operand's rows are read in the same order).
+__device__ __forceinline__ void acc_to_a(const float (&v)[4], uint32_t (&ah)[4],
+                                         uint32_t (&al)[4]) {
+  split_rz(v[0], ah[0], al[0]);   // (g, 2t)
+  split_rz(v[2], ah[1], al[1]);   // (g + 8, 2t)
+  split_rz(v[1], ah[2], al[2]);   // (g, 2t + 1)
+  split_rz(v[3], ah[3], al[3]);   // (g + 8, 2t + 1)
+}
+
+// Row kernel: rows t of one 64-step tile of one head, 4 warps, warp w on
+// rows 16w .. 16w + 15. Per column tile s <= t (x, B and cum through the
+// ring; the pair's scores from cb_ws into registers): D = dy x^T, W =
+// CB E and Q = D E (E masked before exp), the row sums of Z = D W (s <
+// t), dC += Q B. Then, for c > 0, dC += exp(cum_t) h_c dy_t and iota_t =
+// exp(cum_t) C_t . h_c dy_t. Writes dC's per-head partial (B, T, H, N) and
+// planes 0 (sum_s Z) and 1 (iota) of part_ws.
 template <int NT>
-__global__ void __launch_bounds__(kBT, 2)
+__global__ void __launch_bounds__(kPairThreads, 2)
     ssd_bwd_row_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
                        const float* __restrict__ x, const float* __restrict__ dy,
-                       const float* __restrict__ cum_ws, const float* __restrict__ h_ws,
-                       float* __restrict__ dC_part, float* __restrict__ part_ws, int B, int T_len,
-                       int H, int N, int P, int L, int nc) {
+                       const float* __restrict__ cum_ws, const float* __restrict__ cb_ws,
+                       const float* __restrict__ h_ws, float* __restrict__ dC_part,
+                       float* __restrict__ part_ws, int B, int T_len, int H, int N, int P, int L,
+                       int nc, bool vec_b, bool vec_x) {
   using S = BwdCfg<NT>;
   extern __shared__ float4 smem_raw[];
-  float* Ct = reinterpret_cast<float*>(smem_raw);
-  float* Dt = Ct + S::NTILE;     // dy of the rows
-  float* Bs = Dt + S::XTILE;
-  float* Xs = Bs + S::NTILE;
-  float* Qs = Xs + S::XTILE;     // Q of a tile pair, then h_c
-  float* cumt = Qs + S::QH;
-  float* cums = cumt + kR;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int RT = (L + kR - 1) / kR, Lpad = RT * kR;
-  const TileIdx ix = tile_index(RT, H, B);
+  float* dys = reinterpret_cast<float*>(smem_raw);   // dy of the rows [kR][kFS]
+  float* ring = dys + S::FT;                          // [2] x: x [kR][kFS], B [kR][NS], cum [kR]
+  auto xst = [&](int st) { return ring + (st & 1) * S::STAGE; };
+  auto bst = [&](int st) { return ring + (st & 1) * S::STAGE + S::FT; };
+  auto cst = [&](int st) { return ring + (st & 1) * S::STAGE + S::FT + S::NTILE; };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int RT = (L + kR - 1) / kR, Lpad = RT * kR, pairs = RT * (RT + 1) / 2;
+  const TileIdx ix = tile_index(RT, H, B, true);
   const int h = ix.h, b = ix.b, c = ix.c, rt = ix.tile;
   const int t0 = rt * kR, vt = min(kR, L - t0);
   const int64_t row0 = static_cast<int64_t>(b) * T_len + static_cast<int64_t>(c) * L;
   const int64_t xld = static_cast<int64_t>(H) * P;
   const int64_t lane_off = ((static_cast<int64_t>(b) * H + h) * nc + c) * Lpad;
   const float* cum = cum_ws + lane_off;
-  load_tile<kR, NT>(Ct, S::NS, Cm + (row0 + t0) * N, N, vt, N, tid);
-  load_tile<kR, kR>(Dt, kTS, dy + (row0 + t0) * xld + h * P, xld, vt, P, tid);
-  if (tid < kR) cumt[tid] = cum[t0 + tid];
-  float dc[4][S::NJ], rowz[4];
+  const float* cb_row = cb_ws + ((static_cast<int64_t>(b) * nc + c) * pairs + rt * (rt + 1) / 2) *
+                                    (kR * kR);
+  // this warp's rows of the tile: rr[e] = 16 warp + 8 e + g
+  int rr[2];
+  bool ok[2];
+  float ct[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    rowz[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < S::NJ; ++j) dc[i][j] = 0.f;
+  for (int e = 0; e < 2; ++e) {
+    rr[e] = 16 * warp + 8 * e + g;
+    ok[e] = rr[e] < vt;
+    ct[e] = cum[t0 + rr[e]];   // padded rows hold cum_last
   }
-  for (int kt = 0; kt <= rt; ++kt) {
+
+  auto issue = [&](int kt) {   // x, B and cum of column tile kt into stage kt % 2
     const int s0 = kt * kR, vs = min(kR, L - s0);
-    __syncthreads();   // the last tile's B, x and Q are used
-    load_tile<kR, NT>(Bs, S::NS, Bm + (row0 + s0) * N, N, vs, N, tid);
-    load_tile<kR, kR>(Xs, kTS, x + (row0 + s0) * xld + h * P, xld, vs, P, tid);
-    if (tid < kR) cums[tid] = cum[s0 + tid];
-    __syncthreads();
-    float cb[4][4], d[4][4];
+    stage<float, kPairThreads, kR, kPT, kFS>(xst(kt), x + (row0 + s0) * xld + h * P, xld, vs, P,
+                                             vec_x, tid);
+    stage<float, kPairThreads, kR, NT, S::NS>(bst(kt), Bm + (row0 + s0) * N, N, vs, N, vec_b,
+                                              tid);
+    stage<float, kPairThreads, 1, kR, kR>(cst(kt), cum + s0, 0, 1, kR, true, tid);
+    cp_async_commit();
+  };
+  stage<float, kPairThreads, kR, kPT, kFS>(dys, dy + (row0 + t0) * xld + h * P, xld, vt, P, vec_x,
+                                           tid);
+  issue(0);   // dy joins column tile 0's group
+  if (rt >= 1) issue(1);
+
+  float dc[S::NGRP][1][S::NG][4];   // n-tile jj in dc[jj / NG][0][jj % NG]
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int gi = 0; gi < S::NGRP; ++gi)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) cb[i][j] = d[i][j] = 0.f;
-    tile_mm<false, true>(cb, Ct, S::NS, Bs, S::NS, NT, ty, tx);
-    tile_mm<false, true>(d, Dt, kTS, Xs, kTS, kR, ty, tx);
+    for (int j = 0; j < S::NG; ++j)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int q = 0; q < 4; ++q) dc[gi][0][j][q] = 0.f;
+  float rz[2] = {0.f, 0.f};
+  const float* dyw = dys + (16 * warp + g) * kFS;   // this warp's rows of dy
+
+  // one column tile, JH n-tiles (8 JH columns s) at a time, so that D's
+  // accumulator takes 4 JH registers; on the diagonal only the n-tiles at
+  // or left of the warp's rows
+  auto pair = [&](int kt, auto diag_tag) {
+    constexpr bool kDiag = decltype(diag_tag)::value;
+    const int nj = kDiag ? 2 * warp + 2 : 8;   // n-tiles 0 .. nj - 1
+    const float* xt = xst(kt);
+    const float* bt = bst(kt);
+    const float* cs = cst(kt);
+    const float* cbt = cb_row + kt * (kR * kR);
+#pragma unroll 1
+    for (int jb = 0; jb < nj; jb += S::JH) {
+      const int nl = kDiag ? min(S::JH, nj - jb) : S::JH;   // live n-tiles
+      // their scores at the accumulator's places, loaded ahead of D
+      float2 cbv[S::JH][2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = ty + 16 * i, s = tx + 16 * j;
-        const bool live = t < vt && s < vs && (kt < rt || s <= t);
-        const float e = live ? expf(cumt[t] - cums[s]) : 0.f;
-        if (kt < rt || s < t) rowz[i] = fmaf(d[i][j], cb[i][j] * e, rowz[i]);
-        Qs[t * kTS + s] = d[i][j] * e;
+      for (int jl = 0; jl < S::JH; ++jl)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          cbv[jl][e] = !kDiag || jl < nl
+                           ? __ldg(reinterpret_cast<const float2*>(cbt + rr[e] * kR +
+                                                                   8 * (jb + jl) + 2 * t4))
+                           : make_float2(0.f, 0.f);
+      // D = dy x^T: A = dy (rows t, k = p), B = x (k = p, n = s)
+      float d[1][S::JH][4];
+#pragma unroll
+      for (int jl = 0; jl < S::JH; ++jl)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) d[0][jl][q] = 0.f;
+#pragma unroll 2
+      for (int kk = 0; kk < kPT / 8; ++kk) {
+        const int pa = kk * 8 + t4;
+        uint32_t ah[1][4], al[1][4], bh[S::JH][2], bl[S::JH][2];
+        split_rz(dyw[pa], ah[0][0], al[0][0]);
+        split_rz(dyw[8 * kFS + pa], ah[0][1], al[0][1]);
+        split_rz(dyw[pa + 4], ah[0][2], al[0][2]);
+        split_rz(dyw[8 * kFS + pa + 4], ah[0][3], al[0][3]);
+#pragma unroll
+        for (int jl = 0; jl < S::JH; ++jl) {
+          if (kDiag && jl >= nl) continue;
+          const float* xr = xt + (8 * (jb + jl) + g) * kFS + pa;
+          split_rz(xr[0], bh[jl][0], bl[jl][0]);
+          split_rz(xr[4], bh[jl][1], bl[jl][1]);
+        }
+        mma3_cols(d, ah, al, bh, bl, 0, nl);
       }
-    __syncthreads();
-    tile_mm<false, false>(dc, Qs, kTS, Bs, S::NS, kR, ty, tx);
+      // W = CB E, Q = D E, the row sums of Z = D W (s < t); dC += Q B,
+      // k-step j the 8 columns of n-tile j in the permuted order
+#pragma unroll
+      for (int jl = 0; jl < S::JH; ++jl) {
+        if (kDiag && jl >= nl) continue;
+        const int j = jb + jl;
+        const float2 csv = *reinterpret_cast<const float2*>(cs + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int s = 8 * j + 2 * t4 + q;
+            const bool live = ok[e] && (!kDiag || s <= rr[e]);
+            const float ex =
+                exp2_approx(live ? (ct[e] - (q ? csv.y : csv.x)) * kLog2e : -INFINITY);
+            const float w = (q ? cbv[jl][e].y : cbv[jl][e].x) * ex;
+            const float dv = d[0][jl][2 * e + q];
+            if (!kDiag || s < rr[e]) rz[e] += dv * w;
+            d[0][jl][2 * e + q] = dv * ex;
+          }
+        uint32_t ah[1][4], al[1][4];
+        acc_to_a(d[0][jl], ah[0], al[0]);
+        const float* br = bt + (8 * j + 2 * t4) * S::NS + g;
+#pragma unroll
+        for (int gi = 0; gi < S::NGRP; ++gi) {
+          uint32_t bh[S::NG][2], bl[S::NG][2];
+#pragma unroll
+          for (int jj = 0; jj < S::NG; ++jj) {
+            const int n = 8 * (gi * S::NG + jj);
+            split_rz(br[n], bh[jj][0], bl[jj][0]);
+            split_rz(br[S::NS + n], bh[jj][1], bl[jj][1]);
+          }
+          mma3(dc[gi], ah, al, bh, bl);
+        }
+      }
+    }
+  };
+
+  for (int kt = 0; kt <= rt; ++kt) {
+    if (kt < rt) cp_async_wait<1>();   // a later group may fly
+    else cp_async_wait<0>();
+    __syncthreads();                   // column tile kt landed
+    if (kt < rt) pair(kt, std::false_type());
+    else pair(kt, std::true_type());
+    __syncthreads();                   // every warp is done with stage kt
+    if (kt + 2 <= rt) issue(kt + 2);
   }
-  float iota[4] = {0.f, 0.f, 0.f, 0.f};
+
+  float io[2] = {0.f, 0.f};
   if (c > 0) {   // dC += exp(cum_t) h_c dy_t; iota_t = exp(cum_t) C_t . h_c dy_t
-    __syncthreads();   // Q is used
-    const float* hp =
-        h_ws + ((static_cast<int64_t>(b) * (nc - 1) + c - 1) * H + h) * (NT * kPT);
-    load_tile<NT, kR>(Qs, kTS, hp, kPT, NT, kPT, tid);
+    float* hs = ring;              // h_c [NT][kFS], in stage 0
+    float* cs = ring + S::STAGE;   // C of the rows [kR][NS], in stage 1
+    stage<float, kPairThreads, NT, kPT, kFS>(
+        hs, h_ws + ((static_cast<int64_t>(b) * (nc - 1) + c - 1) * H + h) * (NT * kPT), kPT, NT,
+        kPT, true, tid);
+    stage<float, kPairThreads, kR, NT, S::NS>(cs, Cm + (row0 + t0) * N, N, vt, N, vec_b, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
-    float v[4][S::NJ];
+    // v = dy h^T: A = dy (k = p), B(k = p, n) = h[n][p]
+    float v[S::NGRP][1][S::NG][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int gi = 0; gi < S::NGRP; ++gi)
 #pragma unroll
-      for (int j = 0; j < S::NJ; ++j) v[i][j] = 0.f;
-    tile_mm<false, true>(v, Dt, kTS, Qs, kTS, kR, ty, tx);
+      for (int j = 0; j < S::NG; ++j)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = ty + 16 * i;
-      const float e = t < vt ? expf(cumt[t]) : 0.f;
+        for (int q = 0; q < 4; ++q) v[gi][0][j][q] = 0.f;
+#pragma unroll 1
+    for (int kk = 0; kk < kPT / 8; ++kk) {
+      const int pa = kk * 8 + t4;
+      uint32_t ah[1][4], al[1][4];
+      split_rz(dyw[pa], ah[0][0], al[0][0]);
+      split_rz(dyw[8 * kFS + pa], ah[0][1], al[0][1]);
+      split_rz(dyw[pa + 4], ah[0][2], al[0][2]);
+      split_rz(dyw[8 * kFS + pa + 4], ah[0][3], al[0][3]);
 #pragma unroll
-      for (int j = 0; j < S::NJ; ++j) {
-        dc[i][j] = fmaf(e, v[i][j], dc[i][j]);
-        iota[i] = fmaf(Ct[t * S::NS + tx + 16 * j], v[i][j], iota[i]);
+      for (int gi = 0; gi < S::NGRP; ++gi) {
+        uint32_t bh[S::NG][2], bl[S::NG][2];
+#pragma unroll
+        for (int jj = 0; jj < S::NG; ++jj) {
+          const float* hr = hs + (8 * (gi * S::NG + jj) + g) * kFS + pa;
+          split_rz(hr[0], bh[jj][0], bl[jj][0]);
+          split_rz(hr[4], bh[jj][1], bl[jj][1]);
+        }
+        mma3(v[gi], ah, al, bh, bl);
       }
-      iota[i] *= e;
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float ec = ok[e] ? expf(ct[e]) : 0.f;
+      const float* cr = cs + rr[e] * S::NS + 2 * t4;
+#pragma unroll
+      for (int jj = 0; jj < S::NJ; ++jj)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float vv = v[jj / S::NG][0][jj % S::NG][2 * e + q];
+          float& acc = dc[jj / S::NG][0][jj % S::NG][2 * e + q];
+          acc = fmaf(ec, vv, acc);
+          io[e] = fmaf(cr[8 * jj + q], vv, io[e]);
+        }
+      io[e] = quad_sum(io[e]) * ec;
     }
   }
+
   const int64_t plane = static_cast<int64_t>(B) * H * nc * Lpad;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = ty + 16 * i;
-    const float rz = row_sum16(rowz[i]), io = row_sum16(iota[i]);
-    if (t >= vt) continue;
-    if (tx == 0) {
-      part_ws[lane_off + t0 + t] = rz;
-      part_ws[plane + lane_off + t0 + t] = io;
+  for (int e = 0; e < 2; ++e) {
+    const float rzs = quad_sum(rz[e]);
+    if (!ok[e]) continue;
+    const int t = t0 + rr[e];
+    if (t4 == 0) {
+      part_ws[lane_off + t] = rzs;
+      part_ws[plane + lane_off + t] = io[e];
     }
-    float* out = dC_part + ((row0 + t0 + t) * H + h) * N;
+    float* out = dC_part + ((row0 + t) * H + h) * N;
 #pragma unroll
-    for (int j = 0; j < S::NJ; ++j)
-      if (tx + 16 * j < N) out[tx + 16 * j] = dc[i][j];
+    for (int jj = 0; jj < S::NJ; ++jj) {
+      const int n = 8 * jj + 2 * t4;
+      if (n >= N) continue;
+      const float* v = dc[jj / S::NG][0][jj % S::NG];
+      if ((N & 1) == 0) {
+        *reinterpret_cast<float2*>(out + n) = make_float2(v[2 * e], v[2 * e + 1]);
+      } else {
+        out[n] = v[2 * e];
+        if (n + 1 < N) out[n + 1] = v[2 * e + 1];
+      }
+    }
   }
 }
 
-// Column kernel: steps s of one 64-step tile. Per row tile t >= s: the
-// scores, D and E as the row kernel forms them, W = (C B^T) E and Q = D E
-// into shared memory, dx += W^T dy, dB += Q^T C, and the column sums of Z
-// (t > s). Then, for c < nc - 1, dx += e_s G_c^T B_s, dB += e_s G_c x_s
-// and sigma. Writes dx (B, T, H, P), dB's per-head partial (B, T, H, N)
-// and planes 2 (sum_t Z) and 3 (sigma) of part_ws.
+// Column kernel: steps s of one 64-step tile of one head, 4 warps, warp w
+// on steps 16w .. 16w + 15. Per row tile t >= s, the last first (dy, C
+// and cum through the ring; the pair's scores from cb_ws into
+// registers): D^T = x dy^T
+// (the first two passes swapped, so each entry is the row kernel's D),
+// W^T, Q^T and the column sums of Z as the row kernel forms them,
+// dx += W^T dy and dB += Q^T C. Then, for c < nc - 1, dx += e_s G_c^T
+// B_s, dB += e_s G_c x_s and sigma. Writes dx (B, T, H, P), dB's
+// per-head partial (B, T, H, N) and planes 2 (sum_t Z) and 3 (sigma) of
+// part_ws.
 template <int NT>
-__global__ void __launch_bounds__(kBT, 2)
+__global__ void __launch_bounds__(kPairThreads, 2)
     ssd_bwd_col_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
                        const float* __restrict__ x, const float* __restrict__ dy,
-                       const float* __restrict__ cum_ws, const float* __restrict__ g_ws,
-                       float* __restrict__ dx, float* __restrict__ dB_part,
-                       float* __restrict__ part_ws, int B, int T_len, int H, int N, int P, int L,
-                       int nc) {
+                       const float* __restrict__ cum_ws, const float* __restrict__ cb_ws,
+                       const float* __restrict__ g_ws, float* __restrict__ dx,
+                       float* __restrict__ dB_part, float* __restrict__ part_ws, int B, int T_len,
+                       int H, int N, int P, int L, int nc, bool vec_b, bool vec_x) {
   using S = BwdCfg<NT>;
   extern __shared__ float4 smem_raw[];
-  float* Bs = reinterpret_cast<float*>(smem_raw);
-  float* Xs = Bs + S::NTILE;
-  float* Ct = Xs + S::XTILE;     // C of a row tile, then the column sums
-  float* Dt = Ct + S::NTILE;
-  float* Ws = Dt + S::XTILE;     // W and Q of a tile pair, then G_c
-  float* Qs = Ws + S::XTILE;
-  float* cums = Qs + S::XTILE;
-  float* cumt = cums + kR;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int RT = (L + kR - 1) / kR, Lpad = RT * kR;
-  const TileIdx ix = tile_index(RT, H, B);
+  float* xs = reinterpret_cast<float*>(smem_raw);   // x of the steps [kR][kFS]
+  float* ring = xs + S::FT;                          // [2] x: dy [kR][kFS], C [kR][NS], cum [kR]
+  auto dst = [&](int i) { return ring + (i & 1) * S::STAGE; };
+  auto cst = [&](int i) { return ring + (i & 1) * S::STAGE + S::FT; };
+  auto mst = [&](int i) { return ring + (i & 1) * S::STAGE + S::FT + S::NTILE; };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int RT = (L + kR - 1) / kR, Lpad = RT * kR, pairs = RT * (RT + 1) / 2;
+  const TileIdx ix = tile_index(RT, H, B, false);
   const int h = ix.h, b = ix.b, c = ix.c, st = ix.tile;
   const int s0 = st * kR, vs = min(kR, L - s0);
   const int64_t row0 = static_cast<int64_t>(b) * T_len + static_cast<int64_t>(c) * L;
   const int64_t xld = static_cast<int64_t>(H) * P;
   const int64_t lane_off = ((static_cast<int64_t>(b) * H + h) * nc + c) * Lpad;
   const float* cum = cum_ws + lane_off;
-  load_tile<kR, NT>(Bs, S::NS, Bm + (row0 + s0) * N, N, vs, N, tid);
-  load_tile<kR, kR>(Xs, kTS, x + (row0 + s0) * xld + h * P, xld, vs, P, tid);
-  if (tid < kR) cums[tid] = cum[s0 + tid];
-  float dxa[4][4], dba[4][S::NJ], colz[4];
+  const float* cb_c = cb_ws + (static_cast<int64_t>(b) * nc + c) * pairs * (kR * kR);
+  // this warp's steps of the tile: rr[e] = 16 warp + 8 e + g
+  int rr[2];
+  bool ok[2];
+  float cs[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    colz[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dxa[i][j] = 0.f;
-#pragma unroll
-    for (int j = 0; j < S::NJ; ++j) dba[i][j] = 0.f;
+  for (int e = 0; e < 2; ++e) {
+    rr[e] = 16 * warp + 8 * e + g;
+    ok[e] = rr[e] < vs;
+    cs[e] = cum[s0 + rr[e]];
   }
-  for (int rt = st; rt < RT; ++rt) {
-    const int t0 = rt * kR, vt = min(kR, L - t0);
-    __syncthreads();   // the last tile's C, dy, W and Q are used
-    load_tile<kR, NT>(Ct, S::NS, Cm + (row0 + t0) * N, N, vt, N, tid);
-    load_tile<kR, kR>(Dt, kTS, dy + (row0 + t0) * xld + h * P, xld, vt, P, tid);
-    if (tid < kR) cumt[tid] = cum[t0 + tid];
-    __syncthreads();
-    float cb[4][4], d[4][4];
+  const int n_rt = RT - st;   // row tiles RT - 1 down to st
+
+  // the row tiles from the last to the diagonal one
+  auto row_of = [&](int i) { return RT - 1 - i; };
+  auto issue = [&](int i) {   // dy, C and cum of row tile row_of(i) into stage i % 2
+    const int t0 = row_of(i) * kR, vt = min(kR, L - t0);
+    stage<float, kPairThreads, kR, kPT, kFS>(dst(i), dy + (row0 + t0) * xld + h * P, xld, vt, P,
+                                             vec_x, tid);
+    stage<float, kPairThreads, kR, NT, S::NS>(cst(i), Cm + (row0 + t0) * N, N, vt, N, vec_b,
+                                              tid);
+    stage<float, kPairThreads, 1, kR, kR>(mst(i), cum + t0, 0, 1, kR, true, tid);
+    cp_async_commit();
+  };
+  stage<float, kPairThreads, kR, kPT, kFS>(xs, x + (row0 + s0) * xld + h * P, xld, vs, P, vec_x,
+                                           tid);
+  issue(0);   // x joins row tile RT - 1's group
+  if (n_rt > 1) issue(1);
+
+  float dxa[1][8][4];
+  float dba[S::NGRP][1][S::NG][4];   // n-tile jj in dba[jj / NG][0][jj % NG]
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) cb[i][j] = d[i][j] = 0.f;
-    tile_mm<false, true>(cb, Ct, S::NS, Bs, S::NS, NT, ty, tx);
-    tile_mm<false, true>(d, Dt, kTS, Xs, kTS, kR, ty, tx);
+    for (int q = 0; q < 4; ++q) dxa[0][j][q] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int gi = 0; gi < S::NGRP; ++gi)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = ty + 16 * i, s = tx + 16 * j;
-        const bool live = t < vt && s < vs && (rt > st || s <= t);
-        const float e = live ? expf(cumt[t] - cums[s]) : 0.f;
-        const float w = cb[i][j] * e;
-        if (rt > st || s < t) colz[j] = fmaf(d[i][j], w, colz[j]);
-        Ws[t * kTS + s] = w;
-        Qs[t * kTS + s] = d[i][j] * e;
+    for (int j = 0; j < S::NG; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dba[gi][0][j][q] = 0.f;
+  float cz[2] = {0.f, 0.f};
+  const float* xw = xs + (16 * warp + g) * kFS;   // this warp's steps of x
+
+  // one row tile, JH n-tiles (8 JH steps t) at a time, so that D^T's
+  // accumulator takes 4 JH registers; on the diagonal only the n-tiles at
+  // or below the warp's steps
+  auto pair = [&](int i, auto diag_tag) {
+    constexpr bool kDiag = decltype(diag_tag)::value;
+    const int rt = row_of(i), vt = min(kR, L - rt * kR);
+    const int j0 = kDiag ? 2 * warp : 0;   // n-tiles j0 .. 7
+    const float* dt = dst(i);
+    const float* ctl = cst(i);
+    const float* mt = mst(i);
+    const float* cbt = cb_c + (rt * (rt + 1) / 2 + st) * (kR * kR);
+#pragma unroll 1
+    for (int jb = j0 & ~(S::JH - 1); jb < 8; jb += S::JH) {
+      const int l0 = kDiag ? max(0, j0 - jb) : 0;   // first live n-tile
+      // their scores at the accumulator's places, CB[t][s], loaded ahead
+      // of D^T
+      float cbv[S::JH][4];
+#pragma unroll
+      for (int jl = 0; jl < S::JH; ++jl)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            cbv[jl][2 * e + q] = !kDiag || jl >= l0
+                                     ? __ldg(cbt + (8 * (jb + jl) + 2 * t4 + q) * kR + rr[e])
+                                     : 0.f;
+      // D^T = x dy^T: A = x (rows s, k = p), B = dy (k = p, n = t)
+      float d[1][S::JH][4];
+#pragma unroll
+      for (int jl = 0; jl < S::JH; ++jl)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) d[0][jl][q] = 0.f;
+#pragma unroll 2
+      for (int kk = 0; kk < kPT / 8; ++kk) {
+        const int pa = kk * 8 + t4;
+        uint32_t ah[1][4], al[1][4], bh[S::JH][2], bl[S::JH][2];
+        split_rz(xw[pa], ah[0][0], al[0][0]);
+        split_rz(xw[8 * kFS + pa], ah[0][1], al[0][1]);
+        split_rz(xw[pa + 4], ah[0][2], al[0][2]);
+        split_rz(xw[8 * kFS + pa + 4], ah[0][3], al[0][3]);
+#pragma unroll
+        for (int jl = 0; jl < S::JH; ++jl) {
+          if (kDiag && jl < l0) continue;
+          const float* dr = dt + (8 * (jb + jl) + g) * kFS + pa;
+          split_rz(dr[0], bh[jl][0], bl[jl][0]);
+          split_rz(dr[4], bh[jl][1], bl[jl][1]);
+        }
+        mma3_cols<false>(d, ah, al, bh, bl, l0, S::JH);
       }
-    __syncthreads();
-    tile_mm<true, false>(dxa, Ws, kTS, Dt, kTS, kR, ty, tx);
-    tile_mm<true, false>(dba, Qs, kTS, Ct, S::NS, kR, ty, tx);
-  }
-  float sig[4] = {0.f, 0.f, 0.f, 0.f};
-  if (c < nc - 1) {   // the state terms of G_c
-    float* Gs = Ws;
-    __syncthreads();   // W and Q are used
-    load_tile<NT, kR>(Gs, kTS,
-                      g_ws + ((static_cast<int64_t>(b) * (nc - 1) + c) * H + h) * (NT * kPT),
-                      kPT, NT, kPT, tid);
-    __syncthreads();
-    float bg[4][4], u[4][S::NJ];
+      // W^T, Q^T, the column sums of Z (t > s); dx += W^T dy, dB += Q^T C,
+      // k-step j the 8 rows t of n-tile j in the permuted order
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+      for (int jl = 0; jl < S::JH; ++jl) {
+        if (kDiag && jl < l0) continue;
+        const int j = jb + jl;
+        const float2 ctv = *reinterpret_cast<const float2*>(mt + 8 * j + 2 * t4);
+        float w[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bg[i][j] = 0.f;
+        for (int e = 0; e < 2; ++e)
 #pragma unroll
-      for (int j = 0; j < S::NJ; ++j) u[i][j] = 0.f;
+          for (int q = 0; q < 2; ++q) {
+            const int t = 8 * j + 2 * t4 + q;
+            const bool live = ok[e] && t < vt && (!kDiag || rr[e] <= t);
+            const float ex =
+                exp2_approx(live ? ((q ? ctv.y : ctv.x) - cs[e]) * kLog2e : -INFINITY);
+            const float wv = cbv[jl][2 * e + q] * ex;
+            const float dv = d[0][jl][2 * e + q];
+            if (!kDiag || rr[e] < t) cz[e] += dv * wv;
+            w[2 * e + q] = wv;
+            d[0][jl][2 * e + q] = dv * ex;
+          }
+        const int ta = 8 * j + 2 * t4;
+        {
+          uint32_t ah[1][4], al[1][4], bh[8][2], bl[8][2];
+          acc_to_a(w, ah[0], al[0]);
+          const float* dr = dt + ta * kFS + g;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            split_rz(dr[8 * jj], bh[jj][0], bl[jj][0]);
+            split_rz(dr[kFS + 8 * jj], bh[jj][1], bl[jj][1]);
+          }
+          mma3(dxa, ah, al, bh, bl);
+        }
+        {
+          uint32_t ah[1][4], al[1][4];
+          acc_to_a(d[0][jl], ah[0], al[0]);
+          const float* cr = ctl + ta * S::NS + g;
+#pragma unroll
+          for (int gi = 0; gi < S::NGRP; ++gi) {
+            uint32_t bh[S::NG][2], bl[S::NG][2];
+#pragma unroll
+            for (int jj = 0; jj < S::NG; ++jj) {
+              const int n = 8 * (gi * S::NG + jj);
+              split_rz(cr[n], bh[jj][0], bl[jj][0]);
+              split_rz(cr[S::NS + n], bh[jj][1], bl[jj][1]);
+            }
+            mma3(dba[gi], ah, al, bh, bl);
+          }
+        }
+      }
     }
-    tile_mm<false, false>(bg, Bs, S::NS, Gs, kTS, NT, ty, tx);   // (B G)[s][p]
-    tile_mm<false, true>(u, Xs, kTS, Gs, kTS, kR, ty, tx);       // (G x_s)[n]
+  };
+
+  for (int i = 0; i < n_rt; ++i) {
+    if (i + 1 < n_rt) cp_async_wait<1>();   // a later group may fly
+    else cp_async_wait<0>();
+    __syncthreads();                        // row tile row_of(i) landed
+    if (i == n_rt - 1) pair(i, std::true_type());
+    else pair(i, std::false_type());
+    __syncthreads();                        // every warp is done with stage i
+    if (i + 2 < n_rt) issue(i + 2);
+  }
+
+  float sg[2] = {0.f, 0.f};
+  if (c < nc - 1) {   // the state terms of G_c
+    float* gs = ring;              // G_c [NT][kFS], in stage 0
+    float* bs = ring + S::STAGE;   // B of the steps [kR][NS], in stage 1
+    stage<float, kPairThreads, NT, kPT, kFS>(
+        gs, g_ws + ((static_cast<int64_t>(b) * (nc - 1) + c) * H + h) * (NT * kPT), kPT, NT, kPT,
+        true, tid);
+    stage<float, kPairThreads, kR, NT, S::NS>(bs, Bm + (row0 + s0) * N, N, vs, N, vec_b, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    // bg = B_s G: A = B (rows s, k = n), B(k = n, n = p) = G[n][p]
+    float bg[1][8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) bg[0][j][q] = 0.f;
+    const float* bw = bs + (16 * warp + g) * S::NS;
+#pragma unroll 1
+    for (int kk = 0; kk < NT / 8; ++kk) {
+      const int na = kk * 8 + t4;
+      uint32_t ah[1][4], al[1][4], bh[8][2], bl[8][2];
+      split_rz(bw[na], ah[0][0], al[0][0]);
+      split_rz(bw[8 * S::NS + na], ah[0][1], al[0][1]);
+      split_rz(bw[na + 4], ah[0][2], al[0][2]);
+      split_rz(bw[8 * S::NS + na + 4], ah[0][3], al[0][3]);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        split_rz(gs[na * kFS + 8 * jj + g], bh[jj][0], bl[jj][0]);
+        split_rz(gs[(na + 4) * kFS + 8 * jj + g], bh[jj][1], bl[jj][1]);
+      }
+      mma3(bg, ah, al, bh, bl);
+    }
+    // u = x_s G^T: A = x (k = p), B(k = p, n) = G[n][p]
+    float u[S::NGRP][1][S::NG][4];
+#pragma unroll
+    for (int gi = 0; gi < S::NGRP; ++gi)
+#pragma unroll
+      for (int j = 0; j < S::NG; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) u[gi][0][j][q] = 0.f;
+#pragma unroll 1
+    for (int kk = 0; kk < kPT / 8; ++kk) {
+      const int pa = kk * 8 + t4;
+      uint32_t ah[1][4], al[1][4];
+      split_rz(xw[pa], ah[0][0], al[0][0]);
+      split_rz(xw[8 * kFS + pa], ah[0][1], al[0][1]);
+      split_rz(xw[pa + 4], ah[0][2], al[0][2]);
+      split_rz(xw[8 * kFS + pa + 4], ah[0][3], al[0][3]);
+#pragma unroll
+      for (int gi = 0; gi < S::NGRP; ++gi) {
+        uint32_t bh[S::NG][2], bl[S::NG][2];
+#pragma unroll
+        for (int jj = 0; jj < S::NG; ++jj) {
+          const float* gr = gs + (8 * (gi * S::NG + jj) + g) * kFS + pa;
+          split_rz(gr[0], bh[jj][0], bl[jj][0]);
+          split_rz(gr[4], bh[jj][1], bl[jj][1]);
+        }
+        mma3(u[gi], ah, al, bh, bl);
+      }
+    }
     const float last = cum[L - 1];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int s = ty + 16 * i;
-      const float e = s < vs ? expf(last - cums[s]) : 0.f;
+    for (int e = 0; e < 2; ++e) {
+      const float es = ok[e] ? expf(last - cs[e]) : 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) dxa[i][j] = fmaf(e, bg[i][j], dxa[i][j]);
+      for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
-      for (int j = 0; j < S::NJ; ++j) {
-        dba[i][j] = fmaf(e, u[i][j], dba[i][j]);
-        sig[i] = fmaf(Bs[s * S::NS + tx + 16 * j], u[i][j], sig[i]);
-      }
-      sig[i] *= e;
+        for (int q = 0; q < 2; ++q)
+          dxa[0][jj][2 * e + q] = fmaf(es, bg[0][jj][2 * e + q], dxa[0][jj][2 * e + q]);
+      const float* br = bw + 8 * e * S::NS + 2 * t4;
+#pragma unroll
+      for (int jj = 0; jj < S::NJ; ++jj)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float uv = u[jj / S::NG][0][jj % S::NG][2 * e + q];
+          float& acc = dba[jj / S::NG][0][jj % S::NG][2 * e + q];
+          acc = fmaf(es, uv, acc);
+          sg[e] = fmaf(br[8 * jj + q], uv, sg[e]);
+        }
+      sg[e] = quad_sum(sg[e]) * es;
     }
   }
-  // the column sums of Z: thread (ty, tx) holds columns tx + 16 j of rows
-  // ty + 16 i; the 16 rows of the block grid are added in order
-  __syncthreads();   // C is used
-  float* red = Ct;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) red[ty * kR + tx + 16 * j] = colz[j];
-  __syncthreads();
+
   const int64_t plane = static_cast<int64_t>(B) * H * nc * Lpad;
-  if (tid < vs) {
-    float z = 0.f;
-    for (int r = 0; r < 16; ++r) z += red[r * kR + tid];
-    part_ws[2 * plane + lane_off + s0 + tid] = z;
-  }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = ty + 16 * i;
-    const float sg = row_sum16(sig[i]);
-    if (s >= vs) continue;
-    if (tx == 0) part_ws[3 * plane + lane_off + s0 + s] = sg;
-    float* xo = dx + ((row0 + s0 + s) * H + h) * static_cast<int64_t>(P);
+  for (int e = 0; e < 2; ++e) {
+    const float czs = quad_sum(cz[e]);
+    if (!ok[e]) continue;
+    const int s = s0 + rr[e];
+    if (t4 == 0) {
+      part_ws[2 * plane + lane_off + s] = czs;
+      part_ws[3 * plane + lane_off + s] = sg[e];
+    }
+    float* xo = dx + ((row0 + s) * H + h) * static_cast<int64_t>(P);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (tx + 16 * j < P) xo[tx + 16 * j] = dxa[i][j];
-    float* bo = dB_part + ((row0 + s0 + s) * H + h) * N;
+    for (int jj = 0; jj < 8; ++jj) {
+      const int p = 8 * jj + 2 * t4;
+      if (p >= P) continue;
+      if ((P & 1) == 0) {
+        *reinterpret_cast<float2*>(xo + p) = make_float2(dxa[0][jj][2 * e], dxa[0][jj][2 * e + 1]);
+      } else {
+        xo[p] = dxa[0][jj][2 * e];
+        if (p + 1 < P) xo[p + 1] = dxa[0][jj][2 * e + 1];
+      }
+    }
+    float* bo = dB_part + ((row0 + s) * H + h) * N;
 #pragma unroll
-    for (int j = 0; j < S::NJ; ++j)
-      if (tx + 16 * j < N) bo[tx + 16 * j] = dba[i][j];
+    for (int jj = 0; jj < S::NJ; ++jj) {
+      const int n = 8 * jj + 2 * t4;
+      if (n >= N) continue;
+      const float* v = dba[jj / S::NG][0][jj % S::NG];
+      if ((N & 1) == 0) {
+        *reinterpret_cast<float2*>(bo + n) = make_float2(v[2 * e], v[2 * e + 1]);
+      } else {
+        bo[n] = v[2 * e];
+        if (n + 1 < N) bo[n + 1] = v[2 * e + 1];
+      }
+    }
   }
 }
 
@@ -1353,9 +1749,10 @@ cudaError_t dispatch_n(const Args& a, int head_tile) {
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 struct BwdArgs {
-  const float *Bm, *Cm, *x, *dy, *cum_ws, *h_ws;
+  const float *Bm, *Cm, *x, *dy, *cum_ws, *cb_ws, *h_ws;
   float *dlam, *dB, *dC, *dx, *g_ws, *part_ws, *dB_part, *dC_part;
   int B, T, H, N, P, L, nc;
+  bool vec_b, vec_x;
   cudaStream_t st;
 };
 
@@ -1375,8 +1772,8 @@ cudaError_t launch_bwd(const BwdArgs& a) {
     if (err != cudaSuccess) return err;
     state<<<dim3(static_cast<unsigned>(a.nc - 1), static_cast<unsigned>(a.H),
                  static_cast<unsigned>(a.B)),
-            kBT, S::STATE_BYTES, a.st>>>(a.Cm, a.dy, a.cum_ws, a.g_ws, a.T, a.H, a.N, a.P, a.L,
-                                         a.nc);
+            kStateThreads, S::STATE_BYTES, a.st>>>(a.Cm, a.dy, a.cum_ws, a.g_ws, a.T, a.H, a.N,
+                                                   a.P, a.L, a.nc, a.vec_b, a.vec_x);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     ssd_bwd_handoff_kernel<<<dim3(elems / kStateThreads, static_cast<unsigned>(a.H),
@@ -1388,19 +1785,19 @@ cudaError_t launch_bwd(const BwdArgs& a) {
   const int64_t blocks = static_cast<int64_t>((a.L + kR - 1) / kR) * a.H * a.B * a.nc;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   auto row = ssd_bwd_row_kernel<NT>;
-  err = allow_smem(row, S::ROW_BYTES, flags[1], results[1]);
+  err = allow_smem(row, S::PAIR_BYTES, flags[1], results[1]);
   if (err != cudaSuccess) return err;
-  row<<<static_cast<unsigned>(blocks), kBT, S::ROW_BYTES, a.st>>>(
-      a.Bm, a.Cm, a.x, a.dy, a.cum_ws, a.h_ws, a.dC_part, a.part_ws, a.B, a.T, a.H, a.N, a.P,
-      a.L, a.nc);
+  row<<<static_cast<unsigned>(blocks), kPairThreads, S::PAIR_BYTES, a.st>>>(
+      a.Bm, a.Cm, a.x, a.dy, a.cum_ws, a.cb_ws, a.h_ws, a.dC_part, a.part_ws, a.B, a.T, a.H, a.N,
+      a.P, a.L, a.nc, a.vec_b, a.vec_x);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   auto col = ssd_bwd_col_kernel<NT>;
-  err = allow_smem(col, S::COL_BYTES, flags[2], results[2]);
+  err = allow_smem(col, S::PAIR_BYTES, flags[2], results[2]);
   if (err != cudaSuccess) return err;
-  col<<<static_cast<unsigned>(blocks), kBT, S::COL_BYTES, a.st>>>(
-      a.Bm, a.Cm, a.x, a.dy, a.cum_ws, a.g_ws, a.dx, a.dB_part, a.part_ws, a.B, a.T, a.H, a.N,
-      a.P, a.L, a.nc);
+  col<<<static_cast<unsigned>(blocks), kPairThreads, S::PAIR_BYTES, a.st>>>(
+      a.Bm, a.Cm, a.x, a.dy, a.cum_ws, a.cb_ws, a.g_ws, a.dx, a.dB_part, a.part_ws, a.B, a.T, a.H,
+      a.N, a.P, a.L, a.nc, a.vec_b, a.vec_x);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ssd_bwd_dlam_kernel<<<dim3(static_cast<unsigned>(a.nc), static_cast<unsigned>(a.H),
@@ -1472,25 +1869,31 @@ int ssd_chunk_fwd(const void* lam, const void* Bm, const void* Cm, const void* x
 
 // The gradients of ssd_chunk_fwd's y against dy (B, T, H, P), all fp32
 // and row-major: Bm, Cm (B, T, N) and x (B, T, H, P) as the forward took
-// them, and the forward's cum_ws and (when nc > 1) h_ws, holding its
-// prefix sums and chunk-start states. Outputs dlam (B, T, H), dBm, dCm
-// (B, T, N), dx (B, T, H, P). Workspaces, fp32: g_ws (B, nc - 1, H, N_pad,
-// 64) when nc > 1, part_ws (4, B, H, nc, Lpad), dB_part and dC_part (B, T,
-// H, N). 1 <= N <= 128, 1 <= P <= 64. Six kernels on `stream` (four when
-// nc = 1).
+// them, and the forward's cum_ws, cb_ws and (when nc > 1) h_ws, holding
+// its prefix sums, scores and chunk-start states. Outputs dlam (B, T, H),
+// dBm, dCm (B, T, N), dx (B, T, H, P). Workspaces, fp32: g_ws (B, nc - 1,
+// H, N_pad, 64) when nc > 1 (16-byte aligned), part_ws (4, B, H, nc,
+// Lpad), dB_part and dC_part (B, T, H, N). 1 <= N <= 128, 1 <= P <= 64.
+// Six kernels on `stream` (four when nc = 1).
 int ssd_chunk_bwd(const void* Bm, const void* Cm, const void* x, const void* dy,
-                  const void* cum_ws, const void* h_ws, void* dlam, void* dBm, void* dCm, void* dx,
-                  void* g_ws, void* part_ws, void* dB_part, void* dC_part, int64_t B,
-                  int64_t T_len, int64_t H, int64_t N, int64_t P, int64_t L, void* stream) {
+                  const void* cum_ws, const void* cb_ws, const void* h_ws, void* dlam, void* dBm,
+                  void* dCm, void* dx, void* g_ws, void* part_ws, void* dB_part, void* dC_part,
+                  int64_t B, int64_t T_len, int64_t H, int64_t N, int64_t P, int64_t L,
+                  void* stream) {
   if (B <= 0 || B > 65535 || T_len <= 0 || T_len > 0x7fffffffLL || H <= 0 || H > 65535 ||
       N < 1 || N > 128 || P < 1 || P > kPT || L <= 0 || T_len % L != 0 ||
-      (T_len > L && (h_ws == nullptr || g_ws == nullptr)))
+      !aligned16(cum_ws) || !aligned16(cb_ws) ||
+      (T_len > L && (h_ws == nullptr || g_ws == nullptr || !aligned16(h_ws) ||
+                     !aligned16(g_ws))))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec_b = N % 4 == 0 && aligned16(Bm) && aligned16(Cm);
+  const bool vec_x = P % 4 == 0 && aligned16(x) && aligned16(dy);
   BwdArgs a{static_cast<const float*>(Bm),
             static_cast<const float*>(Cm),
             static_cast<const float*>(x),
             static_cast<const float*>(dy),
             static_cast<const float*>(cum_ws),
+            static_cast<const float*>(cb_ws),
             static_cast<const float*>(h_ws),
             static_cast<float*>(dlam),
             static_cast<float*>(dBm),
@@ -1507,6 +1910,8 @@ int ssd_chunk_bwd(const void* Bm, const void* Cm, const void* x, const void* dy,
             static_cast<int>(P),
             static_cast<int>(L),
             static_cast<int>(T_len / L),
+            vec_b,
+            vec_x,
             static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   if (N <= 16) err = launch_bwd<16>(a);

@@ -13,15 +13,16 @@ state from chunk to chunk (``ssd_handoff_kernel``); one block per
 (``ssd_out_kernel``). Every product runs on the tensor cores in three
 TF32 passes. The wrapper allocates the fp32 workspaces (prefix sums,
 scores, chunk-start states) with ``torch.empty`` and pads bf16 / fp16
-rows to 16 bytes; with ``return_saved`` it hands back the prefix sums and
-the chunk-start states.
+rows to 16 bytes; with ``return_saved`` it hands back the prefix sums,
+the chunk-start states and the scores.
 
 ``ssd_chunk_bwd`` is the scan's backward (no ``pallas_call`` of the
 reference: ``jax.vjp`` of its ``chunk_step``), fp32 only, from the
-forward's saved prefix sums and states: :func:`bwd_device_kernels` device
-kernels on the CUDA cores (the increments of the state's gradient and
-their reverse hand-off, a row and a column kernel over the causal tile
-pairs, the float64 scans into dlam, the head sums of dB and dC).
+forward's saved prefix sums, states and scores: :func:`bwd_device_kernels`
+device kernels (the increments of the state's gradient and their reverse
+hand-off, a row and a column kernel over the causal tile pairs, the
+float64 scans into dlam, the head sums of dB and dC), every product on
+the tensor cores in three TF32 passes.
 
 On a CPU tensor the wrapper returns its plain version from ``ref.py``; on
 a CUDA tensor it launches the kernels on the current stream or raises. It
@@ -70,7 +71,7 @@ def _library() -> ctypes.CDLL:
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.ssd_chunk_fwd.argtypes = [ptr] * 8 + [i64] * 8 + [ptr]
         lib.ssd_chunk_fwd.restype = ctypes.c_int
-        lib.ssd_chunk_bwd.argtypes = [ptr] * 14 + [i64] * 6 + [ptr]
+        lib.ssd_chunk_bwd.argtypes = [ptr] * 15 + [i64] * 6 + [ptr]
         lib.ssd_chunk_bwd.restype = ctypes.c_int
     return lib
 
@@ -160,7 +161,7 @@ def _rows16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-Saved = Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]]
+Saved = Optional[Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]]
 
 
 def ssd_chunk(lam: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
@@ -172,8 +173,11 @@ def ssd_chunk(lam: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     when ``chunk`` does not divide T). lam is taken in fp32. With
     ``return_saved``, (y, saved): on the card ``saved`` is (the prefix
     sums (B, H, nc, Lpad), the chunk-start states (B, nc - 1, H, N_pad,
-    64) or None for one chunk), what ``ssd_chunk_bwd`` takes; None on the
-    CPU and for empty inputs."""
+    64) or None for one chunk, the scores C·Bᵀ of every (batch, chunk,
+    tile pair) (B, nc, RT (RT + 1) / 2, 64, 64)), what ``ssd_chunk_bwd``
+    takes; None on the CPU and for empty inputs. The scores hold
+    B * nc * RT (RT + 1) / 2 * 16 KB (RT = ceil(L / 64)): 2.6 MB at the
+    Zamba2-1.2B layer, but 0.54 GB at B 4, L = T = 8191."""
     check_inputs(lam, Bm, Cm, xdt)
     L = chunk_len(lam.shape[1], int(chunk))
     if lam.device.type == "cpu":
@@ -214,7 +218,7 @@ def ssd_chunk(lam: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         raise RuntimeError(f"ssd_chunk_fwd launch failed: CUDA error {err}")
     _count("ssd_chunk")
     y = y if P == P_out else y[..., :P_out].contiguous()
-    return (y, (cum, states)) if return_saved else y
+    return (y, (cum, states, scores)) if return_saved else y
 
 
 def ssd_chunk_bwd(lam: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
@@ -226,8 +230,9 @@ def ssd_chunk_bwd(lam: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     P)) of ``ssd_chunk``'s y against dy (B, T, H, P), fp32. Every input is
     fp32 (the model feeds the scan fp32); dy may be non-contiguous. On the
     card ``saved`` is what ``ssd_chunk(..., return_saved=True)`` returned
-    for the same inputs and chunk; on the CPU the plain version
-    ``ssd_scan_bwd_ref`` runs and ``saved`` is not read."""
+    for the same inputs and chunk (the backward reads the forward's
+    scores C·Bᵀ instead of forming them again); on the CPU the plain
+    version ``ssd_scan_bwd_ref`` runs and ``saved`` is not read."""
     check_inputs(lam, Bm, Cm, xdt)
     if tuple(dy.shape) != tuple(xdt.shape) or dy.device != xdt.device:
         raise ValueError(f"dy {tuple(dy.shape)} on {dy.device} does not "
@@ -248,19 +253,22 @@ def ssd_chunk_bwd(lam: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     if B == 0 or T == 0 or H == 0:
         return zeros(B, T, H), zeros(B, T, N), zeros(B, T, N), \
             zeros(B, T, H, P)
-    nc, Lpad, n_pad = T // L, -(-L // ROW_TILE) * ROW_TILE, state_pad(N)
+    nc, n_pad = T // L, state_pad(N)
+    row_tiles = -(-L // ROW_TILE)
+    Lpad, pairs = row_tiles * ROW_TILE, row_tiles * (row_tiles + 1) // 2
     if saved is None:
         raise ValueError("ssd_chunk_bwd on the card needs the forward's "
-                         "saved prefix sums and states: pass ssd_chunk(..., "
-                         "return_saved=True)'s")
-    cum, states = saved
+                         "saved prefix sums, states and scores: pass "
+                         "ssd_chunk(..., return_saved=True)'s")
+    cum, states, scores = saved
     if tuple(cum.shape) != (B, H, nc, Lpad) or (
             nc > 1 and (states is None or tuple(states.shape) != (
-                B, nc - 1, H, n_pad, MAX_HEAD_DIM))):
+                B, nc - 1, H, n_pad, MAX_HEAD_DIM))) \
+            or tuple(scores.shape) != (B, nc, pairs, ROW_TILE, ROW_TILE):
         raise ValueError(f"saved prefix sums {tuple(cum.shape)} / states "
                          f"{None if states is None else tuple(states.shape)} "
-                         f"are not the forward's of inputs {tuple(xdt.shape)}"
-                         f" at L = {L}")
+                         f"/ scores {tuple(scores.shape)} are not the "
+                         f"forward's of inputs {tuple(xdt.shape)} at L = {L}")
     empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
     dlam, dB, dC, dx = empty(B, T, H), empty(B, T, N), empty(B, T, N), \
         empty(B, T, H, P)
@@ -272,7 +280,8 @@ def ssd_chunk_bwd(lam: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.ssd_chunk_bwd(
             Bm.data_ptr(), Cm.data_ptr(), xdt.data_ptr(), dy.data_ptr(),
-            cum.data_ptr(), ptr(states), dlam.data_ptr(), dB.data_ptr(),
+            cum.data_ptr(), scores.data_ptr(), ptr(states), dlam.data_ptr(),
+            dB.data_ptr(),
             dC.data_ptr(), dx.data_ptr(), ptr(g_ws), part.data_ptr(),
             dB_part.data_ptr(), dC_part.data_ptr(), B, T, H, N, P, L,
             torch.cuda.current_stream(dev).cuda_stream,

@@ -8,8 +8,8 @@ here.
 ``SSDScanFn`` is the port's counterpart of what ``jax.vjp`` makes of the
 reference model's scan (``repro/models/layers/mamba2.py`` ``chunk_step``):
 its forward saves the inputs and, on the card, the forward kernel's
-prefix sums and chunk-start states; its backward computes every gradient
-from them. With ``plain=False`` both passes go through the kernels'
+prefix sums, chunk-start states and scores C·Bᵀ; its backward computes
+every gradient from them. With ``plain=False`` both passes go through the kernels'
 wrappers, which launch ``ssd_chunk_fwd`` / ``ssd_chunk_bwd`` on CUDA
 tensors (or raise) and run ``ssd_scan_ref`` / ``ssd_scan_bwd_ref`` on
 CPU tensors; with ``plain=True`` they run the plain versions on any
@@ -39,20 +39,21 @@ class SSDScanFn(torch.autograd.Function):
         else:
             y, saved = ssd_scan(lam, Bm, Cm, xdt, chunk=chunk,
                                 return_saved=True)
-        cum, states = saved if saved is not None else (None, None)
-        ctx.save_for_backward(lam, Bm, Cm, xdt, cum, states)
+        cum, states, scores = saved if saved is not None \
+            else (None, None, None)
+        ctx.save_for_backward(lam, Bm, Cm, xdt, cum, states, scores)
         ctx.chunk, ctx.plain = chunk, plain
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        lam, Bm, Cm, xdt, cum, states = ctx.saved_tensors
+        lam, Bm, Cm, xdt, cum, states, scores = ctx.saved_tensors
         if ctx.plain:
             grads = ssd_scan_bwd_ref(lam, Bm, Cm, xdt, dy, chunk=ctx.chunk)
         else:
             grads = ssd_chunk_bwd(
                 lam, Bm, Cm, xdt, dy, chunk=ctx.chunk,
-                saved=None if cum is None else (cum, states))
+                saved=None if cum is None else (cum, states, scores))
         return (*grads, None, None)
 
 

@@ -33,7 +33,8 @@ set to 0 just before it. Phase 1 also holds the flash-attention and
 flash-decode kernels against their plain versions (with
 ``scaled_dot_product_attention`` timed as a yardstick; each decode case
 prints its split plan, checks that two calls agree bit for bit and
-times the wrapper's host time per call too), and phase 4
+times the wrapper's host time per call too; the layers and steps of
+phase 11's head-dim-128 models among them), and phase 4
 drives the serving path through ``build_model`` and
 ``repro_torch.launch.generate``: a FedAvg fusion of 4 full-width
 Qwen2-0.5B bf16 clients, a 4 x 1024 prefill and cached decoding; fp32
@@ -125,8 +126,18 @@ streams off ``UpdateStore.iter_chunks`` (exactly 48 / 48 / 24 / 48
 launches), a store round and two gamma 0.5 async rounds through
 ``AggregationService(mesh=)``, and a carry handed from a ``LocalEngine``
 stream into the mesh engine; each case prints both engines' walls
-(median of 5), its launches and NCCL's share of its device time.
-Phases 2-10
+(median of 5), its launches and NCCL's share of its device time. Phase
+11, run after phase 5, serves the head-dim-128 decoders Qwen2.5-3B and
+Minitron-8B and the mixture-of-experts decoder DeepSeek-MoE-16B, one at
+a time, each freed before the next is built: at full width and depth in
+bf16, prefills of 4 x 1024 (one profiled) and a 64 + 32-token generate
+with exact launches; fp32 on a 4-layer cut, a 2 x 512 prefill against
+teacher-forced decoding and the plain attention (DeepSeek-MoE at the
+capacity factor E / top_k, where prefill drops no assignment, and at its
+own 1.25 against the plain prefill); a FedAvg of 2 clients against
+float64 Eq. 1 (Qwen2.5-3B at full depth, DeepSeek-MoE on 2 layers); and
+the generate CLI. Each step prints a line before it starts.
+Phases 2-11
 each start with the launch counts at 0, and every serving run must
 launch exactly what its prefills, decode steps and fusions take. The
 second-to-last line is ``{"kernels": [...]}`` and the last
@@ -2633,6 +2644,14 @@ def phase_attention_kernels(dev, hbm_bw):
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     for B, T, nq, nkv, hd, win, dt, label in [
         (4, 1024, 14, 2, 64, 0, bf16, "Qwen2-0.5B prefill layer"),
+        # head dim 128: the layers phase 11 serves
+        (4, 1024, 32, 8, 128, 0, bf16, "Minitron-8B prefill layer (hd 128)"),
+        (4, 1024, 32, 8, 128, 0, fp32, "Minitron-8B prefill layer (hd 128)"),
+        (4, 1024, 16, 16, 128, 0, bf16,
+         "DeepSeek-MoE-16B prefill layer (MHA, hd 128)"),
+        (4, 1024, 16, 16, 128, 0, fp32,
+         "DeepSeek-MoE-16B prefill layer (MHA, hd 128)"),
+        (4, 1024, 16, 2, 128, 0, bf16, "Qwen2.5-3B prefill layer (hd 128)"),
         (4, 1024, 14, 2, 64, 0, fp32, "Qwen2-0.5B prefill layer"),
         (1, 1280, 4, 1, 256, 1024, fp32, "Gemma3-1B local layer (MQA)"),
         (1, 1280, 4, 1, 256, 1024, bf16, "Gemma3-1B local layer (MQA)"),
@@ -2915,6 +2934,14 @@ def phase_decode_kernel(dev, hbm_bw):
     cases = {"flash_decode": []}
     for B, S, nq, nkv, hd, pos, dt, label in [
         (4, 2048, 14, 2, 64, 1500, bf16, "Qwen2-0.5B decode step"),
+        # head dim 128: the steps phase 11 serves
+        (4, 2048, 32, 8, 128, 1500, bf16, "Minitron-8B decode step (hd 128)"),
+        (4, 2048, 32, 8, 128, 80, bf16,
+         "Minitron-8B decode step (hd 128), pos 80"),
+        (4, 2048, 16, 2, 128, 80, bf16,
+         "Qwen2.5-3B decode step (hd 128), pos 80"),
+        (4, 2048, 16, 16, 128, 80, bf16,
+         "DeepSeek-MoE-16B decode step (MHA, hd 128), pos 80"),
         (4, 2048, 14, 2, 64, 5, bf16, "Qwen2-0.5B decode step, pos 5"),
         (4, 2048, 14, 2, 64, 80, bf16, "Qwen2-0.5B decode step, pos 80"),
         (4, 2048, 14, 2, 64, 0, bf16,
@@ -3525,7 +3552,8 @@ def phase_serving(dev, attn_cases):
     # the kernel at this step's shape mid-run (pos 80 of 2048), as
     # phase 1 timed it
     fd_ms = next(c["ms"] for c in attn_cases["flash_decode"]
-                 if c["dtype"] == "bf16" and c["pos"] == 80)
+                 if c["shape"] == [4, 2048, 14, 2, 64]
+                 and c["dtype"] == "bf16" and c["pos"] == 80)
     out["qwen2_decode_ms_per_step"] = step_ms
     out["qwen2_decode_kernel_share"] = cfg.n_layers * fd_ms / step_ms
     print(f"[phase4] qwen2-0.5b bf16 generate: {steps} steps (64 "
@@ -3713,6 +3741,251 @@ def phase_hybrid_serving(dev, cases):
           flush=True)
     _serving_launches(delta, "CLI generate zamba2", cfg, 1, 16 + 8 - 1,
                       fusions=1)
+    return out
+
+
+# phase 11: (arch, layers of the fp32 prefill-vs-decode cut, layers of the
+# FedAvg fusion: None at full depth, 0 for none, the generate CLI's
+# --clients). A full-depth fusion of 2 clients holds the model, the two
+# clients and their flat rows and the stacked matrix in the model's
+# dtype, and the fp32 sum and result: about 11x the bf16 model, 68 GB for
+# Qwen2.5-3B; Minitron-8B's 19.8 GB and DeepSeek-MoE-16B's 33.8 GB fuse
+# only on a cut, and their CLI runs serve the seeded model unfused.
+MORE_DECODERS = [("qwen2.5-3b", 4, None, 2), ("minitron-8b", 4, 0, 0),
+                 ("deepseek-moe-16b", 4, 2, 0)]
+
+
+def _gb(nbytes: float) -> float:
+    return nbytes / 1e9
+
+
+def _serve_bf16(dev, cfg, cases, rng, out):
+    """(a) of phase 11: a model at full width and depth in bf16, timed
+    prefills of 4 x 1024 (one profiled) and a 64-token teacher-forced +
+    32-token greedy generate with a 2048-slot cache (7 steps profiled),
+    each with its exact launches. Returns the model."""
+    import torch
+
+    from repro_torch.launch import generate as gen
+    from repro_torch.models import build_model
+
+    arch = cfg.arch_id
+    hd = cfg.resolved_head_dim
+    print(f"[phase11] {arch}: building bf16, {cfg.n_layers} layers",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    if n != cfg.num_params():
+        raise AssertionError(f"{arch}: {n} params, want {cfg.num_params()}")
+    out[f"{arch}_build_s"] = time.perf_counter() - t0
+    print(f"[phase11] {arch}: built {n} params in "
+          f"{out[arch + '_build_s']:.3f} s, "
+          f"{_gb(torch.cuda.memory_allocated()):.2f} GB on the card",
+          flush=True)
+
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           size=(4, 1024))).to(dev)
+    before = _all_launches()
+    last, first_ms, prefill_ms, enqueue_ms = _time_prefill(model, prompt)
+    _serving_launches(_launch_delta(before), f"{arch} prefills", cfg,
+                      PREFILL_REPS + 1, 0)
+    if tuple(last.shape) != (4, cfg.vocab) or not torch.isfinite(last).all():
+        raise AssertionError(f"{arch} prefill logits {tuple(last.shape)}")
+    fa_ms = next(c["ms"] for c in cases["flash_attention"]
+                 if c["shape"] == [4, 1024, cfg.n_heads, cfg.n_kv_heads, hd]
+                 and c["dtype"] == "bf16")
+    out[f"{arch}_prefill_ms"] = prefill_ms
+    out[f"{arch}_prefill_enqueue_ms"] = enqueue_ms
+    out[f"{arch}_prefill_kernel_share"] = cfg.n_layers * fa_ms / prefill_ms
+    print(f"[phase11] {arch} bf16 prefill 4x1024: {prefill_ms:.3f} ms "
+          f"(median of {PREFILL_REPS}; host enqueue {enqueue_ms:.3f} ms; "
+          f"first call {first_ms:.3f} ms); flash_attention {cfg.n_layers} x "
+          f"{fa_ms:.4f} ms = {out[arch + '_prefill_kernel_share']:.1%}",
+          flush=True)
+    before = _all_launches()
+    wall, busy, _ = _profile(lambda: model.prefill({"tokens": prompt}),
+                             f"{arch} bf16 prefill 4x1024", phase="phase11")
+    _serving_launches(_launch_delta(before), f"{arch} profiled prefill", cfg,
+                      1, 0)
+    out[f"{arch}_prefill_device_busy_ms"] = busy
+    out[f"{arch}_prefill_device_busy_share"] = busy / wall
+    del last
+
+    prompt = prompt[:, :64].contiguous()
+    n_new = 32
+    print(f"[phase11] {arch}: decoding", flush=True)
+    before = _all_launches()
+    gen.generate(model, prompt[:, :4], 2, cache_len=2048)    # warm-up
+    torch.cuda.synchronize()
+    _serving_launches(_launch_delta(before), f"{arch} warm-up decode", cfg,
+                      0, 5)
+    before = _all_launches()
+    t0 = time.perf_counter()
+    tokens, logits = gen.generate(model, prompt, n_new, cache_len=2048,
+                                  return_logits=True)
+    torch.cuda.synchronize()
+    steps = prompt.shape[1] + n_new - 1
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    _serving_launches(_launch_delta(before), f"{arch} generate", cfg, 0,
+                      steps)
+    if tuple(tokens.shape) != (4, 64 + n_new) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"{arch} generate {tuple(tokens.shape)}")
+    before = _all_launches()
+    wall, busy, kernels = _profile(
+        lambda: gen.generate(model, prompt[:, :4], 4, cache_len=2048),
+        f"{arch} bf16 decode, 7 steps", phase="phase11")
+    _serving_launches(_launch_delta(before), f"{arch} profiled decode", cfg,
+                      0, 7)
+    out[f"{arch}_decode_device_busy_share"] = busy / wall
+    for name, val in _decode_profile(kernels, busy, 7, cfg.n_layers,
+                                     f"{arch} bf16 decode",
+                                     "phase11").items():
+        out[f"{arch}_decode_{name}"] = val
+    fd_ms = next(c["ms"] for c in cases["flash_decode"]
+                 if c["shape"] == [4, 2048, cfg.n_heads, cfg.n_kv_heads, hd]
+                 and c["dtype"] == "bf16" and c["pos"] == 80)
+    out[f"{arch}_decode_ms_per_step"] = step_ms
+    out[f"{arch}_decode_kernel_share"] = cfg.n_layers * fd_ms / step_ms
+    out[f"{arch}_serving_peak_gb"] = _gb(torch.cuda.max_memory_allocated())
+    print(f"[phase11] {arch} bf16 generate: {steps} steps (64 "
+          f"teacher-forced + {n_new - 1} greedy, B=4, 2048-slot cache): "
+          f"{step_ms:.3f} ms/step; flash_decode {cfg.n_layers} x "
+          f"{fd_ms:.4f} ms (pos 80) = {out[arch + '_decode_kernel_share']:.1%}"
+          f"; peak {out[arch + '_serving_peak_gb']:.2f} GB", flush=True)
+    del prompt, tokens, logits
+    return model
+
+
+def _fuse_two(dev, model, rng, what, out, key):
+    """(c) of phase 11: FedAvg of 2 perturbed clients of ``model`` through
+    ``fuse_clients`` (one weighted-sum launch) against float64 Eq. 1."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import generate as gen
+
+    print(f"[phase11] {what}: fusing 2 clients", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    clients = gen.perturbed_clients(model, 2, seed=SEED + 1)
+    weights = rng.integers(1, 100, size=2).astype(np.float32)
+    before = _all_launches()
+    t0 = time.perf_counter()
+    fused, report = gen.fuse_clients(model, clients, weights)
+    torch.cuda.synchronize()
+    fuse_s = time.perf_counter() - t0
+    delta = _launch_delta(before)
+    _serving_launches(delta, f"{what} fusion", model.config, 0, 0, fusions=1)
+    out[f"{key}_fuse_s"] = fuse_s
+    out[f"{key}_fuse_peak_gb"] = _gb(torch.cuda.max_memory_allocated())
+    print(f"[phase11] {what} FedAvg of 2 clients: wall={fuse_s:.3f}s "
+          f"fuse={report.fuse_seconds:.3f}s phases={report.phase_seconds} "
+          f"launches={delta} peak {out[key + '_fuse_peak_gb']:.2f} GB",
+          flush=True)
+    _fused_vs_eq1(fused, clients, weights, model.state_dict(),
+                  f"{what} FedAvg of 2 clients", "phase11")
+    del clients, fused
+
+
+def phase_more_decoders(dev, cases):
+    """Phase 11: the head-dim-128 decoders Qwen2.5-3B (QKV bias, tied
+    head) and Minitron-8B (untied head, vocab 256,000) and the
+    mixture-of-experts decoder DeepSeek-MoE-16B (64 experts top 6 and 2
+    shared, MHA) through ``build_model`` and ``launch.generate``, each
+    model freed before the next is built: (a) at full width and depth in
+    bf16, prefills of 4 x 1024 and a generate with exact launches; (b)
+    fp32 at full width on a 4-layer cut, a 2 x 512 prefill against the
+    same tokens teacher-forced through ``decode_step`` and against the
+    plain attention at 2e-3 (DeepSeek-MoE at the capacity factor E /
+    top_k, where prefill drops no assignment, as a decode step's dense
+    mix drops none; at the config's 1.25 its kernel prefill is held
+    against the plain prefill); (c) FedAvg of 2 perturbed clients
+    against float64 Eq. 1, Qwen2.5-3B at full depth, DeepSeek-MoE on a
+    2-layer cut (its expert stacks through the weighted sum); then the
+    generate CLI at full size (Qwen2.5-3B fusing 2 clients, the others
+    with ``--clients 0``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch import generate as gen
+    from repro_torch.models import build_model
+
+    rng = np.random.default_rng(SEED + 11)
+    out = {}
+    for arch, cut, fuse_layers, cli_clients in MORE_DECODERS:
+        t_model = time.perf_counter()
+        cfg = get_config(arch)
+        model = _serve_bf16(dev, cfg, cases, rng, out)
+        if fuse_layers is None:
+            _fuse_two(dev, model, rng, f"{arch} bf16", out, arch)
+        del model
+        torch.cuda.empty_cache()
+        if fuse_layers:
+            cut_cfg = dataclasses.replace(cfg, n_layers=fuse_layers)
+            model = build_model(cut_cfg, device=dev, seed=SEED)
+            _fuse_two(dev, model, rng, f"{arch} bf16, {fuse_layers} layers",
+                      out, arch)
+            del model
+            torch.cuda.empty_cache()
+
+        # (b) fp32 at full width on a layer cut
+        cfg32 = dataclasses.replace(cfg, n_layers=cut, dtype="float32")
+        what = f"{arch} fp32, {cut} layers"
+        print(f"[phase11] {what}: building", flush=True)
+        model = build_model(cfg32, device=dev, seed=SEED)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                               size=(2, 512))).to(dev)
+        if cfg.moe is not None:
+            # the config's capacity factor drops assignments: its kernel
+            # prefill against the plain one, then the no-drop factor
+            before = _all_launches()
+            pre = model.prefill({"tokens": tokens})
+            plain = model.prefill({"tokens": tokens},
+                                  attention=attention_ref)
+            _serving_launches(_launch_delta(before), f"{what} cf 1.25", cfg32,
+                              1, 0)
+            err = _check_close(plain.cpu().numpy(),
+                               pre.double().cpu().numpy(), 2e-3, 2e-3,
+                               f"{what}, capacity factor "
+                               f"{cfg.moe.capacity_factor}: plain vs kernel "
+                               "prefill")
+            print(f"[phase11] {what}, capacity factor "
+                  f"{cfg.moe.capacity_factor}: prefill 2x512 plain vs "
+                  f"kernel max_abs_err={err} (rtol=2e-3, atol=2e-3)",
+                  flush=True)
+            del pre, plain
+            no_drop = cfg.moe.n_experts / cfg.moe.top_k
+            model.config = dataclasses.replace(cfg32, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=no_drop))
+            what += f", capacity factor {no_drop:g}"
+        _prefill_vs_decode(model, tokens, what, 2e-3, 2e-3, phase="phase11")
+        del model, tokens
+        torch.cuda.empty_cache()
+
+        # the CLI, as a user runs it
+        print(f"[phase11] {arch}: CLI generate", flush=True)
+        before = _all_launches()
+        t0 = time.perf_counter()
+        gen.main(["--arch", arch, "--clients", str(cli_clients),
+                  "--batch", "2", "--prompt-len", "16", "--new-tokens", "8",
+                  "--seed", str(SEED)])
+        delta = _launch_delta(before)
+        torch.cuda.empty_cache()
+        print(f"[phase11] CLI generate {arch} --clients {cli_clients}: "
+              f"wall={time.perf_counter() - t0:.3f}s launches={delta}",
+              flush=True)
+        _serving_launches(delta, f"CLI generate {arch}", cfg, 1, 16 + 8 - 1,
+                          fusions=int(cli_clients > 0))
+        out[f"{arch}_seconds"] = time.perf_counter() - t_model
+        print(f"[phase11] {arch}: done in {out[arch + '_seconds']:.3f} s",
+              flush=True)
     return out
 
 
@@ -4230,6 +4503,8 @@ def main() -> int:
     del U, Uc, cu_rows
     run_phase("phase4", phase_serving, dev, cases)      # a fused decoder
     run_phase("phase5", phase_hybrid_serving, dev, cases)   # fused Zamba2
+    # the head-dim-128 decoders and the mixture-of-experts decoder
+    run_phase("phase11", phase_more_decoders, dev, cases)
     run_phase("phase9", phase_training, dev, cases)     # federated training
     launches = {k: sum(p.get(k, 0) for p in by_phase.values())
                 for k in _all_launches()}
@@ -4245,6 +4520,8 @@ def main() -> int:
             or any(by_phase["phase9"].get(k, 0) == 0 for k in (
                 "weighted_sum", "flash_attention", "flash_attention_bwd",
                 "ssd_chunk", "ssd_chunk_bwd")) \
+            or any(by_phase["phase11"].get(k, 0) == 0 for k in (
+                "weighted_sum", "flash_attention", "flash_decode")) \
             or any(by_phase["phase10"].get(k, 0) == 0 for k in (
                 "weighted_sum", "weighted_sum_dequant", "topk_carve",
                 "trimmed_mean", "coord_median")):

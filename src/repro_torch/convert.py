@@ -2,7 +2,8 @@
 
 What crosses between the two packages is data — a streamed round's
 reducer carry, a server optimizer's state, the pytree an update is
-shaped like, and a model's parameters (the dense decoder's, Zamba2's).
+shaped like, and a model's parameters (the decoders', dense or MoE, and
+Zamba2's).
 Each comes over as numpy arrays, which is how a ``repro`` caller holds
 them (``np.asarray`` of its leaves; bf16 leaves as ``ml_dtypes.bfloat16``
 arrays, read as raw 16-bit words), so nothing here imports JAX.
@@ -69,16 +70,21 @@ def _field(node, name: str):
     return node[name] if isinstance(node, Mapping) else getattr(node, name)
 
 
+_MLP_FIELDS = ("w_gate", "w_up", "w_down")
+
+
 def decoder_state_from_numpy(params, cfg: ModelConfig,
                              device: DeviceLike = None
                              ) -> "collections.OrderedDict[str, torch.Tensor]":
     """``repro``'s ``init_decoder`` tree (numpy leaves) as the
-    ``state_dict`` of this package's dense ``Model``, on ``device``.
+    ``state_dict`` of this package's ``Decoder``, on ``device``.
 
     The JAX layer stack is stacked on axis 0 (``jax.vmap`` init); each
     layer's slice becomes ``layers.<i>``. ``AttnParams`` /
     ``MLPParams`` arrive as NamedTuples (or dicts) whose biases are
-    ``None`` without ``qkv_bias``."""
+    ``None`` without ``qkv_bias``. An MoE config's layers hold a stacked
+    ``MoEParams`` (router, the expert stacks, the shared ``MLPParams`` or
+    ``None``) under ``"moe"``, which become ``layers.<i>.moe.*``."""
     dev = resolve_device(device)
     dt = lambda x: to_device(np.asarray(x), dev)   # noqa: E731
     state = collections.OrderedDict()   # in Model.state_dict()'s order
@@ -87,18 +93,30 @@ def decoder_state_from_numpy(params, cfg: ModelConfig,
     if not cfg.tie_embeddings:
         state["head"] = dt(params["head"])
     layers = params["layers"]
-    attn, mlp = layers["attn"], layers["mlp"]
+    attn = layers["attn"]
     names = ["wq", "wk", "wv", "wo"]
     if cfg.qkv_bias:
         names += ["bq", "bk", "bv"]
+    # (key under the layer, stacked leaf) of the MLP or the MoE
+    if cfg.moe is not None:
+        moe = layers["moe"]
+        ffn = [("moe." + name, _field(moe, name))
+               for name in ("router",) + _MLP_FIELDS]
+        shared = _field(moe, "shared")
+        if shared is not None:
+            ffn += [("moe.shared." + name, _field(shared, name))
+                    for name in _MLP_FIELDS]
+    else:
+        ffn = [("mlp." + name, _field(layers["mlp"], name))
+               for name in _MLP_FIELDS]
     for i in range(cfg.n_layers):
         pre = f"layers.{i}."
         state[pre + "ln1"] = dt(np.asarray(layers["ln1"])[i])
         state[pre + "ln2"] = dt(np.asarray(layers["ln2"])[i])
         for name in names:
             state[pre + "attn." + name] = dt(np.asarray(_field(attn, name))[i])
-        for name in ("w_gate", "w_up", "w_down"):
-            state[pre + "mlp." + name] = dt(np.asarray(_field(mlp, name))[i])
+        for key, leaf in ffn:
+            state[pre + key] = dt(np.asarray(leaf)[i])
     return state
 
 
@@ -111,7 +129,8 @@ def _model_holding(state, cfg: ModelConfig, device: DeviceLike):
 
 
 def decoder_from_numpy(params, cfg: ModelConfig, device: DeviceLike = None):
-    """A dense ``Model`` holding ``repro``'s decoder parameters."""
+    """A ``Decoder`` (dense or MoE) holding ``repro``'s decoder
+    parameters."""
     return _model_holding(decoder_state_from_numpy(params, cfg, device), cfg,
                           device)
 
@@ -150,7 +169,7 @@ def zamba_state_from_numpy(params, cfg: ModelConfig,
         state["shared.ln2"] = dt(shared["ln2"])
         for name in ("wq", "wk", "wv", "wo"):
             state["shared.attn." + name] = dt(_field(shared["attn"], name))
-        for name in ("w_gate", "w_up", "w_down"):
+        for name in _MLP_FIELDS:
             state["shared.mlp." + name] = dt(_field(shared["mlp"], name))
     return state
 

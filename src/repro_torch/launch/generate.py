@@ -6,6 +6,10 @@ Mamba2 layers of Zamba2, the conv window and SSM state).
     PYTHONPATH=src python -m repro_torch.launch.generate \
         --arch qwen2-0.5b-smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.generate --arch zamba2-1.2b
+    PYTHONPATH=src python -m repro_torch.launch.generate \
+        --arch qwen2.5-3b --clients 2
+    PYTHONPATH=src python -m repro_torch.launch.generate \
+        --arch deepseek-moe-16b --clients 0
 
 The serving half of ``examples/serve_federated_model.py``: the clients'
 models (``state_dict``-shaped trees; local training comes with the
@@ -13,12 +17,22 @@ training slice) are fused through ``AggregationService.aggregate`` and
 the fused tree applied as ``repro.fl.FederatedServer.run_round`` does;
 then ``generate`` teacher-forces the prompt through ``decode_step`` and
 decodes greedily. The families are the dense decoders (Qwen2-0.5B,
-Gemma3-1B) and the Mamba2 / shared-attention hybrid (Zamba2-1.2B). On
-the card the fusion runs the weighted-sum kernel; prefill runs the
-flash-attention kernel (and, for Zamba2, the SSD-scan kernel in every
-Mamba2 layer); each decode step runs the flash-decode kernel. The CLI
-also checks that ``prefill``'s last-position logits agree with the
-teacher-forced ones.
+Qwen2.5-3B, Minitron-8B, Gemma3-1B), the mixture-of-experts decoder
+(DeepSeek-MoE-16B) and the Mamba2 / shared-attention hybrid
+(Zamba2-1.2B). On the card the fusion runs the weighted-sum kernel;
+prefill runs the flash-attention kernel (and, for Zamba2, the SSD-scan
+kernel in every Mamba2 layer); each decode step runs the flash-decode
+kernel. The CLI also checks that ``prefill``'s last-position logits
+agree with the teacher-forced ones (for an MoE model they agree where
+the prompt's prefill drops no assignment at the config's capacity
+factor).
+
+The in-memory fusion holds every client in the model's dtype twice
+(the tree and its flat row), the stacked rows, and an fp32 sum and
+result: about 9x a bf16 model for 2 clients. Qwen2.5-3B fuses 2 clients
+on one 80 GB card; a Minitron-8B or DeepSeek-MoE-16B client does not fit
+beside its model there, so ``--clients 0`` serves the seeded model
+without a fusion round.
 """
 from __future__ import annotations
 
@@ -123,7 +137,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     "decode from the fused model.")
     ap.add_argument("--arch", default="qwen2-0.5b",
                     help="model id, or <id>-smoke for the reduced config")
-    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--clients", type=int, default=4,
+                    help="client models fused before serving; 0 serves "
+                         "the seeded model as it is")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -138,14 +154,18 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     dev = resolve_device(args.device)
     model = build_model(cfg, device=dev, seed=args.seed)
-    clients = perturbed_clients(model, args.clients, seed=args.seed + 1)
-    weights = np.random.default_rng(args.seed).integers(
-        1, 100, size=args.clients).astype(np.float32)
-    fused, report = fuse_clients(model, clients, weights)
-    del clients
-    print(f"[serve] {cfg.arch_id}: fused {report.n_clients} clients x "
-          f"{fused.numel()} params engine={report.plan.engine} "
-          f"fuse={report.fuse_seconds:.3f}s")
+    if args.clients:
+        clients = perturbed_clients(model, args.clients, seed=args.seed + 1)
+        weights = np.random.default_rng(args.seed).integers(
+            1, 100, size=args.clients).astype(np.float32)
+        fused, report = fuse_clients(model, clients, weights)
+        del clients, fused
+        print(f"[serve] {cfg.arch_id}: fused {report.n_clients} clients x "
+              f"{cfg.num_params()} params engine={report.plan.engine} "
+              f"fuse={report.fuse_seconds:.3f}s")
+    else:
+        print(f"[serve] {cfg.arch_id}: {cfg.num_params()} params, no "
+              "fusion round (--clients 0)")
 
     rng = np.random.default_rng(args.seed)
     prompt = torch.from_numpy(rng.integers(
@@ -162,9 +182,13 @@ def main(argv=None) -> None:
     steps = args.prompt_len + args.new_tokens - 1
     per_step = (time.perf_counter() - t0) / max(steps, 1)
     diff = (logits[:, 0] - last).abs().max().item()
+    note = ""
+    if cfg.moe is not None:
+        note = (f" (MoE: prefill drops assignments past capacity factor "
+                f"{cfg.moe.capacity_factor:g}, a decode step none)")
     print(f"[serve] prefill {args.batch}x{args.prompt_len}: "
           f"{prefill_s * 1e3:.3f} ms; decode {per_step * 1e3:.3f} ms/step; "
-          f"prefill vs teacher-forced logits max_abs_diff={diff:.3e}")
+          f"prefill vs teacher-forced logits max_abs_diff={diff:.3e}{note}")
     print(f"[serve] generated {args.new_tokens} tokens/seq")
     print("[serve] tokens:", tokens[0].tolist())
 

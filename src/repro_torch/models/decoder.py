@@ -1,4 +1,4 @@
-"""Generic GQA decoder: the dense family.
+"""Generic GQA decoder: the dense and mixture-of-experts families.
 
 Layers are an ``nn.ModuleList`` with a Python list of per-layer windows
 (``repro`` stacks them for ``lax.scan``; PyTorch runs eagerly, so the
@@ -8,7 +8,10 @@ kernel against per-layer ring caches, window-length for sliding-window
 layers. ``loss`` runs the layers under ``torch.utils.checkpoint`` (as
 ``jax.checkpoint`` around the reference's scan body) with attention
 through ``flash_attention_train`` (the forward and backward kernels),
-then the chunked next-token loss. MoE layers come with their slice.
+then the chunked next-token loss. An MoE config's layers hold an
+``MoE`` in place of the MLP: prefill and the loss run its scatter path,
+a decode step its dense mix, and the loss adds the summed load-balance
+loss, weighted, as ``repro.models.decoder.decoder_loss`` does.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from repro_torch.models.layers.attention import (
 )
 from repro_torch.models.layers.init import zeros_param
 from repro_torch.models.layers.mlp import MLP, mlp
+from repro_torch.models.layers.moe import MoE, moe
 from repro_torch.models.layers.norms import rms_norm
 
 # prefill attention: (q, k, v, window=) -> out, causal; decode attention:
@@ -64,18 +68,38 @@ class DecoderLayer(nn.Module):
                                    cfg.resolved_head_dim, cfg.qkv_bias, dtype,
                                    device=device, generator=generator)
         self.ln2 = zeros_param((cfg.d_model,), dtype, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device=device,
-                       generator=generator)
+        if cfg.moe is not None:
+            self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.moe.n_experts,
+                           cfg.moe.n_shared, dtype, device=device,
+                           generator=generator)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device=device,
+                           generator=generator)
+
+
+def _ffn(cfg: ModelConfig, layer, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's MLP, or its MoE with the load-balance loss."""
+    if cfg.moe is not None:
+        return moe(layer.moe, x, cfg.moe.top_k, cfg.moe.capacity_factor)
+    return mlp(layer.mlp, x), None
 
 
 def layer_forward(cfg: ModelConfig, layer: DecoderLayer, h: torch.Tensor,
                   positions: torch.Tensor, window: int,
-                  attention: PrefillAttention) -> torch.Tensor:
+                  attention: PrefillAttention
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(h, the MoE layer's load-balance loss, None for an MLP layer)."""
     x = rms_norm(h, layer.ln1, cfg.norm_eps)
     q, k, v = project_qkv(layer.attn, x, positions, cfg.rope_theta)
     h = h + attention_output(layer.attn, attention(q, k, v, window=window))
-    x = rms_norm(h, layer.ln2, cfg.norm_eps)
-    return h + mlp(layer.mlp, x)
+    y, aux = _ffn(cfg, layer, rms_norm(h, layer.ln2, cfg.norm_eps))
+    return h + y, aux
+
+
+def _mlp_tensors(m) -> types.SimpleNamespace:
+    return types.SimpleNamespace(w_gate=m.w_gate, w_up=m.w_up,
+                                 w_down=m.w_down)
 
 
 def layer_tensors(layer: DecoderLayer) -> types.SimpleNamespace:
@@ -84,13 +108,19 @@ def layer_tensors(layer: DecoderLayer) -> types.SimpleNamespace:
     ``torch.func.functional_call`` the module's attributes are the
     caller's tensors only until the call returns, before the backward
     recomputes."""
-    a, m = layer.attn, layer.mlp
-    return types.SimpleNamespace(
+    a = layer.attn
+    out = types.SimpleNamespace(
         ln1=layer.ln1, ln2=layer.ln2,
         attn=types.SimpleNamespace(wq=a.wq, wk=a.wk, wv=a.wv, wo=a.wo,
-                                   bq=a.bq, bk=a.bk, bv=a.bv),
-        mlp=types.SimpleNamespace(w_gate=m.w_gate, w_up=m.w_up,
-                                  w_down=m.w_down))
+                                   bq=a.bq, bk=a.bk, bv=a.bv))
+    m = getattr(layer, "moe", None)
+    if m is None:
+        out.mlp = _mlp_tensors(layer.mlp)
+    else:
+        out.moe = types.SimpleNamespace(
+            router=m.router, w_gate=m.w_gate, w_up=m.w_up, w_down=m.w_down,
+            shared=None if m.shared is None else _mlp_tensors(m.shared))
+    return out
 
 
 def layer_windows(cfg: ModelConfig) -> List[int]:
@@ -111,10 +141,6 @@ class Decoder(Model):
 
     def __init__(self, cfg: ModelConfig, device=None,
                  generator: Optional[torch.Generator] = None):
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: MoE layers are not ported yet (ROADMAP "
-                "modules item 9)")
         super().__init__(cfg)
         dtype = cfg.param_dtype
         self.embed = init_embedding(cfg.vocab, cfg.d_model, dtype,
@@ -133,8 +159,9 @@ class Decoder(Model):
 
     def hidden(self, tokens: torch.Tensor,
                attention: PrefillAttention = flash_attention,
-               remat: bool = False) -> torch.Tensor:
-        """Embeds, runs the layers, final norm -> hidden (B, T, d). With
+               remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Embeds, runs the layers, final norm -> (hidden (B, T, d), the
+        layers' summed MoE load-balance loss, 0 for dense layers). With
         ``remat`` each layer runs under ``torch.utils.checkpoint``: its
         activations are recomputed in backward, attention included."""
         cfg = self.config
@@ -142,33 +169,40 @@ class Decoder(Model):
         B, T = h.shape[:2]
         positions = torch.arange(T, dtype=torch.int32,
                                  device=h.device)[None].expand(B, T)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for layer, window in zip(self.layers, self.windows):
             if remat:
-                h = checkpoint(layer_forward, cfg, layer_tensors(layer), h,
-                               positions, window, attention,
-                               use_reentrant=False)
+                h, a = checkpoint(layer_forward, cfg, layer_tensors(layer),
+                                  h, positions, window, attention,
+                                  use_reentrant=False)
             else:
-                h = layer_forward(cfg, layer, h, positions, window,
-                                  attention)
-        return rms_norm(h, self.final_norm, cfg.norm_eps)
+                h, a = layer_forward(cfg, layer, h, positions, window,
+                                     attention)
+            if a is not None:
+                aux = aux + a
+        return rms_norm(h, self.final_norm, cfg.norm_eps), aux
 
     def loss(self, batch: Dict[str, torch.Tensor],
              attention: PrefillAttention = flash_attention_train,
              remat: bool = True):
-        """(mean next-token CE, {"ce": loss, "moe_aux": 0}) of
-        ``batch["tokens"]`` against ``batch["labels"]``, as
-        ``repro.models.decoder.decoder_loss``."""
-        h = self.hidden(batch["tokens"], attention=attention, remat=remat)
+        """(mean next-token CE, plus for MoE ``router_aux_weight`` x the
+        summed load-balance loss / n_layers; {"ce": that loss, "moe_aux":
+        the summed load-balance loss}) of ``batch["tokens"]`` against
+        ``batch["labels"]``, as ``repro.models.decoder.decoder_loss``."""
+        cfg = self.config
+        h, aux = self.hidden(batch["tokens"], attention=attention,
+                             remat=remat)
         loss = next_token_loss(h, self.embed, self.head, batch["labels"])
-        return loss, {"ce": loss,
-                      "moe_aux": torch.zeros((), device=loss.device)}
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.router_aux_weight * aux / cfg.n_layers
+        return loss, {"ce": loss, "moe_aux": aux}
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor],
                 attention: PrefillAttention = flash_attention
                 ) -> torch.Tensor:
         """Last-position logits (B, vocab) fp32."""
-        h = self.hidden(batch["tokens"], attention=attention)
+        h, _ = self.hidden(batch["tokens"], attention=attention)
         return lm_logits(h[:, -1:, :], self.embed, self.head)[:, 0]
 
     def init_cache(self, batch: int, length: int,
@@ -201,7 +235,8 @@ class Decoder(Model):
             update_attn_cache(c, k, v, p)
             # windowed layers use ring caches, which bound the horizon
             h = h + attention_output(layer.attn, attention(q, c.k, c.v, p))
-            x = rms_norm(h, layer.ln2, cfg.norm_eps)
-            h = h + mlp(layer.mlp, x)
+            # one token a sequence: an MoE layer runs its dense mix
+            y, _ = _ffn(cfg, layer, rms_norm(h, layer.ln2, cfg.norm_eps))
+            h = h + y
         h = rms_norm(h, self.final_norm, cfg.norm_eps)
         return cache, lm_logits(h, self.embed, self.head)[:, 0]

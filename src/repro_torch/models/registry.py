@@ -9,26 +9,23 @@ from repro_torch.models.decoder import Decoder
 from repro_torch.models.zamba import Zamba
 from repro_torch.utils.device import DeviceLike, resolve_device
 
-_LATER = {"moe": "9", "vlm": "9", "audio": "9", "ssm": "9"}
-
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None,
                 seed: int = 0) -> Model:
     """The family's model with random weights on ``device`` (the card
     unless the CPU is asked for), drawn from a generator on the device
-    seeded with ``seed``: the dense decoder, or the Mamba2 hybrid for
-    ``hybrid`` (and ``ssm`` with a Mamba2 ``SSMConfig``, as ``repro``
-    routes it)."""
+    seeded with ``seed``: the decoder for ``dense`` and ``moe``, or the
+    Mamba2 hybrid for ``hybrid`` (and ``ssm`` with a Mamba2
+    ``SSMConfig``, as ``repro`` routes it)."""
     dev = resolve_device(device)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         family = Decoder
     elif cfg.family in ("ssm", "hybrid") and cfg.ssm is not None \
             and cfg.xlstm is None:
         family = Zamba
     else:
-        item = _LATER.get(cfg.family, "9")
         raise NotImplementedError(
             f"{cfg.arch_id}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP modules item {item})")
+            "(ROADMAP modules item 9)")
     generator = torch.Generator(device=dev).manual_seed(seed)
     return family(cfg, device=dev, generator=generator)

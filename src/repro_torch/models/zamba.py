@@ -184,12 +184,12 @@ class Zamba(Model):
                 else:
                     h = _mamba_forward(cfg, self.dims, layer, h, ssd)
             if shared and remat:
-                h = checkpoint(layer_forward, cfg, layer_tensors(self.shared),
-                               h, positions, window, attention,
-                               use_reentrant=False)
+                h, _ = checkpoint(layer_forward, cfg,
+                                  layer_tensors(self.shared), h, positions,
+                                  window, attention, use_reentrant=False)
             elif shared:
-                h = layer_forward(cfg, self.shared, h, positions, window,
-                                  attention)
+                h, _ = layer_forward(cfg, self.shared, h, positions, window,
+                                     attention)
         return rms_norm(h, self.final_norm, cfg.norm_eps)
 
     def loss(self, batch: Dict[str, torch.Tensor], ssd: SSD = ssd_scan_train,

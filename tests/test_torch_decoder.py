@@ -1,7 +1,8 @@
-"""The port's dense decoder against the JAX package's: its layers on the
-same seeded numpy data, and the Qwen2 / Gemma3 smoke models with
-JAX-initialised parameters carried across by ``convert`` — prefill
-logits and teacher-forced decode steps at tests/test_models.py's 2e-3.
+"""The port's decoder against the JAX package's: its layers on the same
+seeded numpy data, and the Qwen2 / Gemma3 / Qwen2.5 / Minitron /
+DeepSeek-MoE smoke models with JAX-initialised parameters carried across
+by ``convert`` — prefill logits and teacher-forced decode steps at
+tests/test_models.py's 2e-3.
 
 On the CPU the attention wrappers run their plain versions; an autouse
 fixture checks that no kernel launched.
@@ -40,7 +41,8 @@ from repro_torch.models.layers.rope import apply_rope
 
 MODEL_TOL = dict(rtol=2e-3, atol=2e-3)   # tests/test_models.py:137-140
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
-SMOKE = ["qwen2-0.5b-smoke", "gemma3-1b-smoke"]
+SMOKE = ["qwen2-0.5b-smoke", "gemma3-1b-smoke", "qwen2.5-3b-smoke",
+         "minitron-8b-smoke", "deepseek-moe-16b-smoke"]
 
 
 @pytest.fixture(autouse=True)
@@ -179,8 +181,13 @@ def test_prefill_and_decode_match_reference(arch):
 def test_prefill_matches_stepwise_decode(arch):
     """tests/test_models.py:120-140 on the port: teacher-forced decode
     reproduces prefill's last-position logits (ring caches wrap for
-    gemma3's window 16)."""
+    gemma3's window 16). An MoE prefill runs at the capacity factor E /
+    top_k, where no assignment drops: a decode step's dense mix drops
+    none."""
     cfg = get_config(arch)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
     model = build_model(cfg, device="cpu", seed=1)
     toks = torch.from_numpy(
         np.random.default_rng(5).integers(0, cfg.vocab, size=(2, 24)))
@@ -229,15 +236,18 @@ def test_num_params_matches_model_and_reference(arch):
 
 
 @pytest.mark.parametrize("arch", sorted(a for a, c in ARCHITECTURES.items()
-                                         if c.family == "dense"))
+                                         if c.family in ("dense", "moe")))
 def test_full_size_param_count_and_shapes(arch):
     """The full configs, built on the meta device (shapes, no memory):
-    the parameter count equals the analytic one and the reference's."""
+    the parameter count equals the analytic one and the reference's; every
+    parameter is bf16 but an MoE router, which stays fp32."""
     cfg = get_config(arch)
     assert cfg.num_params() == jget_config(arch).num_params()
     net = Decoder(cfg, device="meta")
     assert sum(p.numel() for p in net.parameters()) == cfg.num_params()
-    assert all(p.dtype == torch.bfloat16 for p in net.parameters())
+    assert all(p.dtype == (torch.float32 if name.endswith(".moe.router")
+                           else torch.bfloat16)
+               for name, p in net.named_parameters())
     assert net.layers[0].attn.wq.shape == (
         cfg.d_model, cfg.n_heads, cfg.resolved_head_dim)
 
@@ -255,15 +265,22 @@ def test_configs_mirror_the_reference():
 
 
 def test_families_not_yet_ported_raise():
+    for family in ("vlm", "audio"):
+        cfg = dataclasses.replace(get_config("qwen2-0.5b-smoke"),
+                                  family=family)
+        with pytest.raises(NotImplementedError, match="item 9"):
+            build_model(cfg, device="cpu")
+    # the decoders train since the training slice, Zamba2 since its own;
+    # an MoE block builds and trains since the MoE slice
+    toks = torch.zeros((1, 8), dtype=torch.int64)
     moe = dataclasses.replace(get_config("qwen2-0.5b-smoke"),
                               moe=MoEConfig(n_experts=4, top_k=2))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_model(moe, device="cpu")
-    # the decoders train since the training slice, Zamba2 since its own
-    model = build_model(get_config("qwen2-0.5b-smoke"), device="cpu")
-    toks = torch.zeros((1, 8), dtype=torch.int64)
-    loss, _ = model.loss({"tokens": toks, "labels": toks})
-    assert torch.isfinite(loss)
+    for cfg in (get_config("qwen2-0.5b-smoke"), moe,
+                get_config("deepseek-moe-16b-smoke")):
+        model = build_model(cfg, device="cpu")
+        loss, metrics = model.loss({"tokens": toks, "labels": toks})
+        assert torch.isfinite(loss)
+        assert (float(metrics["moe_aux"]) > 0) == (cfg.moe is not None)
     zamba = build_model(get_config("zamba2-1.2b-smoke"), device="cpu")
     loss, _ = zamba.loss({"tokens": toks, "labels": toks})
     assert torch.isfinite(loss)

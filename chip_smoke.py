@@ -136,8 +136,22 @@ teacher-forced decoding and the plain attention (DeepSeek-MoE at the
 capacity factor E / top_k, where prefill drops no assignment, and at its
 own 1.25 against the plain prefill); a FedAvg of 2 clients against
 float64 Eq. 1 (Qwen2.5-3B at full depth, DeepSeek-MoE on 2 layers); and
-the generate CLI. Each step prints a line before it starts.
-Phases 2-11
+the generate CLI. Each step prints a line before it starts. Phase 12,
+run after phase 11, serves the encoder-decoder Whisper-small and the
+vision-language decoder LLaVA-NeXT-34B the same way, one model at a
+time: Whisper at full width and depth in bf16, 4 x 1536 frames encoded
+and 4 x 448 tokens prefilled over them (36 flash_attention launches, 24
+of them non-causal: encoder and cross attention), a 64 + 32-token
+generate over cross caches filled from the encoder (24 flash_decode
+launches a step), a FedAvg of 2 full-size clients, an fp32 2 x 448
+prefill against teacher-forced decoding and the plain attention, and
+the CLI; LLaVA at full width, a bf16 prefill of 2 x (2560 patches + 512
+tokens) on 8 layers, an fp32 one on 2 layers against the plain
+attention, and a FedAvg of 2 clients on 2 layers. Phase 1 holds the
+attention kernel's non-causal route (Whisper's encoder layer and cross
+attention in bf16 and fp32, ragged T and S, windows) and the decode
+kernel's Whisper steps against their plain versions too.
+Phases 2-12
 each start with the launch counts at 0, and every serving run must
 launch exactly what its prefills, decode steps and fusions take. The
 second-to-last line is ``{"kernels": [...]}`` and the last
@@ -165,6 +179,7 @@ FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores (data sheet)
 HALF_FLOPS = 989e12     # H100 SXM bf16 / fp16 tensor cores, dense (data sheet)
 TIMING_REPS = 25
 SPIN_CYCLES = 2_000_000   # about 1 ms of SM clock: covers the host launch path
+PROFILE_LEAD = 1024       # short kernels that open each profiler session
 TOL = {"fp32": 2e-5, "half": 2e-2}   # rtol of the reference's kernel tests
 ORACLE_COLS = 1 << 20   # float64 order-statistic oracles, a slice at a time
 QUANTILE_MAX = 1 << 24  # torch.quantile refuses larger inputs
@@ -1182,6 +1197,21 @@ def phase_async_rounds(dev, U, W, Uc, Wc, cu_rows):
 
 
 
+def _lead_in():
+    """Opens a ``torch.profiler`` session: ``PROFILE_LEAD`` short spin
+    kernels, then a synchronize, before the traced work. On the H100 a
+    session can come back without the device records of its first
+    kernels, more of them the longer the process has run, in every
+    other session (``tools/profiler_probe.py`` shows it); the spins take
+    that loss. Every caller leaves kernels named ``spin`` out of what it
+    reads."""
+    import torch
+
+    for _ in range(PROFILE_LEAD):
+        torch.cuda._sleep(64)
+    torch.cuda.synchronize()
+
+
 def _profile_streams(fn, tag="wsum"):
     """{stream id: [(start_us, end_us), ...]} of the device kernels whose
     name holds ``tag`` in one run of ``fn``, from ``torch.profiler``
@@ -1191,8 +1221,7 @@ def _profile_streams(fn, tag="wsum"):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(SPIN_CYCLES // 10)
-        torch.cuda.synchronize()
+        _lead_in()
         fn()
         torch.cuda.synchronize()
     streams = {}
@@ -1873,7 +1902,7 @@ def _comm_share(fn, dev, tries: int = 5):
     """(NCCL's device ms, device busy ms, fusion kernels recorded) in one
     profiled run of ``fn``: the device events whose name holds "nccl"
     against all of them. As in ``_device_kernels``, the session opens
-    with a spin kernel and a synchronize, and is taken again, up to
+    with ``_lead_in``, and is taken again, up to
     ``tries`` times, while it records no device time: on the H100 the
     first session of a short run has come back empty, and long sessions
     lose a few of their first kernels, so the fusion kernels it
@@ -1889,8 +1918,7 @@ def _comm_share(fn, dev, tries: int = 5):
     for attempt in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(SPIN_CYCLES // 10)
-            _sync(dev)
+            _lead_in()
             fn()
             _sync(dev)
         dev_events = [e for e in prof.key_averages()
@@ -2240,13 +2268,14 @@ DECODE_TOL = {"fp32": (2e-4, 2e-5), "half": (1e-2, 1e-2)}
 HALF_OUT_TOL = (1e-2, 2e-3)
 
 
-def _live_scores(T: int, S: int, window: int) -> int:
-    """(query, key) pairs a causal, optionally windowed, attention keeps:
-    query t sees keys max(0, t - window + 1) .. min(t, S - 1)."""
+def _live_scores(T: int, S: int, window: int, causal: bool = True) -> int:
+    """(query, key) pairs an optionally windowed attention keeps: query t
+    sees keys max(0, t - window + 1) .. min(t, S - 1) when causal, ..
+    S - 1 when not."""
     import numpy as np
 
     t = np.arange(T, dtype=np.int64)
-    hi = np.minimum(t, S - 1)
+    hi = np.minimum(t, S - 1) if causal else np.full_like(t, S - 1)
     lo = np.maximum(0, t - window + 1) if window > 0 else np.zeros_like(t)
     return int(np.maximum(hi - lo + 1, 0).sum())
 
@@ -2629,8 +2658,9 @@ def _mma_peak(dev, sms: int) -> float:
 
 def phase_attention_kernels(dev, hbm_bw):
     """The flash-attention kernel against its plain version at the
-    serving path's shapes and at edge shapes; times kernel, plain
-    version and SDPA."""
+    serving path's shapes and at edge shapes, causal and (Whisper's
+    encoder and cross attention, ragged and windowed edges) non-causal;
+    times kernel, plain version and SDPA."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel as fa
@@ -2642,7 +2672,7 @@ def phase_attention_kernels(dev, hbm_bw):
     bf16, fp32, fp16 = torch.bfloat16, torch.float32, torch.float16
     cases = {"flash_attention": []}
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    for B, T, nq, nkv, hd, win, dt, label in [
+    causal_cases = [
         (4, 1024, 14, 2, 64, 0, bf16, "Qwen2-0.5B prefill layer"),
         # head dim 128: the layers phase 11 serves
         (4, 1024, 32, 8, 128, 0, bf16, "Minitron-8B prefill layer (hd 128)"),
@@ -2665,12 +2695,37 @@ def phase_attention_kernels(dev, hbm_bw):
          "Zamba2-1.2B shared block (MHA, window 2048)"),
         (2, 512, 32, 32, 64, 2048, fp32,
          "Zamba2-1.2B shared block (MHA, window 2048)"),
-    ]:
+        # the layers phase 12 serves: Whisper-small's decoder
+        # self-attention (448 tokens, its text context) and a
+        # LLaVA-NeXT-34B layer over 2560 patches + 512 tokens
+        (4, 448, 12, 12, 64, 0, bf16, "Whisper-small decoder self-attention"),
+        (2, 3072, 56, 8, 128, 0, bf16,
+         "LLaVA-NeXT-34B prefill layer (2560 patches + 512 tokens)"),
+    ]
+    # (B, T, S, nq, nkv, hd, window, causal, dtype, what)
+    all_cases = [(B, T, T, nq, nkv, hd, win, True, dt, label)
+                 for B, T, nq, nkv, hd, win, dt, label in causal_cases] + [
+        (4, 1536, 1536, 12, 12, 64, 0, False, bf16,
+         "Whisper-small encoder layer (non-causal)"),
+        (4, 1536, 1536, 12, 12, 64, 0, False, fp32,
+         "Whisper-small encoder layer (non-causal)"),
+        (4, 448, 1536, 12, 12, 64, 0, False, bf16,
+         "Whisper-small cross attention (448 over 1536 frames)"),
+        (4, 448, 1536, 12, 12, 64, 0, False, fp32,
+         "Whisper-small cross attention (448 over 1536 frames)"),
+        (2, 300, 777, 8, 2, 64, 0, False, fp32, "non-causal, ragged T and S"),
+        (2, 300, 777, 8, 2, 64, 0, False, fp16, "non-causal, ragged T and S"),
+        (2, 700, 333, 4, 4, 32, 0, False, bf16, "non-causal, T > S, hd 32"),
+        (2, 500, 500, 8, 8, 128, 100, False, bf16, "non-causal, window 100"),
+        (2, 500, 500, 4, 1, 256, 100, False, fp32,
+         "non-causal, MQA hd 256, window 100"),
+    ]
+    for B, T, S, nq, nkv, hd, win, causal, dt, label in all_cases:
         q = torch.randn((B, T, nq, hd), generator=g, device=dev).to(dt)
-        k = torch.randn((B, T, nkv, hd), generator=g, device=dev).to(dt)
-        v = torch.randn((B, T, nkv, hd), generator=g, device=dev).to(dt)
-        got = fa.flash_attention(q, k, v, window=win)
-        want = faref.attention_ref(q, k, v, window=win)
+        k = torch.randn((B, S, nkv, hd), generator=g, device=dev).to(dt)
+        v = torch.randn((B, S, nkv, hd), generator=g, device=dev).to(dt)
+        got = fa.flash_attention(q, k, v, causal=causal, window=win)
+        want = faref.attention_ref(q, k, v, causal=causal, window=win)
         torch.cuda.synchronize()
         key = "fp32" if dt == fp32 else "half"
         rtol, atol = ATTN_TOL[key]
@@ -2678,25 +2733,26 @@ def phase_attention_kernels(dev, hbm_bw):
                                    atol=atol)
         err = (got.float() - want.float()).abs().max().item()
         del got, want
-        live = _live_scores(T, T, win)
+        live = _live_scores(T, S, win, causal)
         nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
         bound_ms, bound_by = _bound(nbytes, 4.0 * B * nq * hd * live, hbm_bw,
                                     FP32_FLOPS if dt == fp32 else HALF_FLOPS)
         mask = None
         if win:
-            mask = faref.attention_mask(T, T, win, device=dev)
-        library = _sdpa(q, k, v, mask=mask, causal=not win)
+            mask = faref.attention_mask(T, S, win, causal, device=dev)
+        library = _sdpa(q, k, v, mask=mask, causal=causal and not win)
         cases["flash_attention"].append({
-            "shape": [B, T, nq, nkv, hd], "window": win,
-            "dtype": names[dt], "what": label,
+            "shape": [B, T, nq, nkv, hd], "S": S, "causal": causal,
+            "window": win, "dtype": names[dt], "what": label,
             "route": (f"cuda cores, {fa.fp32_query_tile(B, T, nq, sm_count)}"
                       "-row query tiles" if dt == fp32 else
                       "tensor cores (mma.sync), 64-row query tiles"),
             "max_abs_err": err, "rtol": rtol, "atol": atol,
             "live_scores": live,
-            "ms": _ms_median(lambda: fa.flash_attention(q, k, v, window=win)),
-            "plain_ms": _ms_median(
-                lambda: faref.attention_ref(q, k, v, window=win), reps=5),
+            "ms": _ms_median(lambda: fa.flash_attention(
+                q, k, v, causal=causal, window=win)),
+            "plain_ms": _ms_median(lambda: faref.attention_ref(
+                q, k, v, causal=causal, window=win), reps=5),
             "library_ms": _ms_median(library),
             "library": "scaled_dot_product_attention(enable_gqa)",
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2957,6 +3013,15 @@ def phase_decode_kernel(dev, hbm_bw):
         (2, 300, 4, 2, 32, 200, fp32, "hd 32 (smoke configs)"),
         (4, 2048, 32, 32, 64, 80, bf16,
          "Zamba2-1.2B shared block step, pos 80"),
+        # the steps phase 12 serves: Whisper-small's self-attention ring
+        # (448 slots) and its cross step over the 1536 encoder frames,
+        # every slot live
+        (4, 448, 12, 12, 64, 80, bf16,
+         "Whisper-small self-attention step, pos 80"),
+        (4, 1536, 12, 12, 64, 1535, bf16,
+         "Whisper-small cross step (every slot live)"),
+        (4, 1536, 12, 12, 64, 1535, fp32,
+         "Whisper-small cross step (every slot live)"),
     ]:
         q = torch.randn((B, 1, nq, hd), generator=g, device=dev).to(dt)
         kc = torch.randn((B, S, nkv, hd), generator=g, device=dev).to(dt)
@@ -3037,8 +3102,8 @@ def _device_kernels(fn, expect, tag="ssd_", tries=5):
     ``tag`` in one call of ``fn``, from torch.profiler tracing host and
     device together, as ``_profile`` does (tracing the device alone has
     returned sessions short of its records on the H100). The session
-    opens with a spin kernel and a synchronize before the call, since
-    sessions have also lost the first kernels launched in them. A
+    opens with ``_lead_in``, since sessions have also lost the first
+    kernels launched in them. A
     profile whose count is not ``expect`` is taken again, up to ``tries``
     times, and said so; the caller checks the count it gets, so a call
     that runs other kernels than planned still fails."""
@@ -3050,8 +3115,7 @@ def _device_kernels(fn, expect, tag="ssd_", tries=5):
     for attempt in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(SPIN_CYCLES // 10)
-            torch.cuda.synchronize()
+            _lead_in()
             fn()
             torch.cuda.synchronize()
         found = {e.key: (e.count, e.self_device_time_total / 1e3)
@@ -3297,19 +3361,22 @@ def _profile(fn, what, top=6, phase="phase4"):
     """Device busy time and the kernels and host ops that take the most
     time in one run of ``fn``, under ``torch.profiler`` (CPU + CUDA).
     Returns (wall ms under the profiler, device busy ms, {kernel name:
-    (calls, device ms)})."""
+    (calls, device ms)}). The session opens with ``_lead_in``, as
+    ``_device_kernels``'s do; its spins are left out of the kernels and
+    the busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
+        _lead_in()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")
+               and "spin" not in e.key]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     by_device = sorted(kernels, key=lambda e: -e.self_device_time_total)
     by_host = sorted((e for e in events if e not in kernels),
@@ -3326,16 +3393,34 @@ def _profile(fn, what, top=6, phase="phase4"):
                               for e in kernels}
 
 
-def _decode_profile(kernels, busy_ms, steps, per_step, what, phase):
-    """flash_decode in a profiled run of ``steps`` decode steps: exactly
-    one device kernel per call (``per_step`` calls a step), and its
-    device time per step and share of the device busy time."""
-    calls = [v for key, v in kernels.items() if "decode_kernel" in key]
-    n = sum(c for c, _ in calls)
-    ms = sum(m for _, m in calls)
-    if n != steps * per_step:
+def _decode_profile(fn, steps, per_step, what, phase, tries=5):
+    """Profiles ``fn``, a run of ``steps`` decode steps, and checks that
+    flash_decode ran exactly one device kernel per call there
+    (``per_step`` calls a step). Returns (wall ms, device busy ms,
+    {flash_decode's device time per step and share of the busy time},
+    profiles taken). A profiler session on the H100 has recorded 251 of
+    the 252 decode kernels of a run whose wrapper counted 252 launches
+    (before ``_lead_in``), so a profile whose count is off is taken
+    again, up to ``tries`` times, and said so; a run whose every profile is off fails, so a
+    call that runs other device kernels than planned still fails. Each
+    profile runs ``fn`` once, and the caller's launch counts take that
+    many runs."""
+    want = steps * per_step
+    for attempt in range(1, tries + 1):
+        wall, busy_ms, kernels = _profile(fn, f"{what}, {steps} steps",
+                                          phase=phase)
+        calls = [v for key, v in kernels.items() if "decode_kernel" in key]
+        n = sum(c for c, _ in calls)
+        ms = sum(m for _, m in calls)
+        if n == want:
+            break
+        print(f"[{phase}] {what}: {n} flash_decode device kernels recorded "
+              f"in {steps} steps, expected {want}; profile {attempt} of "
+              f"{tries}", flush=True)
+    else:
         raise AssertionError(f"{what}: {n} flash_decode device kernels in "
-                             f"{steps} steps, expected {steps * per_step}")
+                             f"{steps} steps, expected {want}, in each of "
+                             f"{tries} profiles")
     out = {"device_busy_ms_per_step": busy_ms / steps,
            "flash_decode_ms_per_step": ms / steps,
            "flash_decode_busy_share": ms / busy_ms}
@@ -3343,7 +3428,7 @@ def _decode_profile(kernels, busy_ms, steps, per_step, what, phase):
           f"device busy {out['device_busy_ms_per_step']:.4f} ms a step, "
           f"flash_decode {out['flash_decode_ms_per_step']:.4f} ms a step "
           f"({out['flash_decode_busy_share']:.1%} of busy)", flush=True)
-    return out
+    return wall, busy_ms, out, attempt
 
 
 def _per_call(cfg):
@@ -3351,9 +3436,15 @@ def _per_call(cfg):
     of ``cfg``: the dense decoder runs flash_attention / flash_decode
     once per layer; the hybrid runs ssd_chunk once per Mamba2 layer in
     prefill (never in a decode step) and flash_attention / flash_decode
-    once per call point of the shared block."""
+    once per call point of the shared block; the encoder-decoder runs
+    flash_attention once per encoder layer and twice per decoder layer
+    (self, cross) in prefill, flash_decode twice per decoder layer in a
+    step."""
     from repro_torch.models.zamba import call_points
 
+    if cfg.family == "audio":
+        return ({"flash_attention": cfg.n_encoder_layers + 2 * cfg.n_layers},
+                {"flash_decode": 2 * cfg.n_layers})
     if cfg.ssm is not None:
         shared = sum(after for _, _, after in call_points(cfg))
         return ({"ssd_chunk": cfg.n_layers, "flash_attention": shared},
@@ -3364,18 +3455,20 @@ def _per_call(cfg):
 PREFILL_REPS = 10   # timed prefills after the first
 
 
-def _time_prefill(model, prompt):
+def _time_prefill(model, prompt, extra=None):
     """(logits, first call's wall, median wall, median enqueue) over
     PREFILL_REPS calls after the first, in ms: the wall runs from the call
     to ``synchronize``, the enqueue to the call's return. Where the two
-    meet, the host's launches and not the device set the prefill's pace."""
+    meet, the host's launches and not the device set the prefill's pace.
+    ``extra`` holds the batch's other inputs (frames, patches)."""
     import torch
 
+    batch = dict(extra or {}, tokens=prompt)
     walls, enqueues = [], []
     for _ in range(PREFILL_REPS + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        last = model.prefill({"tokens": prompt})
+        last = model.prefill(batch)
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
@@ -3384,24 +3477,30 @@ def _time_prefill(model, prompt):
             statistics.median(enqueues[1:]))
 
 
-def _serving_launches(delta, what, cfg, prefills, steps, fusions=0):
+def _serving_launches(delta, what, cfg, prefills, steps, fusions=0,
+                      encodes=0):
     """The serving run launched exactly the kernels ``prefills`` prefills
-    and ``steps`` decode steps of a ``cfg`` model take, and one
-    weighted-sum launch per fusion."""
+    and ``steps`` decode steps of a ``cfg`` model take, one
+    flash_attention per encoder layer for each of ``encodes`` encodes
+    that fill an encoder-decoder's cross caches, and one weighted-sum
+    launch per fusion."""
     per_prefill, per_step = _per_call(cfg)
     want = {k: per_prefill.get(k, 0) * prefills + per_step.get(k, 0) * steps
             for k in ("ssd_chunk", "flash_attention", "flash_decode")}
+    want["flash_attention"] += cfg.n_encoder_layers * encodes
     want["weighted_sum"] = fusions
     got = {k: delta.get(k, 0) for k in want}
     if got != want:
         raise AssertionError(f"{what}: launches {delta}, want {want}")
 
 
-def _prefill_vs_decode(model, tokens, what, rtol, atol, phase="phase4"):
+def _prefill_vs_decode(model, tokens, what, rtol, atol, phase="phase4",
+                       frames=None):
     """Prefill's last-position logits (flash-attention kernel, and the
     SSD-scan kernel in a hybrid) against the same tokens teacher-forced
     through ``decode_step`` (flash-decode kernel) and against prefill
-    through the plain versions."""
+    through the plain versions. An encoder-decoder takes ``frames``:
+    the decode steps read cross caches its encoder output fills."""
     import torch
 
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -3409,20 +3508,29 @@ def _prefill_vs_decode(model, tokens, what, rtol, atol, phase="phase4"):
     from repro_torch.launch.generate import generate
 
     B, T = tokens.shape
+    batch = {"tokens": tokens}
+    if frames is not None:
+        batch["audio_frames"] = frames
     before = _all_launches()
     t0 = time.perf_counter()
-    pre = model.prefill({"tokens": tokens})
+    pre = model.prefill(batch)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    _, logits = generate(model, tokens, 1, cache_len=T, return_logits=True)
+    cache = None
+    if frames is not None:
+        with torch.no_grad():
+            cache = model.fill_cross_cache(model.init_cache(B, T),
+                                           model.encode(frames))
+    _, logits = generate(model, tokens, 1, cache_len=T, cache=cache,
+                         return_logits=True)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     delta = _launch_delta(before)
     plain_kw = {"attention": attention_ref}
     if model.config.ssm is not None:
         plain_kw["ssd"] = ssd_scan_ref
-    plain = model.prefill({"tokens": tokens}, **plain_kw)
+    plain = model.prefill(batch, **plain_kw)
     tf = logits[:, 0]
     err_tf = _check_close(tf.cpu().numpy(), pre.double().cpu().numpy(),
                           rtol, atol, f"{what}: teacher-forced vs prefill")
@@ -3432,7 +3540,8 @@ def _prefill_vs_decode(model, tokens, what, rtol, atol, phase="phase4"):
           f"{T} teacher-forced steps {decode_s:.3f} s; max_abs_err "
           f"teacher-forced={err_tf} plain={err_plain} (rtol={rtol}, "
           f"atol={atol}) launches={delta}", flush=True)
-    _serving_launches(delta, what, model.config, 1, T)
+    _serving_launches(delta, what, model.config, 1, T,
+                      encodes=int(frames is not None))
     return delta
 
 
@@ -3536,19 +3645,18 @@ def phase_serving(dev, attn_cases):
     if tuple(tokens.shape) != (4, 64 + n_new) \
             or not torch.isfinite(logits).all():
         raise AssertionError(f"qwen2 generate {tuple(tokens.shape)}")
-    wall, busy, kernels = _profile(
+    wall, busy, prof, runs = _decode_profile(
         lambda: gen.generate(model, prompt[:, :4], 4, cache_len=2048),
-        "qwen2 bf16 decode, 7 steps")
+        7, cfg.n_layers, "qwen2 bf16 decode", "phase4")
     out["qwen2_decode_device_busy_share"] = busy / wall
-    for name, val in _decode_profile(kernels, busy, 7, cfg.n_layers,
-                                     "qwen2 bf16 decode", "phase4").items():
+    for name, val in prof.items():
         out[f"qwen2_decode_{name}"] = val
     delta = _launch_delta(before)
     print(f"[phase4] qwen2-0.5b bf16 launches={delta}", flush=True)
     # PREFILL_REPS + 2 prefills; 65 warm-up, 95 timed and 7 profiled
-    # decode steps
+    # decode steps a profile taken
     _serving_launches(delta, "qwen2-0.5b bf16 serving", cfg, PREFILL_REPS + 2,
-                      65 + steps + 7, fusions=1)
+                      65 + steps + 7 * runs, fusions=1)
     # the kernel at this step's shape mid-run (pos 80 of 2048), as
     # phase 1 timed it
     fd_ms = next(c["ms"] for c in attn_cases["flash_decode"]
@@ -3693,15 +3801,13 @@ def phase_hybrid_serving(dev, cases):
             or not torch.isfinite(logits).all():
         raise AssertionError(f"zamba2 generate {tuple(tokens.shape)}")
     before = _all_launches()
-    wall, busy, kernels = _profile(
+    wall, busy, prof, runs = _decode_profile(
         lambda: gen.generate(model, prompt[:, :4], 4, cache_len=2048),
-        "zamba2 bf16 decode, 7 steps", phase="phase5")
+        7, per_step["flash_decode"], "zamba2 bf16 decode", "phase5")
     _serving_launches(_launch_delta(before), "zamba2 profiled decode", cfg,
-                      0, 7)
+                      0, 7 * runs)
     out["zamba2_decode_device_busy_share"] = busy / wall
-    for name, val in _decode_profile(kernels, busy, 7,
-                                     per_step["flash_decode"],
-                                     "zamba2 bf16 decode", "phase5").items():
+    for name, val in prof.items():
         out[f"zamba2_decode_{name}"] = val
     fd_ms = next(c["ms"] for c in cases["flash_decode"]
                  if c["shape"] == [4, 2048, 32, 32, 64])
@@ -3835,15 +3941,13 @@ def _serve_bf16(dev, cfg, cases, rng, out):
             or not torch.isfinite(logits).all():
         raise AssertionError(f"{arch} generate {tuple(tokens.shape)}")
     before = _all_launches()
-    wall, busy, kernels = _profile(
+    wall, busy, prof, runs = _decode_profile(
         lambda: gen.generate(model, prompt[:, :4], 4, cache_len=2048),
-        f"{arch} bf16 decode, 7 steps", phase="phase11")
+        7, cfg.n_layers, f"{arch} bf16 decode", "phase11")
     _serving_launches(_launch_delta(before), f"{arch} profiled decode", cfg,
-                      0, 7)
+                      0, 7 * runs)
     out[f"{arch}_decode_device_busy_share"] = busy / wall
-    for name, val in _decode_profile(kernels, busy, 7, cfg.n_layers,
-                                     f"{arch} bf16 decode",
-                                     "phase11").items():
+    for name, val in prof.items():
         out[f"{arch}_decode_{name}"] = val
     fd_ms = next(c["ms"] for c in cases["flash_decode"]
                  if c["shape"] == [4, 2048, cfg.n_heads, cfg.n_kv_heads, hd]
@@ -3860,7 +3964,7 @@ def _serve_bf16(dev, cfg, cases, rng, out):
     return model
 
 
-def _fuse_two(dev, model, rng, what, out, key):
+def _fuse_two(dev, model, rng, what, out, key, phase="phase11"):
     """(c) of phase 11: FedAvg of 2 perturbed clients of ``model`` through
     ``fuse_clients`` (one weighted-sum launch) against float64 Eq. 1."""
     import numpy as np
@@ -3868,7 +3972,7 @@ def _fuse_two(dev, model, rng, what, out, key):
 
     from repro_torch.launch import generate as gen
 
-    print(f"[phase11] {what}: fusing 2 clients", flush=True)
+    print(f"[{phase}] {what}: fusing 2 clients", flush=True)
     torch.cuda.reset_peak_memory_stats()
     clients = gen.perturbed_clients(model, 2, seed=SEED + 1)
     weights = rng.integers(1, 100, size=2).astype(np.float32)
@@ -3881,12 +3985,12 @@ def _fuse_two(dev, model, rng, what, out, key):
     _serving_launches(delta, f"{what} fusion", model.config, 0, 0, fusions=1)
     out[f"{key}_fuse_s"] = fuse_s
     out[f"{key}_fuse_peak_gb"] = _gb(torch.cuda.max_memory_allocated())
-    print(f"[phase11] {what} FedAvg of 2 clients: wall={fuse_s:.3f}s "
+    print(f"[{phase}] {what} FedAvg of 2 clients: wall={fuse_s:.3f}s "
           f"fuse={report.fuse_seconds:.3f}s phases={report.phase_seconds} "
           f"launches={delta} peak {out[key + '_fuse_peak_gb']:.2f} GB",
           flush=True)
     _fused_vs_eq1(fused, clients, weights, model.state_dict(),
-                  f"{what} FedAvg of 2 clients", "phase11")
+                  f"{what} FedAvg of 2 clients", phase)
     del clients, fused
 
 
@@ -3986,6 +4090,327 @@ def phase_more_decoders(dev, cases):
         out[f"{arch}_seconds"] = time.perf_counter() - t_model
         print(f"[phase11] {arch}: done in {out[arch + '_seconds']:.3f} s",
               flush=True)
+    return out
+
+
+class _CountingAttention:
+    """Prefill attention that counts its calls by ``causal`` and passes
+    each to the kernel's wrapper (which counts the launch)."""
+
+    def __init__(self):
+        self.calls = {True: 0, False: 0}
+
+    def __call__(self, q, k, v, *, causal=True, window=0):
+        from repro_torch.kernels.flash_attention.kernel import flash_attention
+
+        self.calls[causal] += 1
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+
+def _phase12_whisper(dev, cases, rng, out):
+    """(a)-(d) of phase 12: Whisper-small at full width and depth."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import generate as gen
+    from repro_torch.models import build_model
+
+    cfg = get_config("whisper-small")
+    arch, P = cfg.arch_id, "phase12"
+    print(f"[{P}] {arch}: building bf16, {cfg.n_encoder_layers} + "
+          f"{cfg.n_layers} layers", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev, seed=SEED)
+    n = sum(p.numel() for p in model.parameters())
+    if n != cfg.num_params():
+        raise AssertionError(f"{arch}: {n} params, want {cfg.num_params()}")
+    print(f"[{P}] {arch}: {n} params, "
+          f"{_gb(torch.cuda.memory_allocated()):.2f} GB on the card",
+          flush=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    frames = torch.randn((4, cfg.n_audio_frames, cfg.d_model), generator=g,
+                         device=dev).to(torch.bfloat16)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           size=(4, 448))).to(dev)
+
+    # (a) encode 4 x 1536 frames, prefill 4 x 448 tokens over them
+    print(f"[{P}] {arch}: encode and prefill", flush=True)
+    before = _all_launches()
+    encode_ms = []
+    with torch.no_grad():
+        for _ in range(PREFILL_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = model.encode(frames)
+            torch.cuda.synchronize()
+            encode_ms.append((time.perf_counter() - t0) * 1e3)
+    last, first_ms, prefill_ms, enqueue_ms = _time_prefill(
+        model, prompt, {"audio_frames": frames})
+    _serving_launches(_launch_delta(before), f"{arch} encodes and prefills",
+                      cfg, PREFILL_REPS + 1, 0, encodes=PREFILL_REPS + 1)
+    if tuple(last.shape) != (4, cfg.vocab) or not torch.isfinite(last).all():
+        raise AssertionError(f"{arch} prefill logits {tuple(last.shape)}")
+    fa = {c["what"]: c["ms"] for c in cases["flash_attention"]
+          if c["dtype"] == "bf16" and c["what"].startswith("Whisper")}
+    kernel_ms = (cfg.n_encoder_layers
+                 * fa["Whisper-small encoder layer (non-causal)"]
+                 + cfg.n_layers
+                 * (fa["Whisper-small decoder self-attention"]
+                    + fa["Whisper-small cross attention (448 over 1536 "
+                         "frames)"]))
+    out[f"{arch}_encode_ms"] = statistics.median(encode_ms[1:])
+    out[f"{arch}_prefill_ms"] = prefill_ms
+    out[f"{arch}_prefill_enqueue_ms"] = enqueue_ms
+    out[f"{arch}_prefill_kernel_share"] = kernel_ms / prefill_ms
+    print(f"[{P}] {arch} bf16 encode 4x{cfg.n_audio_frames}: "
+          f"{out[arch + '_encode_ms']:.3f} ms; prefill 4x448 over it: "
+          f"{prefill_ms:.3f} ms (median of {PREFILL_REPS}; host enqueue "
+          f"{enqueue_ms:.3f} ms; first call {first_ms:.3f} ms); "
+          f"flash_attention 36 calls {kernel_ms:.4f} ms = "
+          f"{out[arch + '_prefill_kernel_share']:.1%}", flush=True)
+    counting = _CountingAttention()
+    before = _all_launches()
+    model.prefill({"tokens": prompt, "audio_frames": frames},
+                  attention=counting)
+    torch.cuda.synchronize()
+    _serving_launches(_launch_delta(before), f"{arch} counted prefill", cfg,
+                      1, 0)
+    if counting.calls != {True: cfg.n_layers,
+                          False: cfg.n_encoder_layers + cfg.n_layers}:
+        raise AssertionError(f"{arch} prefill attention calls by causal: "
+                             f"{counting.calls}")
+    out[f"{arch}_noncausal_launches_per_prefill"] = counting.calls[False]
+    print(f"[{P}] {arch} prefill: flash_attention launches "
+          f"{counting.calls[False]} non-causal (encoder + cross) and "
+          f"{counting.calls[True]} causal", flush=True)
+    before = _all_launches()
+    wall, busy, _ = _profile(
+        lambda: model.prefill({"tokens": prompt, "audio_frames": frames}),
+        f"{arch} bf16 encode + prefill 4x448", phase=P)
+    _serving_launches(_launch_delta(before), f"{arch} profiled prefill", cfg,
+                      1, 0)
+    out[f"{arch}_prefill_device_busy_ms"] = busy
+    out[f"{arch}_prefill_device_busy_share"] = busy / wall
+    del last
+
+    # (b) 64 teacher-forced + 32 greedy tokens over filled cross caches
+    print(f"[{P}] {arch}: decoding", flush=True)
+
+    def caches(B):
+        return model.fill_cross_cache(model.init_cache(B, 448), enc[:B])
+
+    prompt = prompt[:, :64].contiguous()
+    n_new = 32
+    before = _all_launches()
+    gen.generate(model, prompt[:, :4], 2, cache_len=448, cache=caches(4))
+    torch.cuda.synchronize()
+    _serving_launches(_launch_delta(before), f"{arch} warm-up decode", cfg,
+                      0, 5)
+    cache = caches(4)
+    before = _all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens, logits = gen.generate(model, prompt, n_new, cache_len=448,
+                                  cache=cache, return_logits=True)
+    torch.cuda.synchronize()
+    steps = prompt.shape[1] + n_new - 1
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    _serving_launches(_launch_delta(before), f"{arch} generate", cfg, 0,
+                      steps)
+    if tuple(tokens.shape) != (4, 64 + n_new) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"{arch} generate {tuple(tokens.shape)}")
+    cache = caches(4)
+    before = _all_launches()
+    wall, busy, prof, runs = _decode_profile(
+        lambda: gen.generate(model, prompt[:, :4], 4, cache_len=448,
+                             cache=cache),
+        7, 2 * cfg.n_layers, f"{arch} bf16 decode", P)
+    _serving_launches(_launch_delta(before), f"{arch} profiled decode", cfg,
+                      0, 7 * runs)
+    out[f"{arch}_decode_device_busy_share"] = busy / wall
+    for name, val in prof.items():
+        out[f"{arch}_decode_{name}"] = val
+    fd = {c["what"]: c["ms"] for c in cases["flash_decode"]
+          if c["dtype"] == "bf16" and c["what"].startswith("Whisper")}
+    fd_ms = (fd["Whisper-small self-attention step, pos 80"]
+             + fd["Whisper-small cross step (every slot live)"])
+    out[f"{arch}_decode_ms_per_step"] = step_ms
+    out[f"{arch}_decode_kernel_share"] = cfg.n_layers * fd_ms / step_ms
+    out[f"{arch}_serving_peak_gb"] = _gb(torch.cuda.max_memory_allocated())
+    print(f"[{P}] {arch} bf16 generate: {steps} steps (64 teacher-forced + "
+          f"{n_new - 1} greedy, B=4, 448-slot ring, {cfg.n_audio_frames}"
+          f"-slot cross caches): {step_ms:.3f} ms/step; flash_decode "
+          f"{cfg.n_layers} x "
+          f"{fd_ms:.4f} ms (self pos 80 + cross) = "
+          f"{out[arch + '_decode_kernel_share']:.1%}; peak "
+          f"{out[arch + '_serving_peak_gb']:.2f} GB", flush=True)
+    del prompt, tokens, logits, cache, enc
+
+    # (c) FedAvg of 2 full-size clients
+    _fuse_two(dev, model, rng, f"{arch} bf16", out, arch, phase=P)
+    del model, frames
+    torch.cuda.empty_cache()
+
+    # (d) fp32 at full width and depth: prefill against teacher-forced
+    # decoding and the plain attention
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    what = f"{arch} fp32"
+    print(f"[{P}] {what}: building", flush=True)
+    model = build_model(cfg32, device=dev, seed=SEED)
+    frames = torch.randn((2, cfg.n_audio_frames, cfg.d_model), generator=g,
+                         device=dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           size=(2, 448))).to(dev)
+    _prefill_vs_decode(model, tokens, what, 2e-3, 2e-3, phase=P,
+                       frames=frames)
+    del model, frames, tokens
+    torch.cuda.empty_cache()
+
+    # the CLI, as a user runs it
+    print(f"[{P}] {arch}: CLI generate", flush=True)
+    before = _all_launches()
+    t0 = time.perf_counter()
+    gen.main(["--arch", arch, "--clients", "2", "--batch", "2",
+              "--prompt-len", "16", "--new-tokens", "8",
+              "--seed", str(SEED)])
+    delta = _launch_delta(before)
+    torch.cuda.empty_cache()
+    print(f"[{P}] CLI generate {arch} --clients 2: "
+          f"wall={time.perf_counter() - t0:.3f}s launches={delta}",
+          flush=True)
+    # a prefill, the encode that fills the cross caches, 23 steps
+    _serving_launches(delta, f"CLI generate {arch}", cfg, 1, 16 + 8 - 1,
+                      fusions=1, encodes=1)
+
+
+def _phase12_llava(dev, cases, rng, out):
+    """(e)-(g) of phase 12: LLaVA-NeXT-34B at full width on layer cuts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import build_model
+
+    full = get_config("llava-next-34b")
+    arch, P = full.arch_id, "phase12"
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    n_patch = full.n_patch_tokens
+
+    # (e) bf16, 8 layers: prefill 2 x (2560 patches + 512 tokens)
+    cfg = dataclasses.replace(full, n_layers=8)
+    what = f"{arch} bf16, 8 layers"
+    print(f"[{P}] {what}: building", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev, seed=SEED)
+    n = sum(p.numel() for p in model.parameters())
+    if n != cfg.num_params():
+        raise AssertionError(f"{what}: {n} params, want {cfg.num_params()}")
+    print(f"[{P}] {what}: {n} params, "
+          f"{_gb(torch.cuda.memory_allocated()):.2f} GB on the card (the "
+          f"whole model {full.num_params()} params)", flush=True)
+    patches = torch.randn((2, n_patch, cfg.d_model), generator=g,
+                          device=dev).to(torch.bfloat16)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           size=(2, 512))).to(dev)
+    before = _all_launches()
+    last, first_ms, prefill_ms, enqueue_ms = _time_prefill(
+        model, prompt, {"patch_embeds": patches})
+    _serving_launches(_launch_delta(before), f"{what} prefills", cfg,
+                      PREFILL_REPS + 1, 0)
+    if tuple(last.shape) != (2, cfg.vocab) or not torch.isfinite(last).all():
+        raise AssertionError(f"{what} prefill logits {tuple(last.shape)}")
+    text_only = model.prefill({"tokens": prompt})
+    if torch.allclose(text_only, last, rtol=1e-2, atol=1e-2):
+        raise AssertionError(f"{what}: the patches do not reach the logits")
+    fa_ms = next(c["ms"] for c in cases["flash_attention"]
+                 if c["what"].startswith("LLaVA-NeXT-34B"))
+    out["llava_prefill_ms"] = prefill_ms
+    out["llava_prefill_enqueue_ms"] = enqueue_ms
+    out["llava_prefill_kernel_share"] = cfg.n_layers * fa_ms / prefill_ms
+    print(f"[{P}] {what} prefill 2x({n_patch}+512): {prefill_ms:.3f} ms "
+          f"(median of {PREFILL_REPS}; host enqueue {enqueue_ms:.3f} ms; "
+          f"first call {first_ms:.3f} ms); flash_attention {cfg.n_layers} x "
+          f"{fa_ms:.4f} ms = {out['llava_prefill_kernel_share']:.1%}",
+          flush=True)
+    before = _all_launches()
+    wall, busy, _ = _profile(
+        lambda: model.prefill({"tokens": prompt, "patch_embeds": patches}),
+        f"{what} prefill 2x({n_patch}+512)", phase=P)
+    _serving_launches(_launch_delta(before), f"{what} profiled prefill", cfg,
+                      1, 0)
+    out["llava_prefill_device_busy_ms"] = busy
+    out["llava_prefill_device_busy_share"] = busy / wall
+    out["llava_serving_peak_gb"] = _gb(torch.cuda.max_memory_allocated())
+    del model, patches, prompt, last, text_only
+    torch.cuda.empty_cache()
+
+    # (f) fp32, 2 layers: 1 x (2560 + 512) against the plain attention
+    cfg32 = dataclasses.replace(full, n_layers=2, dtype="float32")
+    what = f"{arch} fp32, 2 layers"
+    print(f"[{P}] {what}: building", flush=True)
+    model = build_model(cfg32, device=dev, seed=SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 0, cfg.vocab, size=(1, 512))).to(dev),
+             "patch_embeds": torch.randn((1, n_patch, cfg.d_model),
+                                         generator=g, device=dev)}
+    before = _all_launches()
+    pre = model.prefill(batch)
+    _serving_launches(_launch_delta(before), what, cfg32, 1, 0)
+    plain = model.prefill(batch, attention=attention_ref)
+    err = _check_close(plain.cpu().numpy(), pre.double().cpu().numpy(),
+                       2e-3, 2e-3, f"{what}: plain vs kernel prefill")
+    out["llava_fp32_max_abs_err"] = err
+    print(f"[{P}] {what} prefill 1x({n_patch}+512): plain vs kernel "
+          f"max_abs_err={err} (rtol=2e-3, atol=2e-3)", flush=True)
+    del model, batch, pre, plain
+    torch.cuda.empty_cache()
+
+    # (g) FedAvg of 2 clients, bf16 on 2 layers
+    cfg2 = dataclasses.replace(full, n_layers=2)
+    model = build_model(cfg2, device=dev, seed=SEED)
+    _fuse_two(dev, model, rng, f"{arch} bf16, 2 layers", out, "llava",
+              phase=P)
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_whisper_llava(dev, cases):
+    """Phase 12: the encoder-decoder Whisper-small and the vision-language
+    decoder LLaVA-NeXT-34B through ``build_model`` and
+    ``launch.generate``, each model freed before the next is built.
+    Whisper-small at full width and depth (12 + 12 layers): (a) in bf16,
+    4 x 1536 frames encoded and 4 x 448 tokens prefilled over them
+    (exactly 36 flash_attention launches a prefill: 12 non-causal
+    encoder, 12 causal self, 12 non-causal cross; one profiled); (b) a
+    64 + 32-token generate over cross caches filled from the encoder
+    (exactly 24 flash_decode launches a step: self and cross in each
+    layer); (c) a FedAvg of 2 full-size clients against float64 Eq. 1;
+    (d) in fp32 a 2 x 448 prefill against the same tokens teacher-forced
+    through ``decode_step`` and against the plain attention at 2e-3;
+    and the generate CLI with 2 clients. LLaVA-NeXT-34B at full width:
+    (e) a bf16 prefill of 2 x (2560 patches + 512 tokens) on an 8-layer
+    cut (exactly 8 launches a prefill; one profiled); (f) an fp32 1 x
+    (2560 + 512) prefill on a 2-layer cut against the plain attention;
+    (g) a FedAvg of 2 clients on a 2-layer cut against float64 Eq. 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 12)
+    out = {}
+    t0 = time.perf_counter()
+    _phase12_whisper(dev, cases, rng, out)
+    out["whisper-small_seconds"] = time.perf_counter() - t0
+    print(f"[phase12] whisper-small: done in "
+          f"{out['whisper-small_seconds']:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    _phase12_llava(dev, cases, rng, out)
+    out["llava-next-34b_seconds"] = time.perf_counter() - t0
+    print(f"[phase12] llava-next-34b: done in "
+          f"{out['llava-next-34b_seconds']:.3f} s", flush=True)
     return out
 
 
@@ -4505,6 +4930,8 @@ def main() -> int:
     run_phase("phase5", phase_hybrid_serving, dev, cases)   # fused Zamba2
     # the head-dim-128 decoders and the mixture-of-experts decoder
     run_phase("phase11", phase_more_decoders, dev, cases)
+    # the encoder-decoder and the vision-language decoder
+    run_phase("phase12", phase_whisper_llava, dev, cases)
     run_phase("phase9", phase_training, dev, cases)     # federated training
     launches = {k: sum(p.get(k, 0) for p in by_phase.values())
                 for k in _all_launches()}
@@ -4521,6 +4948,8 @@ def main() -> int:
                 "weighted_sum", "flash_attention", "flash_attention_bwd",
                 "ssd_chunk", "ssd_chunk_bwd")) \
             or any(by_phase["phase11"].get(k, 0) == 0 for k in (
+                "weighted_sum", "flash_attention", "flash_decode")) \
+            or any(by_phase["phase12"].get(k, 0) == 0 for k in (
                 "weighted_sum", "flash_attention", "flash_decode")) \
             or any(by_phase["phase10"].get(k, 0) == 0 for k in (
                 "weighted_sum", "weighted_sum_dequant", "topk_carve",

@@ -2,8 +2,8 @@
 
 What crosses between the two packages is data — a streamed round's
 reducer carry, a server optimizer's state, the pytree an update is
-shaped like, and a model's parameters (the decoders', dense or MoE, and
-Zamba2's).
+shaped like, and a model's parameters (the decoders', dense, MoE or
+vision-language, Zamba2's and the encoder-decoder's).
 Each comes over as numpy arrays, which is how a ``repro`` caller holds
 them (``np.asarray`` of its leaves; bf16 leaves as ``ml_dtypes.bfloat16``
 arrays, read as raw 16-bit words), so nothing here imports JAX.
@@ -129,8 +129,9 @@ def _model_holding(state, cfg: ModelConfig, device: DeviceLike):
 
 
 def decoder_from_numpy(params, cfg: ModelConfig, device: DeviceLike = None):
-    """A ``Decoder`` (dense or MoE) holding ``repro``'s decoder
-    parameters."""
+    """A ``Decoder`` (dense, MoE, or a vision-language backbone, whose
+    patches are an input and hold no parameters) holding ``repro``'s
+    decoder parameters."""
     return _model_holding(decoder_state_from_numpy(params, cfg, device), cfg,
                           device)
 
@@ -177,4 +178,44 @@ def zamba_state_from_numpy(params, cfg: ModelConfig,
 def zamba_from_numpy(params, cfg: ModelConfig, device: DeviceLike = None):
     """A ``Zamba`` holding ``repro``'s hybrid parameters."""
     return _model_holding(zamba_state_from_numpy(params, cfg, device), cfg,
+                          device)
+
+
+_ATTN_FIELDS = ("wq", "wk", "wv", "wo")
+
+
+def encdec_state_from_numpy(params, cfg: ModelConfig,
+                            device: DeviceLike = None
+                            ) -> "collections.OrderedDict[str, torch.Tensor]":
+    """``repro``'s ``init_encdec`` tree (numpy leaves) as the
+    ``state_dict`` of this package's ``EncDec``, on ``device``, keys in
+    ``Model.state_dict()``'s order (a module's own parameters before its
+    submodules'): ``embed``, ``enc_norm``, ``final_norm``, then
+    ``enc_layers.<i>.*`` (ln1, ln2, attn, mlp) and ``dec_layers.<i>.*``
+    (ln1, lnx, ln2, attn, xattn, mlp). Both layer stacks are stacked on
+    axis 0 (``jax.vmap`` init); attention has no biases."""
+    dev = resolve_device(device)
+    dt = lambda x: to_device(np.asarray(x), dev)   # noqa: E731
+    state = collections.OrderedDict()   # in Model.state_dict()'s order
+    for name in ("embed", "enc_norm", "final_norm"):
+        state[name] = dt(params[name])
+    for prefix, n, norms, attns in (
+            ("enc_layers", cfg.n_encoder_layers, ("ln1", "ln2"), ("attn",)),
+            ("dec_layers", cfg.n_layers, ("ln1", "lnx", "ln2"),
+             ("attn", "xattn"))):
+        layers = params[prefix]
+        leaves = [(norm, layers[norm]) for norm in norms]
+        leaves += [(f"{part}.{name}", _field(layers[part], name))
+                   for part in attns for name in _ATTN_FIELDS]
+        leaves += [("mlp." + name, _field(layers["mlp"], name))
+                   for name in _MLP_FIELDS]
+        for i in range(n):
+            for key, leaf in leaves:
+                state[f"{prefix}.{i}.{key}"] = dt(np.asarray(leaf)[i])
+    return state
+
+
+def encdec_from_numpy(params, cfg: ModelConfig, device: DeviceLike = None):
+    """An ``EncDec`` holding ``repro``'s encoder-decoder parameters."""
+    return _model_holding(encdec_state_from_numpy(params, cfg, device), cfg,
                           device)

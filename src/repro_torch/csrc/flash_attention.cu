@@ -1,25 +1,38 @@
-// Causal GQA flash attention (prefill) for Hopper (sm_90a).
+// GQA flash attention (prefill, encoder, cross attention) for Hopper
+// (sm_90a).
 //
 // flash_attn_fwd replaces repro/kernels/flash_attention/kernel.py
 // flash_attention (the pallas_call at :116, body _flash_kernel :26-76):
 //     out[b, t, h] = softmax_s(q[b, t, h] . k[b, s, h / group] * hd^-0.5)
 //                    . v[b, s, h / group]
-// over the keys s that are live for query t: s <= t, and t - s < window
-// when window > 0. q (B, T, nq, hd), k / v (B, S, nkv, hd) row-major in
-// fp32, bf16 or fp16; out (B, T, nq, hd) in q's dtype. The kv head is
-// h / group, so K / V are never duplicated (GQA of any group, MQA, MHA).
-// Ragged T and S are masked in the kernel: no shape is refused.
+// over the keys s that are live for query t: s <= t when causal (the
+// decoders' self-attention), every s < S when not (the encoder-decoder's
+// encoder and its cross attention of T decoder positions over S encoder
+// frames); and with window > 0 also t - s < window, one-sided as in the
+// Pallas kernel (non-causal, every key after t stays live). q (B, T, nq,
+// hd), k / v (B, S, nkv, hd) row-major in fp32, bf16 or fp16; out (B, T,
+// nq, hd) in q's dtype. The kv head is h / group, so K / V are never
+// duplicated (GQA of any group, MQA, MHA). Ragged T and S are masked in
+// the kernel: no shape is refused.
 //
-// Bound: operations. Causal attention does 4 * hd FLOPs per live score
-// against 2 * (nq + nkv) * hd bytes of q, k, v and out per token, so at
-// the Qwen2 / Gemma3 / Zamba2 prefill shapes the FLOPs dominate in every
-// dtype. Two routes, by dtype:
+// causal is a template flag of both routes (CAUSAL), not a runtime
+// branch: it sets the last live key tile (the diagonal's, or S's) and
+// whether a tile's edge test and mask look at the diagonal; a non-causal
+// instance holds no diagonal test at all. (A uniform runtime branch, the
+// lse store's, cost the forward 10-13%; see LSE below.)
+//
+// Bound: operations. Attention does 4 * hd FLOPs per live score against
+// 2 * (nq + nkv) * hd bytes of q, k, v and out per token, so at the
+// Qwen2 / Gemma3 / Zamba2 prefill shapes and Whisper's encoder and cross
+// attention the FLOPs dominate in every dtype. Two routes, by dtype:
 //
 // bf16 / fp16: tensor cores (flash_half_kernel). FlashAttention-2 on
 // mma.sync.m16n8k16 with fp32 accumulators:
 //   * 4 warps own a BQ = 64-row query tile of one (batch, q head), 16
 //     rows a warp; the late query tiles of every head, which hold the
-//     most live keys, launch first, to even out the causal triangle;
+//     most live keys, launch first, to even out the causal triangle
+//     (non-causal, every tile holds all S keys and the order evens out
+//     nothing);
 //   * K / V tiles of BK keys (64; 32 at hd 256, so that two blocks fit
 //     an SM) stay in their storage dtype in shared memory, fed by a
 //     two-stage ring of 16-byte cp.async.cg copies: the next tile loads
@@ -34,7 +47,8 @@
 //   * the online softmax (m, l) is fp32 in registers; row maxima are
 //     reduced over the 4 lanes of an accumulator row with shuffles, row
 //     sums once at the end. The causal / window mask is applied only on
-//     tiles that cross the diagonal, the window's edge or S.
+//     tiles that cross the diagonal (causal only), the window's edge or
+//     S.
 //   Numerics: scores are fp32 dot products scaled after the dot (the
 //   reference model's order, repro/models/layers/attention.py
 //   blockwise_attention; the Pallas kernel scales q first, which would
@@ -62,8 +76,9 @@
 // holds only masked keys gets p = exp(-1e30 - -1e30) = 1 there, and the
 // next tile's alpha = exp(-1e30 - m) = 0 wipes it, as on the TPU (with
 // -inf that would be NaN). Key rows past S are zero-filled in shared
-// memory, so they add 0, never NaN. Tiles wholly masked (above the
-// diagonal, or wholly before the window) are never loaded.
+// memory, so they add 0, never NaN (non-causal with no window, no row is
+// wholly masked, and only S's edge tile is masked). Tiles wholly masked
+// (above the diagonal, or wholly before the window) are never loaded.
 //
 // lse: when the caller passes a (B, nq, T) fp32 buffer, each route also
 // writes the rows' logsumexp of the scaled scores, max + log(sum), the
@@ -342,7 +357,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const T* __restrict__ sr
 // q0 + 16w .. q0 + 16w + 15; lane l holds accumulator rows g = l / 4
 // and g + 8 of the warp's 16, columns 2 (l % 4) and 2 (l % 4) + 1 of
 // each 8-wide n-tile (the m16n8 C layout).
-template <typename T, int HD, bool LSE>
+template <typename T, int HD, bool LSE, bool CAUSAL>
 __global__ void __launch_bounds__(kHalfThreads)
 flash_half_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
@@ -368,9 +383,10 @@ flash_half_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* k_base = k + (b * S_len * nkv + kvh) * HD;
   const T* v_base = v + (b * S_len * nkv + kvh) * HD;
 
-  // live key tiles [kt_lo, kt_hi)
+  // live key tiles [kt_lo, kt_hi): up to the diagonal when causal, to S
+  // otherwise; from the window's near edge
   const int n_kt = (S_len + BK - 1) / BK;
-  const int kt_hi = min(n_kt, q_last / BK + 1);
+  const int kt_hi = CAUSAL ? min(n_kt, q_last / BK + 1) : n_kt;
   int kt_lo = 0;
   if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / BK;
 
@@ -442,9 +458,10 @@ flash_half_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    // mask, only where the tile crosses the diagonal, the window or S
+    // mask, only where the tile crosses the diagonal (causal), the
+    // window or S
     const int k0 = kt * BK;
-    const bool edge = k0 + BK - 1 > r0 || k0 + BK > S_len ||
+    const bool edge = (CAUSAL && k0 + BK - 1 > r0) || k0 + BK > S_len ||
                       (window > 0 && r0 + 15 - k0 >= window);
     if (edge) {
 #pragma unroll
@@ -453,7 +470,7 @@ flash_half_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + nt * 8 + cq * 2 + (e & 1);
           const int t = e < 2 ? t_lo : t_hi;
-          bool live = key < S_len && key <= t;
+          bool live = key < S_len && (!CAUSAL || key <= t);
           if (window > 0) live = live && t - key < window;
           if (!live) s[nt][e] = kNegInf;
         }
@@ -568,10 +585,13 @@ flash_half_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 cudaError_t launch_half(const void* q, const void* k, const void* v, void* out, float* lse,
                         int64_t B, int64_t T_len, int64_t S_len, int64_t nq, int64_t nkv,
-                        int64_t window, float scale, cudaStream_t st) {
+                        int64_t window, bool causal, float scale, cudaStream_t st) {
   constexpr int smem = HalfCfg<HD>::SMEM_BYTES;
   // the serving path (no lse) runs an instance without the store
-  auto kern = lse != nullptr ? flash_half_kernel<T, HD, true> : flash_half_kernel<T, HD, false>;
+  auto kern = causal ? (lse != nullptr ? flash_half_kernel<T, HD, true, true>
+                                       : flash_half_kernel<T, HD, false, true>)
+                     : (lse != nullptr ? flash_half_kernel<T, HD, true, false>
+                                       : flash_half_kernel<T, HD, false, false>);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -642,7 +662,7 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* __restric
 // c*16*VW + tx*VW + e (c < NC, e < VW). K and V arrive by cp.async, one
 // buffer each: K's next tile loads during this tile's softmax and PV,
 // V's next tile during the next tile's scores.
-template <int HD, int BQ, bool LSE>
+template <int HD, int BQ, bool LSE, bool CAUSAL>
 __global__ void __launch_bounds__(4 * BQ)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
@@ -671,9 +691,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* k_base = k + (b * S_len * nkv + kvh) * HD;
   const float* v_base = v + (b * S_len * nkv + kvh) * HD;
 
-  // live key tiles: [kt_lo, kt_hi)
+  // live key tiles: [kt_lo, kt_hi), as the tensor-core route's
   const int64_t n_kt = (S_len + BK - 1) / BK;
-  const int64_t kt_hi = min(n_kt, q_last / BK + 1);
+  const int64_t kt_hi = CAUSAL ? min(n_kt, q_last / BK + 1) : n_kt;
   int64_t kt_lo = 0;
   if (window > 0) {
     const int64_t first = q0 - window + 1;  // first key the first row sees
@@ -747,7 +767,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < KN; ++jj) {
         const int64_t s = k0 + tx + 16 * jj;
-        bool live = s < S_len && s <= t;
+        bool live = s < S_len && (!CAUSAL || s <= t);
         if (window > 0) live = live && (t - s < window);
         if (!live) sc[i][jj] = kNegInf;
         mx = fmaxf(mx, sc[i][jj]);
@@ -819,9 +839,12 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD, int BQ>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* lse,
                        int64_t B, int64_t T_len, int64_t S_len, int64_t nq, int64_t nkv,
-                       int64_t window, float scale, cudaStream_t st) {
+                       int64_t window, bool causal, float scale, cudaStream_t st) {
   const size_t smem = sizeof(float) * Cfg<HD, BQ>::SMEM_FLOATS;
-  auto kern = lse != nullptr ? flash_f32_kernel<HD, BQ, true> : flash_f32_kernel<HD, BQ, false>;
+  auto kern = causal ? (lse != nullptr ? flash_f32_kernel<HD, BQ, true, true>
+                                       : flash_f32_kernel<HD, BQ, false, true>)
+                     : (lse != nullptr ? flash_f32_kernel<HD, BQ, true, false>
+                                       : flash_f32_kernel<HD, BQ, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -838,11 +861,14 @@ template <int HD>
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* out, float* lse,
                          int64_t B,
                          int64_t T_len, int64_t S_len, int64_t nq, int64_t nkv,
-                         int64_t window, int64_t block_q, float scale, cudaStream_t st) {
+                         int64_t window, bool causal, int64_t block_q, float scale,
+                         cudaStream_t st) {
   if (block_q == 64)
-    return launch_f32<HD, 64>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, scale, st);
+    return launch_f32<HD, 64>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, causal,
+                              scale, st);
   if (block_q == 32)
-    return launch_f32<HD, 32>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, scale, st);
+    return launch_f32<HD, 32>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, causal,
+                              scale, st);
   return cudaErrorInvalidValue;
 }
 
@@ -850,20 +876,21 @@ template <typename T>
 cudaError_t dispatch_half(const void* q, const void* k, const void* v, void* out, float* lse,
                           int64_t B,
                           int64_t T_len, int64_t S_len, int64_t nq, int64_t nkv,
-                          int64_t hd, int64_t window, float scale, cudaStream_t st) {
+                          int64_t hd, int64_t window, bool causal, float scale,
+                          cudaStream_t st) {
   switch (hd) {
     case 32:
-      return launch_half<T, 32>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, scale,
-                                  st);
+      return launch_half<T, 32>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, causal,
+                                scale, st);
     case 64:
-      return launch_half<T, 64>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, scale,
-                                  st);
+      return launch_half<T, 64>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, causal,
+                                scale, st);
     case 128:
-      return launch_half<T, 128>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, scale,
-                                  st);
+      return launch_half<T, 128>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, causal,
+                                 scale, st);
     case 256:
-      return launch_half<T, 256>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, scale,
-                                  st);
+      return launch_half<T, 256>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, causal,
+                                 scale, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -871,21 +898,21 @@ cudaError_t dispatch_half(const void* q, const void* k, const void* v, void* out
 
 cudaError_t dispatch_f32_hd(const void* q, const void* k, const void* v, void* out,
                             float* lse, int64_t B, int64_t T_len, int64_t S_len, int64_t nq,
-                            int64_t nkv, int64_t hd, int64_t window, int64_t block_q,
-                            float scale, cudaStream_t st) {
+                            int64_t nkv, int64_t hd, int64_t window, bool causal,
+                            int64_t block_q, float scale, cudaStream_t st) {
   switch (hd) {
     case 32:
-      return dispatch_f32<32>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, block_q,
-                                scale, st);
+      return dispatch_f32<32>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, causal,
+                              block_q, scale, st);
     case 64:
-      return dispatch_f32<64>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, block_q,
-                                scale, st);
+      return dispatch_f32<64>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, causal,
+                              block_q, scale, st);
     case 128:
-      return dispatch_f32<128>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, block_q,
-                                 scale, st);
+      return dispatch_f32<128>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, causal,
+                               block_q, scale, st);
     case 256:
-      return dispatch_f32<256>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, block_q,
-                                 scale, st);
+      return dispatch_f32<256>(q, k, v, out, lse, B, T_len, S_len, nq, nkv, window, causal,
+                               block_q, scale, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -2004,31 +2031,37 @@ extern "C" {
 
 // q (B, T, nq, hd), k / v (B, S, nkv, hd), out (B, T, nq, hd), all
 // row-major of `dtype`, 16-byte aligned; hd in {32, 64, 128, 256}; nq a
-// multiple of nkv; window 0 = none. block_q: the fp32 route's query
-// tile, 64 or 32; the bf16 / fp16 route takes 64 only. lse: null, or
-// (B, nq, T) fp32 for the rows' logsumexp.
+// multiple of nkv; window 0 = none; causal 1 (keys s <= t) or 0 (every
+// key). block_q: the fp32 route's query tile, 64 or 32; the bf16 /
+// fp16 route takes 64 only. lse: null, or (B, nq, T) fp32 for the rows'
+// logsumexp.
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* out, void* lse_out,
                    int64_t B,
                    int64_t T_len, int64_t S_len, int64_t nq, int64_t nkv, int64_t hd,
-                   int64_t dtype, int64_t window, int64_t block_q, void* stream) {
+                   int64_t dtype, int64_t window, int64_t causal, int64_t block_q,
+                   void* stream) {
   if (B <= 0 || T_len <= 0 || S_len <= 0 || nkv <= 0 || nq % nkv != 0 || window < 0 ||
-      T_len > INT32_MAX || S_len > INT32_MAX || window > INT32_MAX)
+      T_len > INT32_MAX || S_len > INT32_MAX || window > INT32_MAX ||
+      (causal != 0 && causal != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const float scale = static_cast<float>(pow(static_cast<double>(hd), -0.5));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_out);
+  const bool is_causal = causal == 1;
   switch (dtype) {
     case kF32:
       return static_cast<int>(dispatch_f32_hd(q, k, v, out, lse, B, T_len, S_len, nq, nkv, hd,
-                                              window, block_q, scale, st));
+                                              window, is_causal, block_q, scale, st));
     case kBF16:
       if (block_q != kHalfBQ) return static_cast<int>(cudaErrorInvalidValue);
       return static_cast<int>(dispatch_half<__nv_bfloat16>(q, k, v, out, lse, B, T_len, S_len,
-                                                           nq, nkv, hd, window, scale, st));
+                                                           nq, nkv, hd, window, is_causal,
+                                                           scale, st));
     case kF16:
       if (block_q != kHalfBQ) return static_cast<int>(cudaErrorInvalidValue);
       return static_cast<int>(dispatch_half<__half>(q, k, v, out, lse, B, T_len, S_len, nq,
-                                                    nkv, hd, window, scale, st));
+                                                    nkv, hd, window, is_causal, scale,
+                                                    st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

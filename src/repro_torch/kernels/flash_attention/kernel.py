@@ -1,4 +1,5 @@
-"""Hopper kernel for causal GQA flash attention (prefill).
+"""Hopper kernel for GQA flash attention (prefill, encoder and cross
+attention), causal or not.
 
 ``flash_attention`` replaces ``repro/kernels/flash_attention/kernel.py``
 ``flash_attention``. It is CUDA C++ in ``csrc/flash_attention.cu`` (its
@@ -6,7 +7,10 @@ header says what bounds it and what the design does about it), built by
 ``kernels/_build.py`` at first use. The one entry point routes by dtype:
 bf16 / fp16 go to a FlashAttention-2 kernel on the tensor cores
 (``mma.sync``, 64-row query tiles), fp32 to a kernel on the CUDA cores
-whose query tile :func:`fp32_query_tile` picks.
+whose query tile :func:`fp32_query_tile` picks. ``causal`` picks a
+template instance of either route: the decoders' causal self-attention,
+or the encoder-decoder's non-causal encoder and cross attention (T
+decoder positions over S encoder frames).
 
 On a CPU tensor the wrapper returns its plain version from ``ref.py``; on
 a CUDA tensor it launches the kernel on the current stream or raises. It
@@ -148,7 +152,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("flash_attention")
     if lib.flash_attn_fwd.argtypes is None:
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.flash_attn_fwd.argtypes = [ptr] * 5 + [i64] * 9 + [ptr]
+        lib.flash_attn_fwd.argtypes = [ptr] * 5 + [i64] * 10 + [ptr]
         lib.flash_attn_fwd.restype = ctypes.c_int
         lib.flash_attn_bwd.argtypes = [ptr] * 11 + [i64] * 7 + [ptr]
         lib.flash_attn_bwd.restype = ctypes.c_int
@@ -192,21 +196,26 @@ def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0, return_lse: bool = False):
-    """Causal GQA attention with an optional sliding window (0 = none):
-    q (B, T, nq, hd), k / v (B, S, nkv, hd) -> (B, T, nq, hd) in q's
-    dtype, the kv head of q head h being h // (nq // nkv). Any T and S;
-    positions count from 0 in both. With ``return_lse`` returns
-    ``(out, lse)``, lse (B, nq, T) fp32 the rows' logsumexp of the
-    scaled scores (what the backward recomputes p from)."""
+                    causal: bool = True, window: int = 0,
+                    return_lse: bool = False):
+    """GQA attention with an optional sliding window (0 = none): q (B, T,
+    nq, hd), k / v (B, S, nkv, hd) -> (B, T, nq, hd) in q's dtype, the kv
+    head of q head h being h // (nq // nkv). Any T and S; positions count
+    from 0 in both. Query t attends key s when s <= t (``causal``, the
+    default) or for every s (``causal=False``), and, with a window, when
+    also t - s < window (one-sided, as the Pallas kernel: without
+    ``causal`` every key after t stays live). With ``return_lse``
+    returns ``(out, lse)``, lse (B, nq, T) fp32 the rows' logsumexp of
+    the scaled scores (what the backward recomputes p from)."""
     check_heads(q, k, v)
     window = int(window)
+    causal = bool(causal)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if q.device.type == "cpu":
         if return_lse:
-            return attention_lse_ref(q, k, v, window=window)
-        return attention_ref(q, k, v, window=window)
+            return attention_lse_ref(q, k, v, causal=causal, window=window)
+        return attention_ref(q, k, v, causal=causal, window=window)
     B, T, nq, hd = q.shape
     S, nkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -225,7 +234,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = lib.flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if return_lse else None,
-            B, T, S, nq, nkv, hd, DTYPE_CODES[q.dtype], window, block_q,
+            B, T, S, nq, nkv, hd, DTYPE_CODES[q.dtype], window, int(causal),
+            block_q,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
@@ -241,7 +251,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     its inputs, its output, its lse (B, nq, T) fp32 and the output's
     gradient ``dout``: the reference VJP's math, p and ds rounded to the
     input dtype before the products they feed, fp32 accumulation. Takes
-    T == S only (what training runs); other shapes raise ``ValueError``.
+    causal attention with T == S only (what the decoders' training runs;
+    other shapes raise ``ValueError``): the non-causal, cross-length
+    backward an encoder-decoder's training needs is not written yet.
     On CUDA tensors it launches ``flash_attn_bwd`` or raises."""
     check_heads(q, k, v)
     window = int(window)

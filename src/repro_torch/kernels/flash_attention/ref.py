@@ -11,27 +11,34 @@ import torch
 NEG_INF = -1e30
 
 
-def attention_mask(T: int, S: int, window: int, device=None) -> torch.Tensor:
-    """(T, S) bool: query t may attend key s (positions from 0 on both)."""
+def attention_mask(T: int, S: int, window: int, causal: bool = True,
+                   device=None) -> torch.Tensor:
+    """(T, S) bool: query t may attend key s (positions from 0 on both),
+    as the Pallas kernel masks: s <= t when ``causal``, and t - s <
+    window when ``window > 0`` (one-sided: without ``causal`` every key
+    after t stays live)."""
     qpos = torch.arange(T, device=device)[:, None]
     kpos = torch.arange(S, device=device)[None, :]
-    mask = qpos >= kpos
+    mask = torch.ones((T, S), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
     if window > 0:
         mask &= qpos - kpos < window
     return mask
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  window: int = 0) -> torch.Tensor:
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B, T, nq, hd), k/v (B, S, nkv, hd) -> (B, T, nq, hd) in q's
-    dtype. Upcasts to fp32 and scales q before the dot; GQA groups the
-    q heads over the kv heads without copying k or v."""
+    dtype, over the keys ``attention_mask`` keeps. Upcasts to fp32 and
+    scales q before the dot; GQA groups the q heads over the kv heads
+    without copying k or v."""
     B, T, nq, hd = q.shape
     S, nkv = k.shape[1], k.shape[2]
     group = nq // nkv
     qf = q.float().reshape(B, T, nkv, group, hd) * hd ** -0.5
     s = torch.einsum("btngh,bsnh->bngts", qf, k.float())
-    mask = attention_mask(T, S, window, device=q.device)
+    mask = attention_mask(T, S, window, causal, device=q.device)
     s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
@@ -44,20 +51,21 @@ def _compute_dtype(x: torch.Tensor) -> torch.dtype:
 
 
 def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      window: int = 0):
+                      causal: bool = True, window: int = 0):
     """(out (B, T, nq, hd) in q's dtype, lse (B, nq, T) fp32): the
     reference model's forward, ``blockwise_attention``'s ``_forward`` in
     one tile. Scores are fp32 dot products scaled after the dot; lse =
     max + log(sum), the sum floored at 1e-30; p enters PV rounded to v's
     dtype, as ``p.astype(v_blk.dtype)`` does there. fp64 inputs are
-    computed in fp64 (for ``gradcheck``), the rest in fp32."""
+    computed in fp64 (for ``gradcheck``), the rest in fp32. ``causal``
+    and ``window`` as ``attention_mask`` takes them."""
     B, T, nq, hd = q.shape
     S, nkv = k.shape[1], k.shape[2]
     group = nq // nkv
     ct = _compute_dtype(q)
     qf = q.to(ct).reshape(B, T, nkv, group, hd)
     s = torch.einsum("btngh,bsnh->bngts", qf, k.to(ct)) * hd ** -0.5
-    mask = attention_mask(T, S, window, device=q.device)
+    mask = attention_mask(T, S, window, causal, device=q.device)
     s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])

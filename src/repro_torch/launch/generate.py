@@ -10,6 +10,8 @@ Mamba2 layers of Zamba2, the conv window and SSM state).
         --arch qwen2.5-3b --clients 2
     PYTHONPATH=src python -m repro_torch.launch.generate \
         --arch deepseek-moe-16b --clients 0
+    PYTHONPATH=src python -m repro_torch.launch.generate \
+        --arch whisper-small --clients 2
 
 The serving half of ``examples/serve_federated_model.py``: the clients'
 models (``state_dict``-shaped trees; local training comes with the
@@ -18,14 +20,21 @@ the fused tree applied as ``repro.fl.FederatedServer.run_round`` does;
 then ``generate`` teacher-forces the prompt through ``decode_step`` and
 decodes greedily. The families are the dense decoders (Qwen2-0.5B,
 Qwen2.5-3B, Minitron-8B, Gemma3-1B), the mixture-of-experts decoder
-(DeepSeek-MoE-16B) and the Mamba2 / shared-attention hybrid
-(Zamba2-1.2B). On the card the fusion runs the weighted-sum kernel;
-prefill runs the flash-attention kernel (and, for Zamba2, the SSD-scan
-kernel in every Mamba2 layer); each decode step runs the flash-decode
-kernel. The CLI also checks that ``prefill``'s last-position logits
-agree with the teacher-forced ones (for an MoE model they agree where
-the prompt's prefill drops no assignment at the config's capacity
-factor).
+(DeepSeek-MoE-16B), the Mamba2 / shared-attention hybrid (Zamba2-1.2B)
+and the encoder-decoder (Whisper-small): for it the CLI makes seeded
+frames (B, n_audio_frames, d), encodes them, fills the decoder's cross
+caches from the encoder output and serves the prompt over them. On the
+card the fusion runs the weighted-sum kernel; prefill runs the
+flash-attention kernel (and, for Zamba2, the SSD-scan kernel in every
+Mamba2 layer; for Whisper, its non-causal route in the encoder and the
+cross attention); each decode step runs the flash-decode kernel. The
+CLI also checks that ``prefill``'s last-position logits agree with the
+teacher-forced ones (for an MoE model they agree where the prompt's
+prefill drops no assignment at the config's capacity factor).
+LLaVA-NeXT-34B is no CLI arch: its image patches enter prefill only,
+and ``repro``'s decode step takes none, so a teacher-forced prompt
+would not see them; given its id, the CLI serves the text backbone
+alone, without patches.
 
 The in-memory fusion holds every client in the model's dtype twice
 (the tree and its flat row), the stacked rows, and an fp32 sum and
@@ -95,17 +104,20 @@ def perturbed_clients(model: Model, n: int, seed: int,
 def generate(model: Model, prompt: torch.Tensor, n_new: int, cache_len: int,
              temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             return_logits: bool = False):
+             return_logits: bool = False, cache=None):
     """Greedy (or temperature) decoding. prompt (B, T0) int on the model's
     device -> (B, T0 + n_new) tokens; with ``return_logits`` also the
     (B, n_new, vocab) fp32 logits each new token was chosen from.
 
     The prompt is teacher-forced through ``decode_step`` (cache warm-up),
     as the reference's example does. Positions are device tensors, so no
-    step waits on the host."""
+    step waits on the host. ``cache`` defaults to
+    ``model.init_cache(B, cache_len)``; an encoder-decoder passes its
+    caches with the cross keys and values filled (``fill_cross_cache``)."""
     B, T0 = prompt.shape
     dev = prompt.device
-    cache = model.init_cache(B, cache_len)
+    if cache is None:
+        cache = model.init_cache(B, cache_len)
     positions = torch.arange(T0 + n_new, dtype=torch.int32, device=dev)
     logits = None
     for t in range(T0):
@@ -170,13 +182,23 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(args.seed)
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab, size=(args.batch, args.prompt_len))).to(dev)
+    cache_len = args.prompt_len + args.new_tokens
+    batch, cache = {"tokens": prompt}, None
+    if cfg.family == "audio":
+        batch["audio_frames"] = torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.n_audio_frames, cfg.d_model),
+            dtype=np.float32)).to(dev)
+        with torch.no_grad():
+            cache = model.fill_cross_cache(
+                model.init_cache(args.batch, cache_len),
+                model.encode(batch["audio_frames"]))
     t0 = time.perf_counter()
-    last = model.prefill({"tokens": prompt})
+    last = model.prefill(batch)
     synchronize(dev)
     prefill_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     tokens, logits = generate(model, prompt, args.new_tokens,
-                              cache_len=args.prompt_len + args.new_tokens,
+                              cache_len=cache_len, cache=cache,
                               return_logits=True)
     synchronize(dev)
     steps = args.prompt_len + args.new_tokens - 1

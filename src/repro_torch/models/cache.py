@@ -19,13 +19,22 @@ import torch
 
 from repro_torch.kernels.flash_decode.ref import Pos, pos_tensor, ring_live
 
-__all__ = ["AttnCache", "Pos", "cache_valid_mask", "init_attn_cache",
-           "pos_tensor", "update_attn_cache"]
+__all__ = ["AttnCache", "EncDecCache", "Pos", "cache_valid_mask",
+           "init_attn_cache", "pos_tensor", "update_attn_cache"]
 
 
 class AttnCache(NamedTuple):
     k: torch.Tensor  # (B, S_l, n_kv, hd) — keys stored pre-rotated (RoPE applied)
     v: torch.Tensor  # (B, S_l, n_kv, hd)
+
+
+class EncDecCache(NamedTuple):
+    """One decoder layer's caches of the encoder-decoder: its
+    self-attention ring and the cross-attention keys / values of the
+    encoder output (B, S_enc, nH, hd), no RoPE."""
+    self_kv: AttnCache
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
 
 
 def init_attn_cache(batch: int, length: int, n_kv: int, head_dim: int,

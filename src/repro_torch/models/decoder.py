@@ -11,7 +11,13 @@ through ``flash_attention_train`` (the forward and backward kernels),
 then the chunked next-token loss. An MoE config's layers hold an
 ``MoE`` in place of the MLP: prefill and the loss run its scatter path,
 a decode step its dense mix, and the loss adds the summed load-balance
-loss, weighted, as ``repro.models.decoder.decoder_loss`` does.
+loss, weighted, as ``repro.models.decoder.decoder_loss`` does. A
+vision-language config (LLaVA-NeXT) is the same decoder with an image
+prefix: ``hidden``, ``loss`` and ``prefill`` take precomputed patch
+embeddings (the vision tower and projector are stubbed, as in
+``repro``) and put them before the embedded tokens; the loss drops the
+patch positions before the CE. A decode step stays text-only, as in
+``repro``.
 """
 from __future__ import annotations
 
@@ -158,14 +164,20 @@ class Decoder(Model):
         self.windows = layer_windows(cfg)
 
     def hidden(self, tokens: torch.Tensor,
+               patch_embeds: Optional[torch.Tensor] = None,
                attention: PrefillAttention = flash_attention,
                remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Embeds, runs the layers, final norm -> (hidden (B, T, d), the
-        layers' summed MoE load-balance loss, 0 for dense layers). With
-        ``remat`` each layer runs under ``torch.utils.checkpoint``: its
-        activations are recomputed in backward, attention included."""
+        """Embeds (after the patch prefix (B, P, d), cast to the hidden
+        dtype, when given), runs the layers, final norm -> (hidden (B,
+        P + T, d), the layers' summed MoE load-balance loss, 0 for dense
+        layers); positions run 0 .. P + T - 1 across both, as ``repro``'s
+        ``decoder_hidden``. With ``remat`` each layer runs under
+        ``torch.utils.checkpoint``: its activations are recomputed in
+        backward, attention included."""
         cfg = self.config
         h = embed_tokens(self.embed, tokens)
+        if patch_embeds is not None:
+            h = torch.cat([patch_embeds.to(h.dtype), h], dim=1)
         B, T = h.shape[:2]
         positions = torch.arange(T, dtype=torch.int32,
                                  device=h.device)[None].expand(B, T)
@@ -188,10 +200,15 @@ class Decoder(Model):
         """(mean next-token CE, plus for MoE ``router_aux_weight`` x the
         summed load-balance loss / n_layers; {"ce": that loss, "moe_aux":
         the summed load-balance loss}) of ``batch["tokens"]`` against
-        ``batch["labels"]``, as ``repro.models.decoder.decoder_loss``."""
+        ``batch["labels"]``, after ``batch["patch_embeds"]`` when the
+        batch has them (their positions dropped before the CE), as
+        ``repro.models.decoder.decoder_loss``."""
         cfg = self.config
-        h, aux = self.hidden(batch["tokens"], attention=attention,
-                             remat=remat)
+        patches = batch.get("patch_embeds")
+        h, aux = self.hidden(batch["tokens"], patch_embeds=patches,
+                             attention=attention, remat=remat)
+        if patches is not None:
+            h = h[:, patches.shape[1]:, :]
         loss = next_token_loss(h, self.embed, self.head, batch["labels"])
         if cfg.moe is not None:
             loss = loss + cfg.moe.router_aux_weight * aux / cfg.n_layers
@@ -201,8 +218,11 @@ class Decoder(Model):
     def prefill(self, batch: Dict[str, torch.Tensor],
                 attention: PrefillAttention = flash_attention
                 ) -> torch.Tensor:
-        """Last-position logits (B, vocab) fp32."""
-        h, _ = self.hidden(batch["tokens"], attention=attention)
+        """Last-position logits (B, vocab) fp32, after
+        ``batch["patch_embeds"]`` when the batch has them."""
+        h, _ = self.hidden(batch["tokens"],
+                           patch_embeds=batch.get("patch_embeds"),
+                           attention=attention)
         return lm_logits(h[:, -1:, :], self.embed, self.head)[:, 0]
 
     def init_cache(self, batch: int, length: int,

@@ -12,8 +12,12 @@ rows' logsumexp and the backward kernel behind a
 ``torch.autograd.Function`` (``attention_train_ref``: the same with the
 plain forward and backward).
 
-``cross_attention`` comes with its slice; the sharding hooks are the
-identity on one card and are dropped.
+``cross_attention`` is the encoder-decoder's: T decoder positions over
+S precomputed encoder keys and values, non-causal, through the same
+flash-attention kernel (its ``causal=False`` instances); its decode-step
+form ``cross_decode`` goes through the flash-decode kernel with every
+slot live. The sharding hooks are the identity on one card and are
+dropped.
 """
 from __future__ import annotations
 
@@ -31,8 +35,9 @@ from repro_torch.models.layers.init import normal_param, zeros_param
 from repro_torch.models.layers.rope import apply_rope
 
 __all__ = ["NEG_INF", "Attention", "attention_output", "attention_train_ref",
-           "decode_attention", "flash_attention", "flash_attention_train",
-           "flash_decode", "init_attention", "project_qkv"]
+           "cross_attention", "cross_decode", "cross_kv", "decode_attention",
+           "flash_attention", "flash_attention_train", "flash_decode",
+           "init_attention", "project_qkv"]
 
 
 class Attention(nn.Module):
@@ -91,3 +96,44 @@ def attention_output(p: Attention, attn: torch.Tensor) -> torch.Tensor:
     nq, hd, d = p.wo.shape
     B, T = attn.shape[:2]
     return attn.reshape(B, T, nq * hd) @ p.wo.reshape(nq * hd, d)
+
+
+def _project_q(p: Attention, x: torch.Tensor) -> torch.Tensor:
+    """x (B, T, d) -> q (B, T, nq, hd), with its bias and no RoPE."""
+    q = _project(x, p.wq)
+    if p.bq is not None:
+        q = q + p.bq
+    return q.contiguous()
+
+
+def cross_kv(p: Attention, enc_out: torch.Tensor):
+    """The cross-attention keys and values of the encoder output (B, S,
+    d) -> (B, S, nkv, hd) each: ``wk`` / ``wv``, no bias, no RoPE
+    (``repro``'s ``_enc_kv``)."""
+    return (_project(enc_out, p.wk).contiguous(),
+            _project(enc_out, p.wv).contiguous())
+
+
+def cross_attention(p: Attention, x: torch.Tensor, enc_k: torch.Tensor,
+                    enc_v: torch.Tensor, attention=flash_attention
+                    ) -> torch.Tensor:
+    """Full (non-causal) cross-attention of the decoder stream x (B, T, d)
+    over precomputed encoder keys / values (B, S, nkv, hd), then ``wo``
+    -> (B, T, d): ``repro``'s ``cross_attention``. ``attention`` (q, k,
+    v, causal=False) -> out is the kernel's wrapper, or its plain
+    version. The reference upcasts q, k, v and keeps p in fp32; the
+    kernel rounds p as its route does (exact in fp32, hi + lo in bf16)."""
+    o = attention(_project_q(p, x), enc_k, enc_v, causal=False)
+    return attention_output(p, o)
+
+
+def cross_decode(p: Attention, x: torch.Tensor, enc_k: torch.Tensor,
+                 enc_v: torch.Tensor, last, attention=flash_decode
+                 ) -> torch.Tensor:
+    """``cross_attention`` of one decoder token x (B, 1, d) over the
+    cross caches (B, S, nkv, hd), through the decode kernel's wrapper
+    (q, k_cache, v_cache, pos) -> out at pos ``last`` = S - 1 (a device
+    tensor, so that a step never waits on the host), where every slot is
+    live. The decode kernel rounds p to the cache dtype before PV."""
+    o = attention(_project_q(p, x), enc_k, enc_v, last)
+    return attention_output(p, o)

@@ -6,6 +6,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.base import Model
 from repro_torch.models.decoder import Decoder
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.zamba import Zamba
 from repro_torch.utils.device import DeviceLike, resolve_device
 
@@ -14,12 +15,15 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None,
                 seed: int = 0) -> Model:
     """The family's model with random weights on ``device`` (the card
     unless the CPU is asked for), drawn from a generator on the device
-    seeded with ``seed``: the decoder for ``dense`` and ``moe``, or the
+    seeded with ``seed``: the decoder for ``dense``, ``moe`` and ``vlm``
+    (patches are an input), the encoder-decoder for ``audio``, or the
     Mamba2 hybrid for ``hybrid`` (and ``ssm`` with a Mamba2
     ``SSMConfig``, as ``repro`` routes it)."""
     dev = resolve_device(device)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         family = Decoder
+    elif cfg.family == "audio":
+        family = EncDec
     elif cfg.family in ("ssm", "hybrid") and cfg.ssm is not None \
             and cfg.xlstm is None:
         family = Zamba

@@ -1,12 +1,14 @@
 """The port's decoder against the JAX package's: its layers on the same
 seeded numpy data, and the Qwen2 / Gemma3 / Qwen2.5 / Minitron /
-DeepSeek-MoE smoke models with JAX-initialised parameters carried across
-by ``convert`` — prefill logits and teacher-forced decode steps at
-tests/test_models.py's 2e-3.
+DeepSeek-MoE / LLaVA-NeXT smoke models with JAX-initialised parameters
+carried across by ``convert`` — prefill logits and teacher-forced decode
+steps at tests/test_models.py's 2e-3; LLaVA-NeXT's patch prefix through
+hidden states, prefill, the loss and its gradients.
 
 On the CPU the attention wrappers run their plain versions; an autouse
 fixture checks that no kernel launched.
 """
+import collections
 import dataclasses
 
 import jax
@@ -14,9 +16,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.func import functional_call
 
 from repro.configs import get_config as jget_config
 from repro.models import build_model as jbuild_model
+from repro.models import decoder as jdecoder
 from repro.models.base import lm_logits as jlm_logits
 from repro.models.layers.attention import AttnParams
 from repro.models.layers.attention import project_qkv as jproject_qkv
@@ -34,6 +38,7 @@ from repro_torch.models import build_model
 from repro_torch.models.base import lm_logits
 from repro_torch.models.cache import init_attn_cache
 from repro_torch.models.decoder import Decoder, layer_windows
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.layers.attention import Attention, project_qkv
 from repro_torch.models.layers.mlp import MLP, mlp
 from repro_torch.models.layers.norms import rms_norm
@@ -236,7 +241,8 @@ def test_num_params_matches_model_and_reference(arch):
 
 
 @pytest.mark.parametrize("arch", sorted(a for a, c in ARCHITECTURES.items()
-                                         if c.family in ("dense", "moe")))
+                                         if c.family in ("dense", "moe",
+                                                         "vlm")))
 def test_full_size_param_count_and_shapes(arch):
     """The full configs, built on the meta device (shapes, no memory):
     the parameter count equals the analytic one and the reference's; every
@@ -265,11 +271,18 @@ def test_configs_mirror_the_reference():
 
 
 def test_families_not_yet_ported_raise():
-    for family in ("vlm", "audio"):
-        cfg = dataclasses.replace(get_config("qwen2-0.5b-smoke"),
-                                  family=family)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            build_model(cfg, device="cpu")
+    """``vlm`` builds the decoder and ``audio`` the encoder-decoder since
+    their slice; xLSTM (``ssm`` with ``cfg.xlstm``) still raises, naming
+    ROADMAP's item 9."""
+    assert type(build_model(get_config("llava-next-34b-smoke"),
+                            device="cpu")) is Decoder
+    assert type(build_model(get_config("whisper-small-smoke"),
+                            device="cpu")) is EncDec
+    xlstm = jget_config("xlstm-350m-smoke")
+    cfg = dataclasses.replace(get_config("zamba2-1.2b-smoke"), family="ssm",
+                              xlstm=xlstm.xlstm)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        build_model(cfg, device="cpu")
     # the decoders train since the training slice, Zamba2 since its own;
     # an MoE block builds and trains since the MoE slice
     toks = torch.zeros((1, 8), dtype=torch.int64)
@@ -284,3 +297,75 @@ def test_families_not_yet_ported_raise():
     zamba = build_model(get_config("zamba2-1.2b-smoke"), device="cpu")
     loss, _ = zamba.loss({"tokens": toks, "labels": toks})
     assert torch.isfinite(loss)
+
+
+# -- the vision-language prefix (LLaVA-NeXT) ------------------------------------
+
+
+def _vlm_batch(cfg, B=2, T=16, seed=8):
+    """Seeded patches (B, n_patch_tokens, d) and tokens, as numpy."""
+    rng = np.random.default_rng(seed)
+    patches = rng.normal(size=(B, cfg.n_patch_tokens, cfg.d_model)
+                         ).astype(np.float32)
+    return patches, rng.integers(0, cfg.vocab, size=(B, T))
+
+
+def test_vlm_prefix_hidden_and_prefill_match_reference():
+    """The patches go before the embedded tokens with positions running
+    across both: hidden states and prefill logits against
+    ``decoder_hidden`` / ``decoder_prefill``; the prefix changes the
+    text's logits."""
+    arch = "llava-next-34b-smoke"
+    jcfg, _, params = _jax_model(arch)
+    cfg = get_config(arch)
+    model = convert.decoder_from_numpy(_np(params), cfg, device="cpu")
+    patches, toks = _vlm_batch(cfg)
+    jp, jt = jnp.asarray(patches), jnp.asarray(toks, jnp.int32)
+    tp, tt = torch.from_numpy(patches), torch.from_numpy(toks)
+    jh, _, offset = jdecoder.decoder_hidden(params, jcfg, jt, jp, remat=False)
+    h, _ = model.hidden(tt, patch_embeds=tp)
+    assert offset == cfg.n_patch_tokens == 8
+    assert tuple(h.shape) == (2, offset + toks.shape[1], cfg.d_model)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), **MODEL_TOL)
+    got = model.prefill({"tokens": tt, "patch_embeds": tp})
+    np.testing.assert_allclose(
+        got.numpy(),
+        np.asarray(jdecoder.decoder_prefill(
+            params, jcfg, {"tokens": jt, "patch_embeds": jp})), **MODEL_TOL)
+    assert not np.allclose(got.numpy(), model.prefill({"tokens": tt}).numpy(),
+                           **MODEL_TOL)
+    # patches in another float dtype are cast to the hidden dtype
+    h64, _ = model.hidden(tt, patch_embeds=tp.double())
+    assert h64.dtype == torch.float32 and torch.equal(h64, h)
+
+
+def test_vlm_loss_and_grads_match_reference():
+    """The loss drops the patch positions before the CE: its value and
+    every gradient leaf against ``jax.value_and_grad(decoder_loss)``
+    (tests/test_torch_moe.py's limits; the untied head included)."""
+    arch = "llava-next-34b-smoke"
+    jcfg, jmodel, params = _jax_model(arch)
+    cfg = get_config(arch)
+    patches, toks = _vlm_batch(cfg, seed=9)
+    jb = {"tokens": jnp.asarray(toks, jnp.int32),
+          "labels": jnp.asarray(toks, jnp.int32),
+          "patch_embeds": jnp.asarray(patches)}
+    (jloss, _), jgrads = jax.value_and_grad(jmodel.loss, has_aux=True)(
+        params, jb)
+    model = build_model(cfg, device="cpu")
+    leaves = collections.OrderedDict(
+        (k, v.requires_grad_()) for k, v in
+        convert.decoder_state_from_numpy(_np(params), cfg, "cpu").items())
+    tb = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(toks),
+          "patch_embeds": torch.from_numpy(patches)}
+    loss, metrics = functional_call(model, leaves, (tb,))
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5,
+                               atol=1e-6)
+    assert metrics["ce"] is loss
+    want = convert.decoder_state_from_numpy(_np(jgrads), cfg, "cpu")
+    assert list(want) == list(leaves) and "head" in want
+    for g, w in zip(grads, want.values()):
+        scale = float(w.abs().max())
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=max(1e-6, 1e-5 * scale))

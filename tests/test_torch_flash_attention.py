@@ -103,6 +103,64 @@ def test_flash_matches_model_blockwise():
     np.testing.assert_allclose(got.numpy(), want, **FP32)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,S,nq,nkv,window", [
+    (32, 64, 4, 4, 0),     # fewer queries than keys (cross attention)
+    (32, 50, 6, 2, 0),     # ragged S: one 50-key tile in Pallas
+    (64, 64, 4, 1, 16),    # window: later keys all live, earlier 15
+])
+def test_non_causal_matches_pallas(T, S, nq, nkv, window, dtype):
+    """``causal=False``: the encoder's and the cross attention's route,
+    against the Pallas kernel with ``causal=False`` in interpret mode and
+    its naive oracle; fp32 at tests/test_kernels.py's 2e-4, bf16 at its
+    5e-2."""
+    q, k, v = _qkv(T + 3 * S + window, 2, T, nq, nkv, 32, S=S)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    want = np.asarray(jflash(jq, jk, jv, causal=False, window=window,
+                             block_q=64, block_k=64), np.float32)
+    oracle = np.asarray(jref(jq, jk, jv, causal=False, window=window),
+                        np.float32)
+    tq, tk, tv = _torch(q, k, v, dtype=getattr(torch, dtype))
+    got = kernel.flash_attention(tq, tk, tv, causal=False, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    tol = FP32 if dtype == "float32" else HALF
+    np.testing.assert_allclose(got.float().numpy(), want, **tol)
+    np.testing.assert_allclose(got.float().numpy(), oracle, **tol)
+
+
+@pytest.mark.parametrize("T,S,window", [(100, 33, 0), (70, 90, 24)])
+def test_non_causal_ragged_and_lse(T, S, window):
+    """Ragged T and S the Pallas kernel cannot tile, against the naive
+    oracle; the lse output of the non-causal route against the plain
+    forward's, and the causal one differs."""
+    q, k, v = _qkv(T * 5 + S + window, 2, T, 6, 3, 64, S=S)
+    want = np.asarray(jref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           causal=False, window=window))
+    tq, tk, tv = _torch(q, k, v)
+    got, lse = kernel.flash_attention(tq, tk, tv, causal=False,
+                                      window=window, return_lse=True)
+    np.testing.assert_allclose(got.numpy(), want, **FP32)
+    out_ref, lse_ref = ref.attention_lse_ref(tq, tk, tv, causal=False,
+                                             window=window)
+    np.testing.assert_allclose(lse.numpy(), lse_ref.numpy(), **FP32)
+    np.testing.assert_allclose(out_ref.numpy(), want, **FP32)
+    causal = kernel.flash_attention(tq, tk, tv, window=window)
+    assert not np.allclose(causal.numpy(), want, **FP32)
+
+
+def test_non_causal_mask_is_one_sided():
+    """``attention_mask`` follows the Pallas mask: without ``causal``
+    every key is live but for the window's lower edge."""
+    m = ref.attention_mask(4, 6, 2, causal=False)
+    want = np.array([[1, 1, 1, 1, 1, 1], [1, 1, 1, 1, 1, 1],
+                     [0, 1, 1, 1, 1, 1], [0, 0, 1, 1, 1, 1]], bool)
+    np.testing.assert_array_equal(m.numpy(), want)
+    np.testing.assert_array_equal(ref.attention_mask(3, 3, 0).numpy(),
+                                  np.tril(np.ones((3, 3), bool)))
+    assert ref.attention_mask(3, 5, 0, causal=False).all()
+
+
 def test_flash_attention_rejects_what_the_kernel_does_not_take():
     q, k, v = _torch(*_qkv(1, 1, 8, 4, 2, 32))
     with pytest.raises(ValueError, match="head dim"):

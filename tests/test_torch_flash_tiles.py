@@ -9,7 +9,9 @@ dot, a tile-wise online softmax in exp2, P rounded to fp16 before PV,
 or for bf16 split into hi + lo bf16 terms (one bf16 rounding breaks the
 half tolerance: ``test_one_bf16_rounding_of_p_breaks_the_tolerance``),
 and the causal / window mask applied only on tiles a warp's rows cross
-at the diagonal, the window's edge or S. The fp32 route
+at the diagonal (causal instances only), the window's edge or S; a
+non-causal instance visits every key tile from the window's near edge
+to S. The fp32 route
 scales q first, masks every tile and keeps P in fp32, on 64- or 32-row
 query tiles (``kernel.fp32_query_tile``). The CUDA kernels themselves
 are held against the plain version on the card by chip_smoke.py.
@@ -31,11 +33,12 @@ LOG2E = 1.4426950408889634
 JDT = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
 
 
-def tile_model(q, k, v, window=0, *, block_q=64, tensor_cores=True,
-               split_p=None):
+def tile_model(q, k, v, window=0, *, causal=True, block_q=64,
+               tensor_cores=True, split_p=None):
     """The kernel's arithmetic, tile by tile: q (B, T, nq, hd), k / v
-    (B, S, nkv, hd) -> (B, T, nq, hd) in q's dtype. ``split_p`` (the
-    kernel's choice when None: bf16 only) feeds P to PV as hi + lo."""
+    (B, S, nkv, hd) -> (B, T, nq, hd) in q's dtype. ``causal`` picks the
+    kernel's instance; ``split_p`` (the kernel's choice when None: bf16
+    only) feeds P to PV as hi + lo."""
     if split_p is None:
         split_p = q.dtype == torch.bfloat16
     B, T, nq, hd = q.shape
@@ -62,7 +65,7 @@ def tile_model(q, k, v, window=0, *, block_q=64, tensor_cores=True,
     for qt in range(Tp // block_q):
         q0 = qt * block_q
         q_last = min(q0 + block_q, T) - 1
-        kt_hi = min(Sp // bk, q_last // bk + 1)
+        kt_hi = min(Sp // bk, q_last // bk + 1) if causal else Sp // bk
         kt_lo = max(0, q0 - window + 1) // bk if window > 0 else 0
         rows = torch.arange(q0, q0 + block_q)
         r0 = q0 + 16 * ((rows - q0) // 16)         # each warp's first row
@@ -73,12 +76,16 @@ def tile_model(q, k, v, window=0, *, block_q=64, tensor_cores=True,
             k0 = kt * bk
             keys = torch.arange(k0, k0 + bk)
             s = scores[:, :, q0:q0 + block_q, k0:k0 + bk]
-            live = (keys[None] < S) & (keys[None] <= rows[:, None])
+            live = (keys[None] < S).expand(block_q, bk).clone()
+            if causal:
+                live = live & (keys[None] <= rows[:, None])
             if window > 0:
                 live &= rows[:, None] - keys[None] < window
             masked = ~live
             if tensor_cores:
-                edge = (k0 + bk - 1 > r0) | (k0 + bk > S)
+                edge = torch.full(r0.shape, k0 + bk > S)
+                if causal:
+                    edge |= k0 + bk - 1 > r0
                 if window > 0:
                     edge |= r0 + 15 - k0 >= window
                 masked &= edge[:, None]
@@ -118,11 +125,12 @@ def masked_first_rows(T, window, hd, block_q=64):
     return n
 
 
-def _qkv(seed, B, T, nq, nkv, hd):
+def _qkv(seed, B, T, nq, nkv, hd, S=None):
     rng = np.random.default_rng(seed)
+    S = T if S is None else S
     return (rng.normal(size=(B, T, nq, hd)).astype(np.float32),
-            rng.normal(size=(B, T, nkv, hd)).astype(np.float32),
-            rng.normal(size=(B, T, nkv, hd)).astype(np.float32))
+            rng.normal(size=(B, S, nkv, hd)).astype(np.float32),
+            rng.normal(size=(B, S, nkv, hd)).astype(np.float32))
 
 
 def _both(arrays, dtype):
@@ -269,3 +277,28 @@ def test_fp32_query_tile_keeps_each_row(T, nq, nkv, hd, window):
     want = jref(*(jnp.asarray(x.numpy()) for x in (q, k, v)), causal=True,
                 window=window)
     _close(a, want, FP32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("T,S,nq,nkv,hd,window", [
+    (100, 150, 4, 4, 64, 0),    # Whisper's cross attention, ragged
+    (130, 70, 4, 2, 128, 0),    # more queries than keys
+    (150, 150, 4, 1, 256, 40),  # window: later keys all live
+])
+def test_non_causal_instances(dtype, T, S, nq, nkv, hd, window):
+    """The non-causal instances of both routes, tile by tile, against
+    the plain version with ``causal=False``: every key tile to S (the S
+    edge and the window's edge masked only), the fp32 route's 64- and
+    32-row query tiles bit-equal."""
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in
+               _qkv(T + S + hd, 1, T, nq, nkv, hd, S=S))
+    want = ref.attention_ref(q, k, v, causal=False, window=window)
+    if dtype == torch.float32:
+        got = tile_model(q, k, v, window, causal=False, tensor_cores=False)
+        b = tile_model(q, k, v, window, causal=False, block_q=32,
+                       tensor_cores=False)
+        assert torch.equal(got, b)
+        _close(got, want, FP32)
+    else:
+        _close(tile_model(q, k, v, window, causal=False), want, HALF)

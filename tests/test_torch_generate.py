@@ -160,11 +160,15 @@ def test_sampling_is_seeded():
     assert torch.equal(runs[0][:, :4], prompt)
 
 
-def test_cli_on_the_cpu():
+@pytest.mark.parametrize("arch", ["qwen2-0.5b-smoke", "whisper-small-smoke"])
+def test_cli_on_the_cpu(arch):
+    """The CLI fuses 2 clients, prefills and decodes; the encoder-decoder
+    over seeded frames whose encoder output fills its cross caches, so
+    its prefill agrees with the teacher-forced logits too."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.generate", "--arch",
-         "qwen2-0.5b-smoke", "--device", "cpu", "--clients", "2",
+         arch, "--device", "cpu", "--clients", "2",
          "--batch", "2", "--prompt-len", "6", "--new-tokens", "4",
          "--seed", "3"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=240)

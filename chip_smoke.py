@@ -91,7 +91,10 @@ instances (exactly the set ``kernel.bwd_instances`` names; no spill
 allowed) and the tensor-core products (HMMA) of each dK / dV and dQ
 instance (none may lack them; the fp32 ones must be TF32,
 HMMA.1688.F32.TF32), and phase 1 holds ``flash_attention_bwd`` against
-``attention_bwd_ref`` at the training shapes and at edge shapes that
+``attention_bwd_ref`` at the training shapes, causal (the decoders) and
+not (Whisper-small's encoder layer and cross attention, 448 positions
+over 1536 frames, in bf16 and fp32; T > S, one-sided windows, GQA, every
+dtype), and at edge shapes that
 launch every fp32 instance (hd 32 to 256; two calls bitwise equal; the
 device kernels of a call and their times at the four large shapes;
 fp32 cases give the bound at the CUDA cores' FMA rate and at a third of
@@ -114,7 +117,12 @@ against every plain version, the bf16 weights in fp32 at (e)'s limits
 cosine limit on the whole gradient (each leaf's cosines printed beside
 the plain and kernel gradients' against the fp32 step), each timed and
 profiled, then a FedAvg round of 2 clients x 1 step at 2 x 512 against
-float64 Eq. 1.
+float64 Eq. 1; (g) full-width, full-depth Whisper-small, one 4 x 448
+step over 4 x 1536 frames through the attention's forward and backward
+kernels (72 and 36 launches, 48 and 24 of them non-causal: encoder and
+cross attention) against ``attention_train_ref``, fp32 at (e)'s limits
+and bf16 at (a)'s, then a FedAvg round of 2 Whisper clients through
+``Client.train_round``, frames in their batches, against float64 Eq. 1.
 Phase 10, run after phase 8 on the same data, drives
 the distributed engine and the mesh service over NCCL at world size 1
 ((1, 1) and (1, 1, 1) meshes, every collective called): FedAvg, IterAvg
@@ -136,7 +144,9 @@ teacher-forced decoding and the plain attention (DeepSeek-MoE at the
 capacity factor E / top_k, where prefill drops no assignment, and at its
 own 1.25 against the plain prefill); a FedAvg of 2 clients against
 float64 Eq. 1 (Qwen2.5-3B at full depth, DeepSeek-MoE on 2 layers); and
-the generate CLI. Each step prints a line before it starts. Phase 12,
+the generate CLI; last, DBRX-132B (16 experts top 4, 263 GB in bf16)
+at full width on 8 of its 40 layers, fp32 on 2, no fusion, and the CLI
+at its -smoke size. Each step prints a line before it starts. Phase 12,
 run after phase 11, serves the encoder-decoder Whisper-small and the
 vision-language decoder LLaVA-NeXT-34B the same way, one model at a
 time: Whisper at full width and depth in bf16, 4 x 1536 frames encoded
@@ -624,6 +634,13 @@ def _all_launches():
 def _reset_launches():
     for mod in _kernel_modules():
         mod.reset_launches()
+
+
+def _noncausal_launches():
+    """The attention kernels' launches of their non-causal instances."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+
+    return dict(fa.NONCAUSAL_LAUNCHES)
 
 
 def _launch_delta(before):
@@ -2412,7 +2429,15 @@ def _fusion_build():
 
 
 _BWD_ENTRY = re.compile(r"(bwd_[a-z_]+_kernel)I(f|13__nv_bfloat16|6__half)"
-                        r"(?:Li(\d+)E)?E")
+                        r"(?:Li(\d+)E)?(?:Lb([01])E)?E")
+
+
+def _bwd_label(name, dtype, hd, causal) -> str:
+    """"bwd_dq_mma_kernel bf16 hd 64 non-causal" for an instance."""
+    return " ".join(x for x in (
+        name, dtype, hd and f"hd {hd}",
+        None if causal is None else ("causal" if causal else "non-causal"))
+        if x)
 
 
 def _attention_bwd_build():
@@ -2428,15 +2453,16 @@ def _attention_bwd_build():
 
     names = {torch.float32: "fp32", torch.bfloat16: "bf16",
              torch.float16: "fp16"}
-    want = {" ".join(x for x in (name, names[dt], hd and f"hd {hd}") if x)
-            for name, dt, hd in fa.bwd_instances()}
+    want = {_bwd_label(name, names[dt], hd, causal)
+            for name, dt, hd, causal in fa.bwd_instances()}
     regs, spills, mangled = {}, {}, {}
     for fn, (r, st, ld) in _ptxas_entries("flash_attention").items():
         m = _BWD_ENTRY.search(fn)
         if not m:
             continue
-        label = " ".join(x for x in (m.group(1), _PTX_TYPES[m.group(2)],
-                                     m.group(3) and f"hd {m.group(3)}") if x)
+        label = _bwd_label(m.group(1), _PTX_TYPES[m.group(2)],
+                           m.group(3) and int(m.group(3)),
+                           None if m.group(4) is None else m.group(4) == "1")
         regs[label], mangled[fn] = r, label
         if st or ld:
             spills[label] = [st, ld]
@@ -2682,6 +2708,7 @@ def phase_attention_kernels(dev, hbm_bw):
         (4, 1024, 16, 16, 128, 0, fp32,
          "DeepSeek-MoE-16B prefill layer (MHA, hd 128)"),
         (4, 1024, 16, 2, 128, 0, bf16, "Qwen2.5-3B prefill layer (hd 128)"),
+        (4, 1024, 48, 8, 128, 0, bf16, "DBRX-132B prefill layer (hd 128)"),
         (4, 1024, 14, 2, 64, 0, fp32, "Qwen2-0.5B prefill layer"),
         (1, 1280, 4, 1, 256, 1024, fp32, "Gemma3-1B local layer (MQA)"),
         (1, 1280, 4, 1, 256, 1024, bf16, "Gemma3-1B local layer (MQA)"),
@@ -2851,7 +2878,7 @@ def phase_attention_bwd(dev, hbm_bw, mma_peak):
              torch.float16: "fp16"}
     bf16, fp32, fp16 = torch.bfloat16, torch.float32, torch.float16
     cases = {"flash_attention_bwd": []}
-    for B, T, nq, nkv, hd, win, dt, label in [
+    causal_cases = [
         (4, 512, 14, 2, 64, 0, bf16, "Qwen2-0.5B training layer"),
         (4, 512, 14, 2, 64, 0, fp32, "Qwen2-0.5B training layer"),
         (4, 1024, 14, 2, 64, 0, bf16, "Qwen2-0.5B prefill shape"),
@@ -2865,22 +2892,57 @@ def phase_attention_bwd(dev, hbm_bw, mma_peak):
         (1, 77, 6, 3, 64, 1, fp32, "window 1"),
         (2, 64, 4, 1, 32, 0, fp32, "train CLI reduced shape, hd 32"),
         (2, 300, 8, 2, 128, 1, fp32, "window 1, hd 128"),
-    ]:
+        (4, 448, 12, 12, 64, 0, bf16,
+         "Whisper-small decoder self-attention"),
+    ]
+    # (B, T, S, nq, nkv, hd, window, dtype, what): the non-causal route,
+    # Whisper-small's training shapes and the edges (T > S, one-sided
+    # windows, GQA, hd 32 to 256, every dtype)
+    noncausal_cases = [
+        (4, 1536, 1536, 12, 12, 64, 0, bf16,
+         "Whisper-small encoder layer (non-causal)"),
+        (4, 1536, 1536, 12, 12, 64, 0, fp32,
+         "Whisper-small encoder layer (non-causal)"),
+        (4, 448, 1536, 12, 12, 64, 0, bf16,
+         "Whisper-small cross attention (448 over 1536 frames)"),
+        (4, 448, 1536, 12, 12, 64, 0, fp32,
+         "Whisper-small cross attention (448 over 1536 frames)"),
+        (2, 256, 256, 8, 2, 64, 0, fp16, "non-causal T == S, GQA, fp16"),
+        (2, 700, 333, 8, 2, 64, 0, bf16, "non-causal T > S, GQA"),
+        (2, 700, 333, 4, 4, 32, 0, fp32, "non-causal T > S, hd 32"),
+        (2, 400, 100, 8, 2, 128, 0, fp16, "non-causal T > S, hd 128, fp16"),
+        (2, 300, 777, 8, 2, 64, 50, fp16,
+         "non-causal T < S, window 50, fp16"),
+        (2, 500, 500, 8, 8, 128, 100, bf16, "non-causal window 100, hd 128"),
+        (1, 300, 600, 4, 1, 256, 64, fp32,
+         "non-causal T < S, MQA hd 256, window 64"),
+    ]
+    for B, T, S, nq, nkv, hd, win, causal, dt, label in (
+            [(B, T, T, nq, nkv, hd, w, True, dt, what)
+             for B, T, nq, nkv, hd, w, dt, what in causal_cases]
+            + [(B, T, S, nq, nkv, hd, w, False, dt, what)
+               for B, T, S, nq, nkv, hd, w, dt, what in noncausal_cases]):
         q, dout = (torch.randn((B, T, nq, hd), generator=g, device=dev).to(dt)
                    for _ in range(2))
-        k, v = (torch.randn((B, T, nkv, hd), generator=g, device=dev).to(dt)
+        k, v = (torch.randn((B, S, nkv, hd), generator=g, device=dev).to(dt)
                 for _ in range(2))
         key = "fp32" if dt == fp32 else "half"
         # fp32 inputs as they are, half ones upcast: the plain versions
         qr, kr, vr, dr = ((q, k, v, dout) if dt == fp32 else
                           (x.float() for x in (q, k, v, dout)))
-        out, lse = fa.flash_attention(q, k, v, window=win, return_lse=True)
-        out_p, lse_p = faref.attention_lse_ref(qr, kr, vr, window=win)
+        kw = {"causal": causal, "window": win}
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        out_p, lse_p = faref.attention_lse_ref(qr, kr, vr, **kw)
         shares = {}
         for name, a, b in (("out", out, out_p), ("lse", lse, lse_p)):
             shares[name] = _limit_share(a, b, *LSE_TOL[key][name])
-        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, window=win)
-        again = fa.flash_attention_bwd(q, k, v, out, lse, dout, window=win)
+        before = dict(fa.NONCAUSAL_LAUNCHES)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        if fa.NONCAUSAL_LAUNCHES["flash_attention_bwd"] \
+                - before["flash_attention_bwd"] != (0 if causal else 2):
+            raise AssertionError(f"flash_attention_bwd {label}: the "
+                                 "non-causal launches were not counted")
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"flash_attention_bwd {label}: two calls "
@@ -2889,7 +2951,7 @@ def phase_attention_bwd(dev, hbm_bw, mma_peak):
         err, err_p = 0.0, 0.0
         for chain, (o, l) in (("", (out, lse)), ("plain ", (out_p, lse_p))):
             want = faref.attention_bwd_ref(qr, kr, vr, o.to(qr.dtype), l, dr,
-                                           window=win)
+                                           **kw)
             for name, a, b in zip(("dq", "dk", "dv"), got, want):
                 shares[chain + name] = _limit_share(a, b, rtol, atol)
                 e = (a.float() - b.float()).abs().max().item()
@@ -2905,16 +2967,19 @@ def phase_attention_bwd(dev, hbm_bw, mma_peak):
                 f"{bad} above 1 (out / lse: LSE_TOL; dq, dk, dv against the "
                 f"kernel's and the plain forward's out and lse: BWD_TOL)")
         del got, again, out_p, lse_p, qr, kr, vr, dr
-        live = _live_scores(T, T, win)
+        live = _live_scores(T, S, win, causal)
         nbytes = (4 * (q.numel() + k.numel()) * q.element_size()
                   + 4 * lse.numel())
         flops = 10.0 * B * nq * hd * live
         bound_ms, bound_by = _bound(nbytes, flops, hbm_bw,
                                     FP32_FLOPS if dt == fp32 else HALF_FLOPS)
-        mask = faref.attention_mask(T, T, win, device=dev) if win else None
-        library = _sdpa_bwd(q, k, v, dout, mask=mask, causal=not win)
+        mask = (faref.attention_mask(T, S, win, causal, device=dev) if win
+                else None)
+        library = _sdpa_bwd(q, k, v, dout, mask=mask,
+                            causal=causal and not win)
         cases["flash_attention_bwd"].append({
-            "shape": [B, T, nq, nkv, hd], "window": win,
+            "shape": [B, T, nq, nkv, hd] if S == T else [B, T, S, nq, nkv, hd],
+            "window": win, "causal": causal,
             "dtype": names[dt], "what": label,
             "route": (f"{fa.bwd_route(dt)}, 4 kernels (delta, dK/dV, dQ, "
                       "group sum)"),
@@ -2927,9 +2992,9 @@ def phase_attention_bwd(dev, hbm_bw, mma_peak):
                         "attention_bwd_ref in fp32 on upcast inputs"),
             "bitwise_repeat": True, "live_scores": live,
             "ms": _ms_median(lambda: fa.flash_attention_bwd(
-                q, k, v, out, lse, dout, window=win)),
+                q, k, v, out, lse, dout, **kw)),
             "plain_ms": _ms_median(lambda: faref.attention_bwd_ref(
-                q, k, v, out, lse, dout, window=win), reps=5),
+                q, k, v, out, lse, dout, **kw), reps=5),
             "library_ms": _ms_median(library),
             "library": "scaled_dot_product_attention(enable_gqa) backward",
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2943,7 +3008,7 @@ def phase_attention_bwd(dev, hbm_bw, mma_peak):
                 _kernel_label(name):
                 [n, float(f"{ms:.4f}")] for name, (n, ms) in _device_kernels(
                     lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
-                                                   window=win),
+                                                   **kw),
                     3 + (nq != nkv), tag="bwd_").items()}
         print(f"[phase1] flash_attention_bwd "
               f"{json.dumps(cases['flash_attention_bwd'][-1])}", flush=True)
@@ -2998,6 +3063,8 @@ def phase_decode_kernel(dev, hbm_bw):
          "Qwen2.5-3B decode step (hd 128), pos 80"),
         (4, 2048, 16, 16, 128, 80, bf16,
          "DeepSeek-MoE-16B decode step (MHA, hd 128), pos 80"),
+        (4, 2048, 48, 8, 128, 80, bf16,
+         "DBRX-132B decode step (hd 128), pos 80"),
         (4, 2048, 14, 2, 64, 5, bf16, "Qwen2-0.5B decode step, pos 5"),
         (4, 2048, 14, 2, 64, 80, bf16, "Qwen2-0.5B decode step, pos 80"),
         (4, 2048, 14, 2, 64, 0, bf16,
@@ -3857,8 +3924,15 @@ def phase_hybrid_serving(dev, cases):
 # dtype, and the fp32 sum and result: about 11x the bf16 model, 68 GB for
 # Qwen2.5-3B; Minitron-8B's 19.8 GB and DeepSeek-MoE-16B's 33.8 GB fuse
 # only on a cut, and their CLI runs serve the seeded model unfused.
+# DBRX-132B (264 GB in bf16) is served at full width on a cut of
+# SERVE_LAYERS of its 40 layers (6.52 GB a layer, 54.6 GB with the
+# untied embedding and head), and fuses nowhere: one layer's experts are
+# 6.3 GB, and the in-memory fusion peaked at 15x a cut (DeepSeek-MoE's).
+# Its CLI runs the -smoke form (CLI_ARCH), the full model not fitting.
 MORE_DECODERS = [("qwen2.5-3b", 4, None, 2), ("minitron-8b", 4, 0, 0),
-                 ("deepseek-moe-16b", 4, 2, 0)]
+                 ("deepseek-moe-16b", 4, 2, 0), ("dbrx-132b", 2, 0, 0)]
+SERVE_LAYERS = {"dbrx-132b": 8}
+CLI_ARCH = {"dbrx-132b": "dbrx-132b-smoke"}
 
 
 def _gb(nbytes: float) -> float:
@@ -4010,7 +4084,10 @@ def phase_more_decoders(dev, cases):
     against float64 Eq. 1, Qwen2.5-3B at full depth, DeepSeek-MoE on a
     2-layer cut (its expert stacks through the weighted sum); then the
     generate CLI at full size (Qwen2.5-3B fusing 2 clients, the others
-    with ``--clients 0``)."""
+    with ``--clients 0``). Last, the MoE decoder DBRX-132B (16 experts top
+    4, no shared experts, GQA 48 / 8): (a) at full width on an 8-layer
+    cut, (b) fp32 on a 2-layer cut, no fusion, and the CLI at its -smoke
+    size."""
     import dataclasses
 
     import numpy as np
@@ -4026,6 +4103,12 @@ def phase_more_decoders(dev, cases):
     for arch, cut, fuse_layers, cli_clients in MORE_DECODERS:
         t_model = time.perf_counter()
         cfg = get_config(arch)
+        if arch in SERVE_LAYERS:
+            print(f"[phase11] {arch}: full width on a cut of "
+                  f"{SERVE_LAYERS[arch]} of its {cfg.n_layers} layers "
+                  f"({_gb(cfg.num_params() * 2):.1f} GB in bf16 at full "
+                  "depth)", flush=True)
+            cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS[arch])
         model = _serve_bf16(dev, cfg, cases, rng, out)
         if fuse_layers is None:
             _fuse_two(dev, model, rng, f"{arch} bf16", out, arch)
@@ -4074,37 +4157,25 @@ def phase_more_decoders(dev, cases):
         torch.cuda.empty_cache()
 
         # the CLI, as a user runs it
-        print(f"[phase11] {arch}: CLI generate", flush=True)
+        cli_arch = CLI_ARCH.get(arch, arch)
+        print(f"[phase11] {cli_arch}: CLI generate", flush=True)
         before = _all_launches()
         t0 = time.perf_counter()
-        gen.main(["--arch", arch, "--clients", str(cli_clients),
+        gen.main(["--arch", cli_arch, "--clients", str(cli_clients),
                   "--batch", "2", "--prompt-len", "16", "--new-tokens", "8",
                   "--seed", str(SEED)])
         delta = _launch_delta(before)
         torch.cuda.empty_cache()
-        print(f"[phase11] CLI generate {arch} --clients {cli_clients}: "
+        print(f"[phase11] CLI generate {cli_arch} --clients {cli_clients}: "
               f"wall={time.perf_counter() - t0:.3f}s launches={delta}",
               flush=True)
-        _serving_launches(delta, f"CLI generate {arch}", cfg, 1, 16 + 8 - 1,
+        _serving_launches(delta, f"CLI generate {cli_arch}",
+                          get_config(cli_arch), 1, 16 + 8 - 1,
                           fusions=int(cli_clients > 0))
         out[f"{arch}_seconds"] = time.perf_counter() - t_model
         print(f"[phase11] {arch}: done in {out[arch + '_seconds']:.3f} s",
               flush=True)
     return out
-
-
-class _CountingAttention:
-    """Prefill attention that counts its calls by ``causal`` and passes
-    each to the kernel's wrapper (which counts the launch)."""
-
-    def __init__(self):
-        self.calls = {True: 0, False: 0}
-
-    def __call__(self, q, k, v, *, causal=True, window=0):
-        from repro_torch.kernels.flash_attention.kernel import flash_attention
-
-        self.calls[causal] += 1
-        return flash_attention(q, k, v, causal=causal, window=window)
 
 
 def _phase12_whisper(dev, cases, rng, out):
@@ -4170,21 +4241,20 @@ def _phase12_whisper(dev, cases, rng, out):
           f"{enqueue_ms:.3f} ms; first call {first_ms:.3f} ms); "
           f"flash_attention 36 calls {kernel_ms:.4f} ms = "
           f"{out[arch + '_prefill_kernel_share']:.1%}", flush=True)
-    counting = _CountingAttention()
-    before = _all_launches()
-    model.prefill({"tokens": prompt, "audio_frames": frames},
-                  attention=counting)
+    before, nc_before = _all_launches(), _noncausal_launches()
+    model.prefill({"tokens": prompt, "audio_frames": frames})
     torch.cuda.synchronize()
-    _serving_launches(_launch_delta(before), f"{arch} counted prefill", cfg,
-                      1, 0)
-    if counting.calls != {True: cfg.n_layers,
-                          False: cfg.n_encoder_layers + cfg.n_layers}:
-        raise AssertionError(f"{arch} prefill attention calls by causal: "
-                             f"{counting.calls}")
-    out[f"{arch}_noncausal_launches_per_prefill"] = counting.calls[False]
-    print(f"[{P}] {arch} prefill: flash_attention launches "
-          f"{counting.calls[False]} non-causal (encoder + cross) and "
-          f"{counting.calls[True]} causal", flush=True)
+    delta = _launch_delta(before)
+    _serving_launches(delta, f"{arch} counted prefill", cfg, 1, 0)
+    nc = (_noncausal_launches()["flash_attention"]
+          - nc_before["flash_attention"])
+    if nc != cfg.n_encoder_layers + cfg.n_layers:
+        raise AssertionError(f"{arch} prefill: {nc} non-causal "
+                             "flash_attention launches")
+    out[f"{arch}_noncausal_launches_per_prefill"] = nc
+    print(f"[{P}] {arch} prefill: flash_attention launches {nc} "
+          f"non-causal (encoder + cross) and "
+          f"{delta['flash_attention'] - nc} causal", flush=True)
     before = _all_launches()
     wall, busy, _ = _profile(
         lambda: model.prefill({"tokens": prompt, "audio_frames": frames}),
@@ -4455,11 +4525,14 @@ def _step_grads(model, params, batch, **kw):
 
 
 def _train_step(model, params, batch, cfg, what, case, key, *, loss_rel,
-                cos_min, norm_rel, launches=None, plain=None, truth=None):
+                cos_min, norm_rel, launches=None, plain=None, truth=None,
+                noncausal=None):
     """One local SGD step of ``model`` (a ``Client`` with ``sgd(0.25)``) on
     ``batch``: its loss and gradients through the kernels (exactly
     ``launches``; by default the attention's, 2 forward launches a layer,
-    remat, and 1 backward) against the same through the plain versions
+    remat, and 1 backward; of them exactly ``noncausal`` through the
+    attention kernels' non-causal instances, 0 by default) against the
+    same through the plain versions
     (the keywords ``plain``; by default ``attention_train_ref``), within
     ``loss_rel`` (the loss), ``cos_min`` (every gradient leaf's cosine)
     and ``norm_rel`` (the global norm). With ``truth``, the plain step's
@@ -4486,14 +4559,19 @@ def _train_step(model, params, batch, cfg, what, case, key, *, loss_rel,
     out = {}
     dev = next(iter(params.values())).device
 
-    before = _all_launches()
+    if noncausal is None:
+        noncausal = {"flash_attention": 0, "flash_attention_bwd": 0}
+    before, nc_before = _all_launches(), _noncausal_launches()
     loss_k, g_k = _step_grads(model, params, batch)
     torch.cuda.synchronize()
     delta = _launch_delta(before)
+    nc = {k: v - nc_before[k] for k, v in _noncausal_launches().items()}
     if any(delta[k] != n for k, n in launches.items()) or any(
-            v for k, v in delta.items() if k not in launches):
+            v for k, v in delta.items() if k not in launches) \
+            or nc != noncausal:
         raise AssertionError(f"{case} a training step launched {delta}, "
-                             f"expected {launches}")
+                             f"{nc} of them non-causal; expected "
+                             f"{launches}, {noncausal}")
     loss_p, g_p = _step_grads(model, params, batch, **plain)
     rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     cos, nrel, whole = _leaf_cosines(g_k, g_p)
@@ -4519,7 +4597,7 @@ def _train_step(model, params, batch, cfg, what, case, key, *, loss_rel,
           f"gradient cosine min {cos[worst]:.6f} ({worst}), whole "
           f"{whole:.6f}; held: {held_what} {held:.6f} (limit {cos_min:g}); "
           f"global-norm rel diff {nrel:.2e} (limit {norm_rel:g}); launches "
-          f"{delta}", flush=True)
+          f"{delta}, non-causal {nc}", flush=True)
     if not (rel <= loss_rel and held >= cos_min and nrel <= norm_rel
             and math.isfinite(loss_k.item())):
         raise AssertionError(f"{case} kernels vs plain step: loss rel {rel}, "
@@ -4564,6 +4642,45 @@ def _train_step(model, params, batch, cfg, what, case, key, *, loss_rel,
     return out
 
 
+def _server_for(dev, model, gen, fusion, send_delta, start, n_clients=4,
+                batch=4, seq_len=128, loader=None):
+    """A ``FederatedServer`` of ``n_clients`` clients of ``model`` (1 local
+    SGD step each) from the tree ``start``, and the dict its spies fill:
+    the round's updates, weights, template, fused tree and the fp32
+    vector the round epilogue casts into the template's leaves."""
+    from repro_torch.core.service import AggregationService
+    from repro_torch.data import FederatedLoader
+    from repro_torch.fl import Client, FederatedServer
+    from repro_torch.optim import sgd
+
+    svc = AggregationService(fusion=fusion, device=dev)
+    if loader is None:
+        loader = FederatedLoader(gen=gen, n_clients=n_clients,
+                                 batch=batch, seq_len=seq_len)
+    clients = [Client(client_id=i, model=model, optimizer=sgd(0.25),
+                      send_delta=send_delta) for i in range(n_clients)]
+    server = FederatedServer(model=model, clients=clients, loader=loader,
+                             service=svc, rng_seed=SEED, params=start)
+    # the server's own call, template branch included, runs as it is;
+    # the spies only record its inputs and the fp32 vector that the
+    # round epilogue casts into the template's leaves
+    seen = {}
+    aggregate, finish = svc.aggregate, svc._finish
+
+    def aggregate_spy(updates=None, weights=None, **kw):
+        seen.update(updates=updates, weights=weights)
+        tree, report = aggregate(updates=updates, weights=weights, **kw)
+        seen.update(tree=tree, template=kw.get("template"))
+        return tree, report
+
+    def finish_spy(fused, *a, **kw):
+        seen["flat"] = fused
+        return finish(fused, *a, **kw)
+
+    svc.aggregate, svc._finish = aggregate_spy, finish_spy
+    return server, seen
+
+
 def phase_training(dev, attn_cases):
     """Federated training of full-width Qwen2-0.5B bf16 on the card: (a)
     one local step through the attention kernels against the same step
@@ -4575,7 +4692,11 @@ def phase_training(dev, attn_cases):
     fp32, 1 x 1280 tokens, through the fp32 attention backward; (f) a
     full-width Zamba2-1.2B 4 x 1024 step through the SSD scan's forward
     and backward kernels, its weights in fp32 at (e)'s limits and in bf16
-    at (a)'s, then a FedAvg round of 2 Zamba2 clients."""
+    at (a)'s, then a FedAvg round of 2 Zamba2 clients; (g) a full-width,
+    full-depth Whisper-small 4 x 448 step over 4 x 1536 frames through
+    the attention kernels' causal and non-causal forward and backward, in
+    fp32 at (e)'s limits and bf16 at (a)'s, then a FedAvg round of 2
+    Whisper clients (``_whisper_training``)."""
     import collections
     import dataclasses
 
@@ -4584,15 +4705,12 @@ def phase_training(dev, attn_cases):
 
     from repro_torch.checkpoint import load_pytree, save_pytree
     from repro_torch.configs import get_config
-    from repro_torch.core.service import AggregationService
-    from repro_torch.data import FederatedLoader, SyntheticLM
-    from repro_torch.fl import Client, FederatedServer
+    from repro_torch.data import SyntheticLM
     from repro_torch.fl.client import batch_to_device
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssd_chunk.ops import ssd_scan_train_ref
     from repro_torch.models import build_model
     from repro_torch.models.layers.attention import attention_train_ref
-    from repro_torch.optim import sgd
     from repro_torch.utils.pytree import flat_vector_to_tree, tree_leaves
 
     out = {}
@@ -4621,33 +4739,8 @@ def phase_training(dev, attn_cases):
     # one step a client keeps the script's length); each round's fp32
     # fused vector against float64 Eq. 1 of the clients' updates before
     # the cast to the params' dtype
-    def server_for(model, gen, fusion, send_delta, start, n_clients=4,
-                   batch=4, seq_len=128):
-        svc = AggregationService(fusion=fusion, device=dev)
-        loader = FederatedLoader(gen=gen, n_clients=n_clients, batch=batch,
-                                 seq_len=seq_len)
-        clients = [Client(client_id=i, model=model, optimizer=sgd(0.25),
-                          send_delta=send_delta) for i in range(n_clients)]
-        server = FederatedServer(model=model, clients=clients, loader=loader,
-                                 service=svc, rng_seed=SEED, params=start)
-        # the server's own call, template branch included, runs as it is;
-        # the spies only record its inputs and the fp32 vector that the
-        # round epilogue casts into the template's leaves
-        seen = {}
-        aggregate, finish = svc.aggregate, svc._finish
-
-        def aggregate_spy(updates=None, weights=None, **kw):
-            seen.update(updates=updates, weights=weights)
-            tree, report = aggregate(updates=updates, weights=weights, **kw)
-            seen.update(tree=tree, template=kw.get("template"))
-            return tree, report
-
-        def finish_spy(fused, *a, **kw):
-            seen["flat"] = fused
-            return finish(fused, *a, **kw)
-
-        svc.aggregate, svc._finish = aggregate_spy, finish_spy
-        return server, seen
+    def server_for(*args, **kw):
+        return _server_for(dev, *args, **kw)
 
     rounds = []
     for fusion, send_delta in (("fedavg", False), ("gradavg", True)):
@@ -4819,6 +4912,138 @@ def phase_training(dev, attn_cases):
           f"fuse={res.report.fuse_seconds:.4f}s launches={delta}", flush=True)
     del server, seen, res, model, params
     torch.cuda.empty_cache()
+    out.update(_whisper_training(dev))
+    return out
+
+
+class _FramesLoader:
+    """A ``FederatedLoader`` whose client batches also hold seeded frame
+    embeddings (B, n_audio_frames, d) in bf16, made on the card: the
+    Whisper clients' data (the reference's loader draws no frames)."""
+
+    def __init__(self, loader, n_frames, d_model, dev):
+        self.loader, self.shape, self.dev = loader, (n_frames, d_model), dev
+
+    def client_weight(self, client_id):
+        return self.loader.client_weight(client_id)
+
+    def client_batch(self, client_id, round_idx):
+        import torch
+
+        batch = self.loader.client_batch(client_id, round_idx)
+        g = torch.Generator(device=self.dev).manual_seed(
+            SEED + 1000 * round_idx + client_id)
+        batch["audio_frames"] = torch.randn(
+            (batch["tokens"].shape[0], *self.shape), generator=g,
+            device=self.dev).to(torch.bfloat16)
+        return batch
+
+
+def _whisper_training(dev):
+    """(g) of phase 9: full-width, full-depth Whisper-small (12 encoder +
+    12 decoder layers): one 4 x 448 local step over 4 x 1536 frames
+    through the attention kernels, causal and not (encoder, decoder self
+    and cross attention, each forward twice under remat, each backward
+    once), against the same step through ``attention_train_ref``: the
+    bf16 weights in fp32 at (e)'s limits, then in bf16 at (a)'s; then a
+    FedAvg round of 2 Whisper clients x 1 step through
+    ``Client.train_round`` (frames in their batches) against float64
+    Eq. 1."""
+    import collections
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import FederatedLoader, SyntheticLM
+    from repro_torch.fl.client import batch_to_device
+    from repro_torch.models import build_model
+    from repro_torch.models.layers.attention import attention_train_ref
+
+    out = {}
+    cfg = get_config("whisper-small")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=SEED)
+    params = model.state_dict()
+    rng = np.random.default_rng(SEED + 9)
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    tokens = rng.integers(0, cfg.vocab, size=(4, 448))
+    frames = torch.randn((4, cfg.n_audio_frames, cfg.d_model), generator=g,
+                         device=dev).to(torch.bfloat16)
+    batch = batch_to_device({"audio_frames": frames, "tokens": tokens,
+                             "labels": tokens}, dev)
+    if batch["audio_frames"].dtype != torch.bfloat16 \
+            or not torch.equal(batch["audio_frames"], frames):
+        raise AssertionError("(g) batch_to_device changed the frames")
+    calls = cfg.n_encoder_layers + 2 * cfg.n_layers       # 36 a pass
+    nc_calls = cfg.n_encoder_layers + cfg.n_layers        # 24 of them
+    launches = {"flash_attention": 2 * calls, "flash_attention_bwd": calls}
+    noncausal = {"flash_attention": 2 * nc_calls,
+                 "flash_attention_bwd": nc_calls}
+    plain = {"attention": attention_train_ref}
+    torch.cuda.synchronize()
+    print(f"[phase9] (g) whisper-small bf16 {cfg.num_params()} params, "
+          f"{cfg.n_encoder_layers} + {cfg.n_layers} layers, a 4 x 448 batch "
+          f"over 4 x {cfg.n_audio_frames} frames, made in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    fcfg = dataclasses.replace(cfg, dtype="float32")
+    fmodel = build_model(fcfg, device=dev, seed=SEED)
+    fparams = collections.OrderedDict(   # the state_dict's type and order
+        (k, v.float()) for k, v in params.items())
+    out.update(_train_step(
+        fmodel, fparams, batch, fcfg,
+        "whisper-small fp32 (the bf16 weights) local step 4x448 over 4x1536 "
+        "frames", "(g)", "whisper_fp32_step", loss_rel=1e-4, cos_min=0.9999,
+        norm_rel=1e-3, launches=launches, plain=plain, noncausal=noncausal))
+    _, truth = _step_grads(fmodel, fparams, batch, **plain)
+    del fmodel, fparams
+    torch.cuda.empty_cache()
+    out.update(_train_step(
+        model, params, batch, cfg,
+        "whisper-small bf16 local step 4x448 over 4x1536 frames", "(g)",
+        "whisper_step", loss_rel=1e-2, cos_min=0.99, norm_rel=5e-2,
+        launches=launches, plain=plain, truth=truth, noncausal=noncausal))
+    del truth, batch
+    torch.cuda.empty_cache()
+
+    gen = SyntheticLM(vocab=cfg.vocab, seed=SEED)
+    loader = _FramesLoader(FederatedLoader(gen=gen, n_clients=2, batch=2,
+                                           seq_len=448),
+                           cfg.n_audio_frames, cfg.d_model, dev)
+    server, seen = _server_for(dev, model, gen, "fedavg", False, params,
+                               n_clients=2, loader=loader)
+    before, nc_before = _all_launches(), _noncausal_launches()
+    t0 = time.perf_counter()
+    res = server.run_round(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = {k: v for k, v in _launch_delta(before).items() if v}
+    nc = {k: v - nc_before[k] for k, v in _noncausal_launches().items()}
+    want = {"weighted_sum": 1, "flash_attention": 2 * launches[
+        "flash_attention"], "flash_attention_bwd": 2 * calls}
+    want_nc = {k: 2 * v for k, v in noncausal.items()}
+    if not math.isfinite(res.mean_client_loss) or delta != want \
+            or nc != want_nc:
+        raise AssertionError(f"(g) whisper fedavg round: loss "
+                             f"{res.mean_client_loss}, launches {delta} "
+                             f"({nc} non-causal), expected {want} "
+                             f"({want_nc})")
+    err = _fused_vs_eq1(seen["flat"], seen["updates"],
+                        np.asarray(seen["weights"], np.float32),
+                        seen["template"], "(g) whisper fedavg fused params",
+                        "phase9")
+    out["whisper_round"] = {"wall_s": wall, "loss": res.mean_client_loss,
+                            "fuse_s": res.report.fuse_seconds,
+                            "launches": delta, "noncausal_launches": nc,
+                            "max_abs_err": err}
+    print(f"[phase9] (g) whisper fedavg round, 2 clients x 1 step at 2 x 448 "
+          f"over 2 x {cfg.n_audio_frames} frames: wall={wall:.3f}s "
+          f"loss={res.mean_client_loss:.4f} "
+          f"fuse={res.report.fuse_seconds:.4f}s launches={delta}, "
+          f"non-causal {nc}", flush=True)
+    del server, seen, res, model, params
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4856,12 +5081,19 @@ def main() -> int:
           f"device={torch.cuda.get_device_name(0)} sms={hw.sm_count} "
           f"hbm_bytes={hw.hbm_bytes}", flush=True)
     t0 = time.perf_counter()
+    build_s = {}
+
+    def build(mod):   # each library's own seconds, its nvcc beside the others
+        t = time.perf_counter()
+        mod.build()
+        build_s[mod.__name__.split(".")[-2]] = round(time.perf_counter() - t, 3)
+
     with ThreadPoolExecutor(6) as pool:   # one nvcc per source, together
-        for done in [pool.submit(m.build) for m in (kernel, rk, fa, fd, sk)] \
+        for done in [pool.submit(build, m) for m in (kernel, rk, fa, fd, sk)] \
                 + [pool.submit(_mma_peak_build)]:
             done.result()
-    print(f"[phase0] kernel build seconds={time.perf_counter() - t0:.3f}",
-          flush=True)
+    print(f"[phase0] kernel build seconds={time.perf_counter() - t0:.3f} "
+          f"by library {build_s}", flush=True)
     _attention_sass()
     _attention_bwd_build()
     _decode_build()
@@ -4904,13 +5136,15 @@ def main() -> int:
     print(f"[phase1] seconds={time.perf_counter() - t0:.3f}", flush=True)
 
     # -- phases 2-8: each path with the counts set to 0 just before it --
-    by_phase = {}
+    by_phase, nc_by_phase = {}, {}
 
     def run_phase(name, fn, *args):
         _reset_launches()
         t0 = time.perf_counter()
         result = fn(*args)
         by_phase[name] = {k: v for k, v in _all_launches().items() if v}
+        nc_by_phase[name] = {k: v for k, v in _noncausal_launches().items()
+                             if v}
         print(f"[{name}] seconds={time.perf_counter() - t0:.3f} "
               f"launches={by_phase[name]}"
               + (f" {json.dumps(result)}" if result else ""), flush=True)
@@ -4947,6 +5181,8 @@ def main() -> int:
             or any(by_phase["phase9"].get(k, 0) == 0 for k in (
                 "weighted_sum", "flash_attention", "flash_attention_bwd",
                 "ssd_chunk", "ssd_chunk_bwd")) \
+            or any(nc_by_phase["phase9"].get(k, 0) == 0 for k in (
+                "flash_attention", "flash_attention_bwd")) \
             or any(by_phase["phase11"].get(k, 0) == 0 for k in (
                 "weighted_sum", "flash_attention", "flash_decode")) \
             or any(by_phase["phase12"].get(k, 0) == 0 for k in (
@@ -4986,6 +5222,12 @@ def main() -> int:
             "launches": launches[name],
             "launches_by_phase": {ph: n[name] for ph, n in by_phase.items()
                                   if name in n},
+            **({"noncausal_launches": sum(n.get(name, 0)
+                                          for n in nc_by_phase.values()),
+                "noncausal_launches_by_phase": {
+                    ph: n[name] for ph, n in nc_by_phase.items()
+                    if name in n}}
+               if name in ("flash_attention", "flash_attention_bwd") else {}),
             "max_abs_err": max(c["max_abs_err"] for c in runs),
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],

@@ -3,7 +3,7 @@ the model architectures the port serves, resolved by ``get_config``.
 
 The architectures arrive with their families: this package holds the
 dense decoders (Qwen2-0.5B, Qwen2.5-3B, Minitron-8B, Gemma3-1B), the
-mixture-of-experts decoder (DeepSeek-MoE-16B), the Mamba2 /
+mixture-of-experts decoders (DeepSeek-MoE-16B, DBRX-132B), the Mamba2 /
 shared-attention hybrid (Zamba2-1.2B), the vision-language decoder's
 language backbone (LLaVA-NeXT-34B) and the encoder-decoder
 (Whisper-small) so far.
@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.dbrx_132b import CONFIG as DBRX_132B
 from repro_torch.configs.deepseek_moe_16b import CONFIG as DEEPSEEK_MOE_16B
 from repro_torch.configs.gemma3_1b import CONFIG as GEMMA3_1B
 from repro_torch.configs.llava_next_34b import CONFIG as LLAVA_NEXT_34B
@@ -24,8 +25,8 @@ from repro_torch.configs.zamba2_1_2b import CONFIG as ZAMBA2_1_2B
 
 ARCHITECTURES: Dict[str, ModelConfig] = {
     c.arch_id: c for c in (QWEN2_0_5B, QWEN2_5_3B, MINITRON_8B, GEMMA3_1B,
-                           DEEPSEEK_MOE_16B, ZAMBA2_1_2B, LLAVA_NEXT_34B,
-                           WHISPER_SMALL)
+                           DEEPSEEK_MOE_16B, DBRX_132B, ZAMBA2_1_2B,
+                           LLAVA_NEXT_34B, WHISPER_SMALL)
 }
 
 

@@ -96,7 +96,14 @@
 //     dV = P^T dO,  dP = dO V^T,  dS = P * (dP - delta) * scale,
 //     dQ = dS K,    dK = dS^T Q,
 // p and dS rounded to the input dtype before the products they feed
-// (the reference's pb / dsb, :258-266), every sum in fp32. T == S.
+// (the reference's pb / dsb, :258-266), every sum in fp32, over the live
+// (t, s) pairs of the forward: any T and S, causal or not, with the same
+// one-sided window. causal is a template flag of the four tile kernels,
+// as in the forward (CAUSAL): a non-causal instance holds no diagonal
+// test, its dK / dV blocks visit query tiles from 0 and its dQ blocks key
+// tiles up to the last of S. Q, dO, lse and delta count rows to T; K, V,
+// dK, dV and the partials to S. A key that no live query reaches gets
+// dK = dV = 0.
 // Bound: operations. Five products of 2 * hd FLOPs a live score (S
 // recomputed, dV, dP, dQ, dK) against ~5 * (nq + nkv) * hd * 2 bytes a
 // token: the Qwen2 training layer (4, 512, 14 / 2, 64) needs 4.7 GFLOP,
@@ -106,12 +113,15 @@
 // kernels a call, no float atomics, so two calls are bitwise equal:
 //   1. bwd_delta_kernel: delta per (b, t, h), 16-byte loads, up to a warp
 //      a row;
-//   2. dK / dV: one block per (key tile, q head, batch) holds K, V of its
-//      keys and loops over the live query tiles (from the diagonal to
-//      the window's far edge), accumulating dK, dV; with GQA it writes
-//      fp32 partials per q head, else dk / dv directly;
-//   3. dQ: one block per (query tile, q head, batch), late tiles first,
-//      holds Q, dO and loops over the live key tiles, accumulating dQ;
+//   2. dK / dV: one block per (key tile of S, q head, batch) holds K, V
+//      of its keys and loops over the live query tiles (from the diagonal,
+//      or 0 when not causal, to the window's far edge), accumulating dK,
+//      dV; with GQA it writes fp32 partials per q head, else dk / dv
+//      directly;
+//   3. dQ: one block per (query tile of T, q head, batch), late tiles
+//      first, holds Q, dO and loops over the live key tiles (from the
+//      window's near edge to the diagonal, or to S's last tile when not
+//      causal), accumulating dQ;
 //   4. bwd_group_sum_kernel (GQA only): dk, dv = the partials of a kv
 //      head's q heads summed in head order, cast to the input dtype.
 // S and dP are computed in both 2 and 3: 7 products a live score
@@ -136,7 +146,7 @@
 //     accumulator-to-A reuse) into dV += pb^T dO and dK += dsb^T Q (2)
 //     or dQ += dsb K (3), with dO, Q and K by ldmatrix.trans;
 //   * the mask is applied only on tiles a warp's rows cross at the
-//     diagonal, the window's edge or T (masked p = 0);
+//     diagonal (causal only), the window's edge, T or S (masked p = 0);
 //   * at hd 256 dK + dV of 16 keys would take 256 fp32 registers a
 //     thread, so two warps share each 16-row group and split the head
 //     dim: both compute the group's S and dP, each accumulates half of
@@ -1068,19 +1078,19 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
   a[3] = pack2<T>(hi[2], hi[3]);
 }
 
-// grid (ceil(T / ROWS), nq, B), early tiles first (the first key tiles
-// of every head, the ones with the most live query tiles, are dispatched
-// first): the block of one key tile of q head h. Warp w owns keys k0 + 16 (w / DSPLIT) .. + 15 and accumulates
+// grid (ceil(S / ROWS), nq, B), early tiles first (the first key tiles
+// of every head, the ones with the most live query tiles when causal, are
+// dispatched first): the block of one key tile of q head h. Warp w owns keys k0 + 16 (w / DSPLIT) .. + 15 and accumulates
 // dK, dV over its share of the dims; lane l holds key rows g = l / 4 and
 // g + 8 of the warp's 16, query / dim columns 2 (l % 4), 2 (l % 4) + 1 of
 // each 8-wide n-tile.
-template <typename T, int HD>
+template <typename T, int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kHalfThreads, 2)
 bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                    float* __restrict__ work, int T_len, int nq, int nkv, int window,
-                    float scale, float scale_log2) {
+                    float* __restrict__ work, int T_len, int S_len, int nq, int nkv,
+                    int window, float scale, float scale_log2) {
   using Cf = BwdMmaCfg<HD>;
   constexpr int C = Cf::C, KS = Cf::KS, BQ = Cf::BQ, NT = BQ / 8, DW = Cf::DW;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1108,17 +1118,25 @@ bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int64_t q_off = (static_cast<int64_t>(b) * T_len * nq + h) * HD;   // (b, 0, h)
   const int64_t l_off = (static_cast<int64_t>(b) * nq + h) * T_len;        // (b, h, 0)
 
-  const int64_t kv_off = ((static_cast<int64_t>(b) * T_len + k0) * nkv + kvh) * HD;
-  load_tile<T, HD, Cf::ROWS>(sK, k + kv_off, kv_stride, T_len - k0, tid);
-  load_tile<T, HD, Cf::ROWS>(sV, v + kv_off, kv_stride, T_len - k0, tid);
+  const int64_t kv_off = ((static_cast<int64_t>(b) * S_len + k0) * nkv + kvh) * HD;
+  load_tile<T, HD, Cf::ROWS>(sK, k + kv_off, kv_stride, S_len - k0, tid);
+  load_tile<T, HD, Cf::ROWS>(sV, v + kv_off, kv_stride, S_len - k0, tid);
   cp_async_commit();
 
-  // live query tiles [qt_lo, qt_hi): from the diagonal to the window's
-  // far edge (kernel.py dkdv_query_tiles)
+  // live query tiles [qt_lo, qt_hi): from the diagonal (0 when not
+  // causal) to the window's far edge (kernel.py dkdv_query_tiles)
   const int n_qt = (T_len + BQ - 1) / BQ;
-  const int qt_lo = k0 / BQ;
+  const int qt_lo = CAUSAL ? k0 / BQ : 0;
   int qt_hi = n_qt;
-  if (window > 0) qt_hi = min(n_qt, (k0 + Cf::ROWS - 2 + window) / BQ + 1);
+  if (window > 0) {
+    // the window's far edge seen from the block's last row (causal: past
+    // S that adds at most a tile the mask empties) or from its last key
+    // before S. The causal bound is the one from before the flag: with
+    // the clamp, the hd-256 causal instance spilled 20 bytes at 255
+    // registers (250 without)
+    const int last = CAUSAL ? k0 + Cf::ROWS : min(k0 + Cf::ROWS, S_len);
+    qt_hi = min(n_qt, (last - 2 + window) / BQ + 1);
+  }
 
   // Q, dO, lse and delta of query tile qt into a ring stage; rows past T
   // are zero
@@ -1205,9 +1223,10 @@ bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
 
     // p = exp(s * scale - lse) in st, ds = p (dp - delta) scale in dpt;
-    // masked (p = 0) only where the tile crosses the diagonal, the
-    // window's edge or T for this warp's keys
-    const bool edge = q0 < kw0 + 15 || q0 + BQ > T_len ||
+    // masked (p = 0) only where the tile crosses the diagonal (causal),
+    // the window's edge or T for this warp's keys (keys past S are never
+    // stored)
+    const bool edge = (CAUSAL && q0 < kw0 + 15) || q0 + BQ > T_len ||
                       (window > 0 && q0 + BQ - 1 - kw0 >= window);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -1221,7 +1240,7 @@ bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         if (edge) {
           const int key = kw0 + g + ((e >> 1) << 3);
           const int t = q0 + j + (e & 1);
-          bool live = key <= t && t < T_len;
+          bool live = t < T_len && (!CAUSAL || key <= t);
           if (window > 0) live = live && t - key < window;
           if (!live) p = 0.f;
         }
@@ -1253,12 +1272,12 @@ bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     __syncthreads();   // this stage is free for the tile after next
   }
 
-  const int64_t half = static_cast<int64_t>(gridDim.z) * T_len * nq * HD;
-  const int64_t bt = static_cast<int64_t>(b) * T_len;
+  const int64_t half = static_cast<int64_t>(gridDim.z) * S_len * nq * HD;
+  const int64_t bt = static_cast<int64_t>(b) * S_len;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = kw0 + g + 8 * r;
-    if (key >= T_len) continue;
+    if (key >= S_len) continue;
 #pragma unroll
     for (int dn = 0; dn < DW; ++dn) {
       const int d = (dc0 + dn) * 8 + cq * 2;
@@ -1276,16 +1295,16 @@ bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-// grid (ceil(T / ROWS), nq, B), late query tiles first: the block of one
-// query tile of q head h. Warp w owns queries q0 + 16 (w / DSPLIT) .. +
+// grid (ceil(T / ROWS), nq, B), late query tiles first (when causal they
+// hold the most live key tiles): the block of one query tile of q head h. Warp w owns queries q0 + 16 (w / DSPLIT) .. +
 // 15 and accumulates dQ over its share of the dims; lane l holds query
 // rows g and g + 8, key / dim columns 2 (l % 4), 2 (l % 4) + 1.
-template <typename T, int HD>
+template <typename T, int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kHalfThreads, 2)
 bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   const T* __restrict__ dout, const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dq, int T_len, int nq,
-                  int nkv, int window, float scale, float scale_log2) {
+                  const float* __restrict__ delta, T* __restrict__ dq, int T_len, int S_len,
+                  int nq, int nkv, int window, float scale, float scale_log2) {
   using Cf = BwdMmaCfg<HD>;
   constexpr int C = Cf::C, KS = Cf::KS, BK = Cf::BK, NT = BK / 8, DW = Cf::DW;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1306,8 +1325,8 @@ bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   const int qw0 = q0 + rg * 16;
   const int64_t q_stride = static_cast<int64_t>(nq) * HD;
   const int64_t kv_stride = static_cast<int64_t>(nkv) * HD;
-  const T* k_base = k + (b * T_len * nkv + kvh) * HD;
-  const T* v_base = v + (b * T_len * nkv + kvh) * HD;
+  const T* k_base = k + (b * S_len * nkv + kvh) * HD;
+  const T* v_base = v + (b * S_len * nkv + kvh) * HD;
 
   load_tile<T, HD, Cf::ROWS>(sQ, q + ((b * T_len + q0) * nq + h) * HD, q_stride, T_len - q0,
                              tid);
@@ -1315,18 +1334,19 @@ bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
                              T_len - q0, tid);
   cp_async_commit();
 
-  // live key tiles [kt_lo, kt_hi), as the forward's (kernel.py
-  // dq_key_tiles)
-  const int n_kt = (T_len + BK - 1) / BK;
-  const int kt_hi = min(n_kt, q_last / BK + 1);
+  // live key tiles [kt_lo, kt_hi), as the forward's: from the window's
+  // near edge to the diagonal, or to S's last tile when not causal
+  // (kernel.py dq_key_tiles)
+  const int n_kt = (S_len + BK - 1) / BK;
+  const int kt_hi = CAUSAL ? min(n_kt, q_last / BK + 1) : n_kt;
   int kt_lo = 0;
   if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / BK;
 
   auto load_stage = [&](int kt, int stage) {
     const int kk0 = kt * BK;
     const uint32_t base = sRing + stage * 2 * Cf::K_TILE;
-    load_tile<T, HD, BK>(base, k_base + kk0 * kv_stride, kv_stride, T_len - kk0, tid);
-    load_tile<T, HD, BK>(base + Cf::K_TILE, v_base + kk0 * kv_stride, kv_stride, T_len - kk0,
+    load_tile<T, HD, BK>(base, k_base + kk0 * kv_stride, kv_stride, S_len - kk0, tid);
+    load_tile<T, HD, BK>(base + Cf::K_TILE, v_base + kk0 * kv_stride, kv_stride, S_len - kk0,
                          tid);
   };
   if (kt_lo < kt_hi) load_stage(kt_lo, 0);
@@ -1402,10 +1422,11 @@ bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     }
 
     // ds = p (dp - delta) scale in s; masked (p = 0) only where the tile
-    // crosses the diagonal or the window's edge for this warp's rows
-    // (keys past T lie past the diagonal of every row before T)
+    // crosses the diagonal (causal), the window's edge or S for this
+    // warp's rows
     const int k0 = kt * BK;
-    const bool edge = k0 + BK - 1 > qw0 || (window > 0 && qw0 + 15 - k0 >= window);
+    const bool edge = (CAUSAL && k0 + BK - 1 > qw0) || k0 + BK > S_len ||
+                      (window > 0 && qw0 + 15 - k0 >= window);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -1414,7 +1435,7 @@ bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
         if (edge) {
           const int key = k0 + nt * 8 + cq * 2 + (e & 1);
           const int t = e < 2 ? t_lo : t_hi;
-          bool live = key <= t;
+          bool live = key < S_len && (!CAUSAL || key <= t);
           if (window > 0) live = live && t - key < window;
           if (!live) p = 0.f;
         }
@@ -1552,13 +1573,14 @@ __device__ __forceinline__ void acc_frag_split(uint32_t (&hi)[1][4], uint32_t (&
 // there; BwdSplitCfg for the warps at hd 256), every product on
 // mma.sync.m16n8k8 TF32 as lo.hi + hi.lo + hi.hi (mma3), p and ds fed
 // from the fp32 accumulators unrounded.
-template <typename T, int HD>
+template <typename T, int HD, bool CAUSAL>
 __global__ void __launch_bounds__(BwdSplitCfg<HD>::THREADS, BwdSplitCfg<HD>::MIN_BLOCKS)
 bwd_dkdv_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ work,
-                      int T_len, int nq, int nkv, int window, float scale, float scale_log2) {
+                      int T_len, int S_len, int nq, int nkv, int window, float scale,
+                      float scale_log2) {
   static_assert(std::is_same<T, float>::value, "the fp32 route");
   using Cf = BwdMmaCfg<HD>;
   using Sp = BwdSplitCfg<HD>;
@@ -1588,16 +1610,19 @@ bwd_dkdv_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t q_off = (static_cast<int64_t>(b) * T_len * nq + h) * HD;   // (b, 0, h)
   const int64_t l_off = (static_cast<int64_t>(b) * nq + h) * T_len;        // (b, h, 0)
 
-  const int64_t kv_off = ((static_cast<int64_t>(b) * T_len + k0) * nkv + kvh) * HD;
-  load_rows_f32<HD, Cf::ROWS, P, Sp::THREADS>(sK, k + kv_off, kv_stride, T_len - k0, tid);
-  load_rows_f32<HD, Cf::ROWS, P, Sp::THREADS>(sV, v + kv_off, kv_stride, T_len - k0, tid);
+  const int64_t kv_off = ((static_cast<int64_t>(b) * S_len + k0) * nkv + kvh) * HD;
+  load_rows_f32<HD, Cf::ROWS, P, Sp::THREADS>(sK, k + kv_off, kv_stride, S_len - k0, tid);
+  load_rows_f32<HD, Cf::ROWS, P, Sp::THREADS>(sV, v + kv_off, kv_stride, S_len - k0, tid);
   cp_async_commit();
 
   // live query tiles [qt_lo, qt_hi) (kernel.py dkdv_query_tiles)
   const int n_qt = (T_len + BQ - 1) / BQ;
-  const int qt_lo = k0 / BQ;
+  const int qt_lo = CAUSAL ? k0 / BQ : 0;
   int qt_hi = n_qt;
-  if (window > 0) qt_hi = min(n_qt, (k0 + Cf::ROWS - 2 + window) / BQ + 1);
+  if (window > 0) {
+    const int last = CAUSAL ? k0 + Cf::ROWS : min(k0 + Cf::ROWS, S_len);
+    qt_hi = min(n_qt, (last - 2 + window) / BQ + 1);
+  }
 
   auto load_stage = [&](int qt, int stage) {
     const int q0 = qt * BQ;
@@ -1659,9 +1684,9 @@ bwd_dkdv_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     // p = exp(s * scale - lse) in st, ds = p (dp - delta) scale in dpt,
-    // both fp32; masked (p = 0) only where the tile crosses the diagonal,
-    // the window's edge or T for this warp's keys
-    const bool edge = q0 < kw0 + 15 || q0 + BQ > T_len ||
+    // both fp32; masked (p = 0) only where the tile crosses the diagonal
+    // (causal), the window's edge or T for this warp's keys
+    const bool edge = (CAUSAL && q0 < kw0 + 15) || q0 + BQ > T_len ||
                       (window > 0 && q0 + BQ - 1 - kw0 >= window);
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt) {
@@ -1675,7 +1700,7 @@ bwd_dkdv_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (edge) {
           const int key = kw0 + g + ((e >> 1) << 3);
           const int t = q0 + j + (e & 1);
-          bool live = key <= t && t < T_len;
+          bool live = t < T_len && (!CAUSAL || key <= t);
           if (window > 0) live = live && t - key < window;
           if (!live) p = 0.f;
         }
@@ -1731,12 +1756,12 @@ bwd_dkdv_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();   // this stage is free for the tile after next
   }
 
-  const int64_t half = static_cast<int64_t>(gridDim.z) * T_len * nq * HD;
-  const int64_t bt = static_cast<int64_t>(b) * T_len;
+  const int64_t half = static_cast<int64_t>(gridDim.z) * S_len * nq * HD;
+  const int64_t bt = static_cast<int64_t>(b) * S_len;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = kw0 + g + 8 * r;
-    if (key >= T_len) continue;
+    if (key >= S_len) continue;
 #pragma unroll
     for (int dn = 0; dn < DW; ++dn) {
       const int d = (dc0 + dn) * 8 + cq * 2;
@@ -1760,12 +1785,12 @@ bwd_dkdv_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // The fp32 dQ: bwd_dq_mma_kernel's blocks, ring and mask (see there;
 // BwdSplitCfg for the warps at hd 256), every product in three TF32
 // passes, ds fed unrounded.
-template <typename T, int HD>
+template <typename T, int HD, bool CAUSAL>
 __global__ void __launch_bounds__(BwdSplitCfg<HD>::THREADS, BwdSplitCfg<HD>::MIN_BLOCKS)
 bwd_dq_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int T_len, int nq,
-                    int nkv, int window, float scale, float scale_log2) {
+                    const float* __restrict__ delta, T* __restrict__ dq, int T_len, int S_len,
+                    int nq, int nkv, int window, float scale, float scale_log2) {
   static_assert(std::is_same<T, float>::value, "the fp32 route");
   using Cf = BwdMmaCfg<HD>;
   using Sp = BwdSplitCfg<HD>;
@@ -1791,8 +1816,8 @@ bwd_dq_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int qw0 = q0 + rg * 16;
   const int64_t q_stride = static_cast<int64_t>(nq) * HD;
   const int64_t kv_stride = static_cast<int64_t>(nkv) * HD;
-  const T* k_base = k + (b * T_len * nkv + kvh) * HD;
-  const T* v_base = v + (b * T_len * nkv + kvh) * HD;
+  const T* k_base = k + (b * S_len * nkv + kvh) * HD;
+  const T* v_base = v + (b * S_len * nkv + kvh) * HD;
 
   load_rows_f32<HD, Cf::ROWS, P, Sp::THREADS>(sQ, q + ((b * T_len + q0) * nq + h) * HD,
                                                q_stride, T_len - q0, tid);
@@ -1801,8 +1826,8 @@ bwd_dq_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   cp_async_commit();
 
   // live key tiles [kt_lo, kt_hi) (kernel.py dq_key_tiles)
-  const int n_kt = (T_len + BK - 1) / BK;
-  const int kt_hi = min(n_kt, q_last / BK + 1);
+  const int n_kt = (S_len + BK - 1) / BK;
+  const int kt_hi = CAUSAL ? min(n_kt, q_last / BK + 1) : n_kt;
   int kt_lo = 0;
   if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / BK;
 
@@ -1810,9 +1835,9 @@ bwd_dq_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const int kk0 = kt * BK;
     float* base = sRing + stage * 2 * Sp::K_TILE;
     load_rows_f32<HD, BK, P, Sp::THREADS>(base, k_base + kk0 * kv_stride, kv_stride,
-                                           T_len - kk0, tid);
+                                           S_len - kk0, tid);
     load_rows_f32<HD, BK, P, Sp::THREADS>(base + Sp::K_TILE, v_base + kk0 * kv_stride,
-                                           kv_stride, T_len - kk0, tid);
+                                           kv_stride, S_len - kk0, tid);
   };
   if (kt_lo < kt_hi) load_stage(kt_lo, 0);
   cp_async_commit();
@@ -1866,9 +1891,11 @@ bwd_dq_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
 
     // ds = p (dp - delta) scale in s, fp32; masked (p = 0) only where the
-    // tile crosses the diagonal or the window's edge for this warp's rows
+    // tile crosses the diagonal (causal), the window's edge or S for this
+    // warp's rows
     const int k0 = kt * BK;
-    const bool edge = k0 + BK - 1 > qw0 || (window > 0 && qw0 + 15 - k0 >= window);
+    const bool edge = (CAUSAL && k0 + BK - 1 > qw0) || k0 + BK > S_len ||
+                      (window > 0 && qw0 + 15 - k0 >= window);
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
@@ -1877,7 +1904,7 @@ bwd_dq_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         if (edge) {
           const int key = k0 + (ws * NS + nt) * 8 + cq * 2 + (e & 1);
           const int t = e < 2 ? t_lo : t_hi;
-          bool live = key <= t;
+          bool live = key < S_len && (!CAUSAL || key <= t);
           if (window > 0) live = live && t - key < window;
           if (!live) p = 0.f;
         }
@@ -1929,52 +1956,59 @@ bwd_dq_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 // the route's dK / dV and dQ kernels: fp32 in three TF32 passes, bf16 /
-// fp16 on their own type, both on the tensor cores
-template <typename T, int HD>
+// fp16 on their own type, both on the tensor cores; the dK / dV grid over
+// S's key blocks, the dQ grid over T's query blocks
+template <typename T, int HD, bool CAUSAL>
 cudaError_t launch_tiles(const T* q, const T* k, const T* v, const T* dout, const float* lse,
                          const float* delta, T* dq, T* dk, T* dv, float* work, int64_t B,
-                         int64_t T_len, int64_t nq, int64_t nkv, int64_t window, float scale,
-                         cudaStream_t st) {
+                         int64_t T_len, int64_t S_len, int64_t nq, int64_t nkv, int64_t window,
+                         float scale, cudaStream_t st) {
   using Cf = BwdMmaCfg<HD>;
   constexpr bool kSplit = std::is_same<T, float>::value;
   constexpr int smem_kv = kSplit ? BwdSplitCfg<HD>::DKDV_SMEM : Cf::DKDV_SMEM;
   constexpr int smem_q = kSplit ? BwdSplitCfg<HD>::DQ_SMEM : Cf::DQ_SMEM;
   auto kern_kv = [] {
-    if constexpr (kSplit) return bwd_dkdv_split_kernel<T, HD>;
-    else return bwd_dkdv_mma_kernel<T, HD>;
+    if constexpr (kSplit) return bwd_dkdv_split_kernel<T, HD, CAUSAL>;
+    else return bwd_dkdv_mma_kernel<T, HD, CAUSAL>;
   }();
   auto kern_q = [] {
-    if constexpr (kSplit) return bwd_dq_split_kernel<T, HD>;
-    else return bwd_dq_mma_kernel<T, HD>;
+    if constexpr (kSplit) return bwd_dq_split_kernel<T, HD, CAUSAL>;
+    else return bwd_dq_mma_kernel<T, HD, CAUSAL>;
   }();
   constexpr int threads = kSplit ? BwdSplitCfg<HD>::THREADS : kHalfThreads;
-  const dim3 grid(static_cast<unsigned>((T_len + Cf::ROWS - 1) / Cf::ROWS),
-                  static_cast<unsigned>(nq), static_cast<unsigned>(B));
+  const dim3 grid_kv(static_cast<unsigned>((S_len + Cf::ROWS - 1) / Cf::ROWS),
+                     static_cast<unsigned>(nq), static_cast<unsigned>(B));
+  const dim3 grid_q(static_cast<unsigned>((T_len + Cf::ROWS - 1) / Cf::ROWS),
+                    static_cast<unsigned>(nq), static_cast<unsigned>(B));
   const float scale_log2 = scale * kLog2e;
   cudaError_t err =
       cudaFuncSetAttribute(kern_kv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (err != cudaSuccess) return err;
-  kern_kv<<<grid, threads, smem_kv, st>>>(
-      q, k, v, dout, lse, delta, dk, dv, work, static_cast<int>(T_len), static_cast<int>(nq),
-      static_cast<int>(nkv), static_cast<int>(window), scale, scale_log2);
+  kern_kv<<<grid_kv, threads, smem_kv, st>>>(
+      q, k, v, dout, lse, delta, dk, dv, work, static_cast<int>(T_len),
+      static_cast<int>(S_len), static_cast<int>(nq), static_cast<int>(nkv),
+      static_cast<int>(window), scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   err = cudaFuncSetAttribute(kern_q, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
   if (err != cudaSuccess) return err;
-  kern_q<<<grid, threads, smem_q, st>>>(
-      q, k, v, dout, lse, delta, dq, static_cast<int>(T_len), static_cast<int>(nq),
-      static_cast<int>(nkv), static_cast<int>(window), scale, scale_log2);
+  kern_q<<<grid_q, threads, smem_q, st>>>(
+      q, k, v, dout, lse, delta, dq, static_cast<int>(T_len), static_cast<int>(S_len),
+      static_cast<int>(nq), static_cast<int>(nkv), static_cast<int>(window), scale,
+      scale_log2);
   return cudaGetLastError();
 }
 
-// delta, then the route's tile kernels (kernel.py BWD_TILE_KERNELS),
-// then the group sum when nq > nkv
+// delta over T's rows, then the route's tile kernels (kernel.py
+// BWD_TILE_KERNELS) of the causal or the non-causal instance, then the
+// group sum over S's rows when nq > nkv
 template <typename T, int HD>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* out,
                        const void* dout, const float* lse, void* dq, void* dk, void* dv,
-                       float* delta, float* work, int64_t B, int64_t T_len, int64_t nq,
-                       int64_t nkv, int64_t window, float scale, cudaStream_t st) {
+                       float* delta, float* work, int64_t B, int64_t T_len, int64_t S_len,
+                       int64_t nq, int64_t nkv, int64_t window, bool causal, float scale,
+                       cudaStream_t st) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -1987,12 +2021,12 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
                                               HD);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = launch_tiles<T, HD>(qt, kt, vt, gt, lse, delta, static_cast<T*>(dq),
-                            static_cast<T*>(dk), static_cast<T*>(dv), work, B, T_len, nq, nkv,
-                            window, scale, st);
+  auto tiles = causal ? launch_tiles<T, HD, true> : launch_tiles<T, HD, false>;
+  err = tiles(qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), static_cast<T*>(dk),
+              static_cast<T*>(dv), work, B, T_len, S_len, nq, nkv, window, scale, st);
   if (err != cudaSuccess || work == nullptr) return err;
 
-  const int64_t n = B * T_len * nkv * HD;
+  const int64_t n = B * S_len * nkv * HD;
   bwd_group_sum_kernel<T><<<static_cast<unsigned>((n + kBwdThreads - 1) / kBwdThreads),
                             kBwdThreads, 0, st>>>(work, static_cast<T*>(dk),
                                                   static_cast<T*>(dv), n,
@@ -2004,22 +2038,22 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 template <typename T>
 cudaError_t dispatch_bwd(const void* q, const void* k, const void* v, const void* out,
                          const void* dout, const float* lse, void* dq, void* dk, void* dv,
-                         float* delta, float* work, int64_t B, int64_t T_len, int64_t nq,
-                         int64_t nkv, int64_t hd, int64_t window, float scale,
-                         cudaStream_t st) {
+                         float* delta, float* work, int64_t B, int64_t T_len, int64_t S_len,
+                         int64_t nq, int64_t nkv, int64_t hd, int64_t window, bool causal,
+                         float scale, cudaStream_t st) {
   switch (hd) {
     case 32:
-      return launch_bwd<T, 32>(q, k, v, out, dout, lse, dq, dk, dv, delta, work, B, T_len, nq,
-                               nkv, window, scale, st);
+      return launch_bwd<T, 32>(q, k, v, out, dout, lse, dq, dk, dv, delta, work, B, T_len,
+                               S_len, nq, nkv, window, causal, scale, st);
     case 64:
-      return launch_bwd<T, 64>(q, k, v, out, dout, lse, dq, dk, dv, delta, work, B, T_len, nq,
-                               nkv, window, scale, st);
+      return launch_bwd<T, 64>(q, k, v, out, dout, lse, dq, dk, dv, delta, work, B, T_len,
+                               S_len, nq, nkv, window, causal, scale, st);
     case 128:
       return launch_bwd<T, 128>(q, k, v, out, dout, lse, dq, dk, dv, delta, work, B, T_len,
-                                nq, nkv, window, scale, st);
+                                S_len, nq, nkv, window, causal, scale, st);
     case 256:
       return launch_bwd<T, 256>(q, k, v, out, dout, lse, dq, dk, dv, delta, work, B, T_len,
-                                nq, nkv, window, scale, st);
+                                S_len, nq, nkv, window, causal, scale, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -2067,34 +2101,39 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* out, void*
   }
 }
 
-// The backward of flash_attn_fwd (T == S): q, dq (B, T, nq, hd); k, v,
-// dk, dv (B, T, nkv, hd); out, dout (B, T, nq, hd), all of `dtype`; lse
-// (B, nq, T) fp32 from flash_attn_fwd; delta (B, nq, T) fp32 scratch;
-// work: null when nq == nkv, else (2, B, T, nq, hd) fp32 scratch for the
-// per-q-head dK / dV partials.
+// The backward of flash_attn_fwd, at its T, S, causal and window: q, dq
+// (B, T, nq, hd); k, v, dk, dv (B, S, nkv, hd); out, dout (B, T, nq, hd),
+// all of `dtype`; lse (B, nq, T) fp32 from flash_attn_fwd; delta (B, nq,
+// T) fp32 scratch; work: null when nq == nkv, else (2, B, S, nq, hd) fp32
+// scratch for the per-q-head dK / dV partials; causal 1 or 0.
 int flash_attn_bwd(const void* q, const void* k, const void* v, const void* out,
                    const void* dout, const void* lse, void* dq, void* dk, void* dv,
-                   void* delta, void* work, int64_t B, int64_t T_len, int64_t nq,
-                   int64_t nkv, int64_t hd, int64_t dtype, int64_t window, void* stream) {
-  if (B <= 0 || T_len <= 0 || nkv <= 0 || nq % nkv != 0 || window < 0 ||
-      T_len > INT32_MAX || window > INT32_MAX || (nq != nkv && work == nullptr))
+                   void* delta, void* work, int64_t B, int64_t T_len, int64_t S_len,
+                   int64_t nq, int64_t nkv, int64_t hd, int64_t dtype, int64_t window,
+                   int64_t causal, void* stream) {
+  if (B <= 0 || T_len <= 0 || S_len <= 0 || nkv <= 0 || nq % nkv != 0 || window < 0 ||
+      T_len > INT32_MAX || S_len > INT32_MAX || window > INT32_MAX ||
+      (causal != 0 && causal != 1) || (nq != nkv && work == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const float scale = static_cast<float>(pow(static_cast<double>(hd), -0.5));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   float* w = nq == nkv ? nullptr : static_cast<float*>(work);
+  const bool is_causal = causal == 1;
   switch (dtype) {
     case kF32:
       return static_cast<int>(dispatch_bwd<float>(q, k, v, out, dout, l, dq, dk, dv, dl, w, B,
-                                                  T_len, nq, nkv, hd, window, scale, st));
+                                                  T_len, S_len, nq, nkv, hd, window,
+                                                  is_causal, scale, st));
     case kBF16:
       return static_cast<int>(dispatch_bwd<__nv_bfloat16>(q, k, v, out, dout, l, dq, dk, dv,
-                                                          dl, w, B, T_len, nq, nkv, hd,
-                                                          window, scale, st));
+                                                          dl, w, B, T_len, S_len, nq, nkv, hd,
+                                                          window, is_causal, scale, st));
     case kF16:
       return static_cast<int>(dispatch_bwd<__half>(q, k, v, out, dout, l, dq, dk, dv, dl, w,
-                                                   B, T_len, nq, nkv, hd, window, scale, st));
+                                                   B, T_len, S_len, nq, nkv, hd, window,
+                                                   is_causal, scale, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -12,8 +12,9 @@ evaluates ``model.loss`` at the client's tree with
 ``torch.func.functional_call`` on leaf tensors that require grad, so the
 served module's own parameters (``requires_grad=False``) are never
 touched; the optimizer state is made fresh each round, as in the
-reference. On the card the decoder's attention runs the forward and
-backward flash-attention kernels.
+reference. On the card the models' attention runs the forward and
+backward flash-attention kernels (the encoder-decoder's encoder and
+cross attention through their non-causal instances).
 """
 from __future__ import annotations
 
@@ -21,12 +22,12 @@ import collections
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 from torch.func import functional_call
 
 from repro_torch.models.base import Model
 from repro_torch.optim import Optimizer, apply_updates, clip_by_global_norm
+from repro_torch.utils.dtypes import as_tensor
 from repro_torch.utils.pytree import tree_map
 
 PyTree = Any
@@ -34,11 +35,21 @@ PyTree = Any
 
 def batch_to_device(batch: Dict[str, Any], device: torch.device
                     ) -> Dict[str, torch.Tensor]:
-    """A loader batch (numpy token arrays) as int64 tensors on
-    ``device``."""
-    return {k: torch.as_tensor(np.asarray(v)).to(device=device,
-                                                  dtype=torch.int64)
-            for k, v in batch.items()}
+    """A loader batch (numpy arrays or tensors) as tensors on ``device``:
+    integer and bool entries (tokens, labels) as int64; float entries
+    (``audio_frames``, ``patch_embeds``) in their own dtype, as the
+    reference's jit takes them, fp64 as fp32 (JAX with x64 off) and bf16
+    words as ``torch.bfloat16``. The model casts them to its parameter
+    dtype where it reads them."""
+    out = {}
+    for k, v in batch.items():
+        t = as_tensor(v, device)
+        if not t.is_floating_point():
+            t = t.to(torch.int64)
+        elif t.dtype == torch.float64:
+            t = t.float()
+        out[k] = t
+    return out
 
 
 @dataclasses.dataclass(eq=False)

@@ -23,11 +23,13 @@ logsumexp, (B, nq, T) fp32, which the forward kernel writes only when
 asked (the serving path passes a null pointer). ``flash_attention_bwd``
 is the backward of the reference model's ``blockwise_attention`` custom
 VJP (``repro/models/layers/attention.py:217-303``; that VJP has no
-Pallas kernel): ``flash_attn_bwd`` in the same source, four device
-kernels a call (delta = rowsum(dO * O); dK / dV partials per q head and
-key tile; dQ per q head and query tile; the partials summed over each
-kv head's group in a fixed order), with no float atomics, so two calls
-give bitwise-equal gradients. It is bound by operations (10 * hd FLOPs
+Pallas kernel) at every (causal, T, S, window) the forward takes:
+``flash_attn_bwd`` in the same source, four device kernels a call (delta
+= rowsum(dO * O) over T; dK / dV partials per q head and key tile of S;
+dQ per q head and query tile of T; the partials summed over each kv
+head's group in a fixed order), with no float atomics, so two calls
+give bitwise-equal gradients. ``causal`` picks a template instance of
+its tile kernels, as in the forward. It is bound by operations (10 * hd FLOPs
 a live score, bf16 at 989 TFLOP/s). bf16 / fp16 run its dK / dV and dQ
 kernels on the tensor cores (``mma.sync``, p and ds fed from the fp32
 accumulators as the next product's operands, rounded once to the input
@@ -39,12 +41,15 @@ needs no sum across blocks. :func:`bwd_tiles`, :func:`dkdv_query_tiles`
 and :func:`dq_key_tiles` mirror the tile kernels' tiles and loop bounds
 in every dtype; :data:`BWD_TILE_KERNELS` names each dtype's tile
 kernels. Its CPU path is ``attention_bwd_ref``.
+
+``NONCAUSAL_LAUNCHES`` counts the launches of either entry point that
+took its non-causal instances (each also counts in ``LAUNCHES``).
 """
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -57,6 +62,8 @@ from repro_torch.kernels.flash_attention.ref import (
 from repro_torch.utils.device import sm_count
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
+NONCAUSAL_LAUNCHES: Dict[str, int] = {"flash_attention": 0,
+                                      "flash_attention_bwd": 0}
 _COUNT_LOCK = threading.Lock()
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -82,15 +89,16 @@ BWD_TILE_KERNELS = {
 BWD_COMMON_KERNELS = ("bwd_delta_kernel", "bwd_group_sum_kernel")
 
 
-def bwd_instances() -> List[Tuple[str, torch.dtype, int]]:
-    """(kernel, dtype, head dim or 0) of every device-kernel instance the
-    backward builds: ``flash_attn_bwd`` dispatches each dtype of
-    ``DTYPE_CODES`` and each head dim of ``HEAD_DIMS``."""
+def bwd_instances() -> List[Tuple[str, torch.dtype, int, Optional[bool]]]:
+    """(kernel, dtype, head dim or 0, causal or None) of every
+    device-kernel instance the backward builds: ``flash_attn_bwd``
+    dispatches each dtype of ``DTYPE_CODES``, and its tile kernels each
+    head dim of ``HEAD_DIMS``, causal and not."""
     out = []
     for dt in DTYPE_CODES:
-        out += [(name, dt, 0) for name in BWD_COMMON_KERNELS]
-        out += [(name, dt, hd) for name in BWD_TILE_KERNELS[dt]
-                for hd in HEAD_DIMS]
+        out += [(name, dt, 0, None) for name in BWD_COMMON_KERNELS]
+        out += [(name, dt, hd, causal) for name in BWD_TILE_KERNELS[dt]
+                for hd in HEAD_DIMS for causal in (True, False)]
     return out
 
 
@@ -116,23 +124,32 @@ def bwd_tiles(hd: int) -> Tuple[int, int, int]:
             64 if hd <= 128 else 32)
 
 
-def dkdv_query_tiles(k0: int, T: int, window: int, hd: int) -> range:
-    """The query tiles (of ``bwd_tiles(hd)[1]`` rows) that the dK / dV
-    block of keys ``k0 ..`` visits, in order: from the one holding the
-    diagonal to the window's far edge (the CUDA loop bounds)."""
+def dkdv_query_tiles(k0: int, T: int, window: int, hd: int, *,
+                     S: Optional[int] = None, causal: bool = True) -> range:
+    """The query tiles (of ``bwd_tiles(hd)[1]`` rows, over T queries)
+    that the dK / dV block of keys ``k0 ..`` (of S, T by default) visits,
+    in order: from the one holding the diagonal (the first, when not
+    ``causal``) to the window's far edge seen from the block's last row
+    (causal) or its last key before S (the CUDA loop bounds)."""
     rows, bq, _ = bwd_tiles(hd)
+    S = T if S is None else S
     n_qt = -(-T // bq)
-    hi = n_qt if window <= 0 else min(n_qt, (k0 + rows - 2 + window) // bq + 1)
-    return range(k0 // bq, hi)
+    last = k0 + rows if causal else min(k0 + rows, S)
+    hi = n_qt if window <= 0 else min(n_qt, (last - 2 + window) // bq + 1)
+    return range(k0 // bq if causal else 0, hi)
 
 
-def dq_key_tiles(q0: int, T: int, window: int, hd: int) -> range:
-    """The key tiles (of ``bwd_tiles(hd)[2]`` keys) that the dQ block of
-    queries ``q0 ..`` visits, in order: from the window's near edge to
-    the diagonal (the CUDA loop bounds)."""
+def dq_key_tiles(q0: int, T: int, window: int, hd: int, *,
+                 S: Optional[int] = None, causal: bool = True) -> range:
+    """The key tiles (of ``bwd_tiles(hd)[2]`` keys, over S keys, T by
+    default) that the dQ block of queries ``q0 ..`` (of T) visits, in
+    order: from the window's near edge to the diagonal, or to the last
+    tile of S when not ``causal`` (the CUDA loop bounds)."""
     rows, _, bk = bwd_tiles(hd)
+    S = T if S is None else S
+    n_kt = -(-S // bk)
     q_last = min(q0 + rows, T) - 1
-    hi = min(-(-T // bk), q_last // bk + 1)
+    hi = min(n_kt, q_last // bk + 1) if causal else n_kt
     lo = (q0 - window + 1) // bk if window > 0 and q0 - window + 1 > 0 else 0
     return range(lo, hi)
 
@@ -141,11 +158,14 @@ def reset_launches() -> None:
     with _COUNT_LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+            NONCAUSAL_LAUNCHES[name] = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, causal: bool) -> None:
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
+        if not causal:
+            NONCAUSAL_LAUNCHES[name] += 1
 
 
 def _library() -> ctypes.CDLL:
@@ -154,7 +174,7 @@ def _library() -> ctypes.CDLL:
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.flash_attn_fwd.argtypes = [ptr] * 5 + [i64] * 10 + [ptr]
         lib.flash_attn_fwd.restype = ctypes.c_int
-        lib.flash_attn_bwd.argtypes = [ptr] * 11 + [i64] * 7 + [ptr]
+        lib.flash_attn_bwd.argtypes = [ptr] * 11 + [i64] * 9 + [ptr]
         lib.flash_attn_bwd.restype = ctypes.c_int
     return lib
 
@@ -240,29 +260,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         )
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
-    _count("flash_attention")
+    _count("flash_attention", causal)
     return (out, lse) if return_lse else out
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
-                        dout: torch.Tensor, window: int = 0):
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int = 0):
     """(dq, dk, dv) of :func:`flash_attention` in the input dtype, from
     its inputs, its output, its lse (B, nq, T) fp32 and the output's
     gradient ``dout``: the reference VJP's math, p and ds rounded to the
     input dtype before the products they feed, fp32 accumulation. Takes
-    causal attention with T == S only (what the decoders' training runs;
-    other shapes raise ``ValueError``): the non-causal, cross-length
-    backward an encoder-decoder's training needs is not written yet.
-    On CUDA tensors it launches ``flash_attn_bwd`` or raises."""
+    every (``causal``, T, S, ``window``) the forward takes: q (B, T, nq,
+    hd), k / v (B, S, nkv, hd). A key that no live query reaches gets
+    dk = dv = 0. On CUDA tensors it launches ``flash_attn_bwd`` or
+    raises."""
     check_heads(q, k, v)
     window = int(window)
+    causal = bool(causal)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     B, T, nq, hd = q.shape
     S, nkv = k.shape[1], k.shape[2]
-    if S != T:
-        raise ValueError(f"flash_attention_bwd takes T == S, got {T}, {S}")
     for name, t in (("out", out), ("dout", dout)):
         if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype \
                 or t.device != q.device or not t.is_contiguous():
@@ -273,13 +293,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"lse must be a contiguous ({B}, {nq}, {T}) fp32 "
                          f"tensor on {q.device}")
     if q.device.type == "cpu":
-        return attention_bwd_ref(q, k, v, out, lse, dout, window=window)
+        return attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                                 window=window)
     if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
         raise ValueError("flash_attention_bwd needs 16-byte aligned q, k, v, "
                          "out, dout")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if B == 0 or T == 0:
-        return dq, dk, dv
+    if B == 0 or T == 0 or S == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, nq, T), dtype=torch.float32, device=q.device)
     # fp32 dK / dV partials of each q head, summed over the group after
     group = nq // nkv
@@ -292,10 +313,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(),
             work.data_ptr() if work is not None else None,
-            B, T, nq, nkv, hd, DTYPE_CODES[q.dtype], window,
+            B, T, S, nq, nkv, hd, DTYPE_CODES[q.dtype], window, int(causal),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd launch failed: CUDA error {err}")
-    _count("flash_attention_bwd")
+    _count("flash_attention_bwd", causal)
     return dq, dk, dv

@@ -29,41 +29,45 @@ __all__ = ["FlashAttentionFn", "attention_train_ref", "flash_attention",
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """(q, k, v, window, plain) -> out, differentiable in q, k and v."""
+    """(q, k, v, causal, window, plain) -> out, differentiable in q, k and
+    v: q (B, T, nq, hd) over k / v (B, S, nkv, hd), any T and S, causal
+    or not."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window: int, plain: bool):
+    def forward(ctx, q, k, v, causal: bool, window: int, plain: bool):
         if plain:
-            out, lse = attention_lse_ref(q, k, v, window=window)
+            out, lse = attention_lse_ref(q, k, v, causal=causal,
+                                         window=window)
         else:
-            out, lse = flash_attention(q, k, v, window=window,
+            out, lse = flash_attention(q, k, v, causal=causal, window=window,
                                        return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.window, ctx.plain = window, plain
+        ctx.causal, ctx.window, ctx.plain = causal, window, plain
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
-        if ctx.plain:
-            dq, dk, dv = attention_bwd_ref(q, k, v, out, lse, dout,
-                                           window=ctx.window)
-        else:
-            dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
-                                             window=ctx.window)
-        return dq, dk, dv, None, None
+        bwd = attention_bwd_ref if ctx.plain else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, out, lse, dout, causal=ctx.causal,
+                         window=ctx.window)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, window: int = 0) -> torch.Tensor:
-    """Causal GQA attention as ``flash_attention`` computes it, with the
-    backward kernel behind it (T == S)."""
-    return FlashAttentionFn.apply(q, k, v, int(window), False)
+                          *, causal: bool = True,
+                          window: int = 0) -> torch.Tensor:
+    """GQA attention as ``flash_attention`` computes it (causal by
+    default, as the decoders call it; ``causal=False`` for an encoder or
+    a cross attention of T positions over S keys), with the backward
+    kernel behind it."""
+    return FlashAttentionFn.apply(q, k, v, bool(causal), int(window), False)
 
 
 def attention_train_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, window: int = 0) -> torch.Tensor:
+                        *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
     """The same function with the plain forward and backward, on any
     device."""
-    return FlashAttentionFn.apply(q, k, v, int(window), True)
+    return FlashAttentionFn.apply(q, k, v, bool(causal), int(window), True)

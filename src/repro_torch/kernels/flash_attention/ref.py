@@ -78,13 +78,15 @@ def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       out: torch.Tensor, lse: torch.Tensor,
-                      dout: torch.Tensor, *, window: int = 0):
+                      dout: torch.Tensor, *, causal: bool = True,
+                      window: int = 0):
     """(dq, dk, dv) in the input dtype: the reference VJP's math in one
-    tile. p = exp(s - lse) recomputed from the saved lse (B, nq, T),
-    delta = rowsum(dout * out) in fp32, dv = p^T dout, dp = dout v^T,
-    ds = p (dp - delta) scale, dq = ds k, dk = ds^T q; p and ds are
-    rounded to the input dtype before the products they feed, as
-    ``pb`` and ``dsb`` are there (``:258-266``)."""
+    tile, over the pairs ``attention_mask`` keeps (any T and S). p =
+    exp(s - lse) recomputed from the saved lse (B, nq, T), delta =
+    rowsum(dout * out) in fp32, dv = p^T dout, dp = dout v^T, ds = p (dp
+    - delta) scale, dq = ds k, dk = ds^T q; p and ds are rounded to the
+    input dtype before the products they feed, as ``pb`` and ``dsb`` are
+    there (``:258-266``)."""
     B, T, nq, hd = q.shape
     S, nkv = k.shape[1], k.shape[2]
     group = nq // nkv
@@ -94,7 +96,7 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dof = dout.to(ct).reshape(B, T, nkv, group, hd)
     kf, vf = k.to(ct), v.to(ct)
     s = torch.einsum("btngh,bsnh->bngts", qf, kf) * scale
-    mask = attention_mask(T, S, window, device=q.device)
+    mask = attention_mask(T, S, window, causal, device=q.device)
     s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     p = torch.exp(s - lse.to(ct).reshape(B, nkv, group, T)[..., None])
     delta = (dof * out.to(ct).reshape(B, T, nkv, group, hd)).sum(-1)

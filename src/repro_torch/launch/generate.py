@@ -11,6 +11,8 @@ Mamba2 layers of Zamba2, the conv window and SSM state).
     PYTHONPATH=src python -m repro_torch.launch.generate \
         --arch deepseek-moe-16b --clients 0
     PYTHONPATH=src python -m repro_torch.launch.generate \
+        --arch dbrx-132b-smoke --clients 0
+    PYTHONPATH=src python -m repro_torch.launch.generate \
         --arch whisper-small --clients 2
 
 The serving half of ``examples/serve_federated_model.py``: the clients'
@@ -19,8 +21,10 @@ training slice) are fused through ``AggregationService.aggregate`` and
 the fused tree applied as ``repro.fl.FederatedServer.run_round`` does;
 then ``generate`` teacher-forces the prompt through ``decode_step`` and
 decodes greedily. The families are the dense decoders (Qwen2-0.5B,
-Qwen2.5-3B, Minitron-8B, Gemma3-1B), the mixture-of-experts decoder
-(DeepSeek-MoE-16B), the Mamba2 / shared-attention hybrid (Zamba2-1.2B)
+Qwen2.5-3B, Minitron-8B, Gemma3-1B), the mixture-of-experts decoders
+(DeepSeek-MoE-16B, and DBRX-132B, whose 264 GB in bf16 fit no single
+80 GB card: its -smoke form serves), the Mamba2 / shared-attention
+hybrid (Zamba2-1.2B)
 and the encoder-decoder (Whisper-small): for it the CLI makes seeded
 frames (B, n_audio_frames, d), encodes them, fills the decoder's cross
 caches from the encoder output and serves the prompt over them. On the

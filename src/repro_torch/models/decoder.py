@@ -103,9 +103,18 @@ def layer_forward(cfg: ModelConfig, layer: DecoderLayer, h: torch.Tensor,
     return h + y, aux
 
 
-def _mlp_tensors(m) -> types.SimpleNamespace:
+def mlp_tensors(m) -> types.SimpleNamespace:
+    """An ``MLP``'s tensors as they are bound now (see
+    :func:`layer_tensors`)."""
     return types.SimpleNamespace(w_gate=m.w_gate, w_up=m.w_up,
                                  w_down=m.w_down)
+
+
+def attn_tensors(a) -> types.SimpleNamespace:
+    """An ``Attention``'s tensors as they are bound now (see
+    :func:`layer_tensors`)."""
+    return types.SimpleNamespace(wq=a.wq, wk=a.wk, wv=a.wv, wo=a.wo,
+                                 bq=a.bq, bk=a.bk, bv=a.bv)
 
 
 def layer_tensors(layer: DecoderLayer) -> types.SimpleNamespace:
@@ -114,18 +123,15 @@ def layer_tensors(layer: DecoderLayer) -> types.SimpleNamespace:
     ``torch.func.functional_call`` the module's attributes are the
     caller's tensors only until the call returns, before the backward
     recomputes."""
-    a = layer.attn
-    out = types.SimpleNamespace(
-        ln1=layer.ln1, ln2=layer.ln2,
-        attn=types.SimpleNamespace(wq=a.wq, wk=a.wk, wv=a.wv, wo=a.wo,
-                                   bq=a.bq, bk=a.bk, bv=a.bv))
+    out = types.SimpleNamespace(ln1=layer.ln1, ln2=layer.ln2,
+                                attn=attn_tensors(layer.attn))
     m = getattr(layer, "moe", None)
     if m is None:
-        out.mlp = _mlp_tensors(layer.mlp)
+        out.mlp = mlp_tensors(layer.mlp)
     else:
         out.moe = types.SimpleNamespace(
             router=m.router, w_gate=m.w_gate, w_up=m.w_up, w_down=m.w_down,
-            shared=None if m.shared is None else _mlp_tensors(m.shared))
+            shared=None if m.shared is None else mlp_tensors(m.shared))
     return out
 
 

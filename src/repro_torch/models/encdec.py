@@ -19,16 +19,24 @@ which writes each layer's keys and values of the encoder output
 cross caches hold ``n_audio_frames`` slots, so :meth:`EncDec.encode`
 takes exactly that many frames and raises on any other count.
 
-``loss`` gives the reference's value without a gradient; with grad mode
-on it raises, because the attention backward takes causal T == S only
-(ROADMAP §1 item 6, Whisper training).
+``loss`` is ``repro``'s ``encdec_loss`` and is differentiable: its
+attention is ``flash_attention_train`` (the forward and backward
+kernels; the encoder's and the cross attention's backward take the
+kernel's non-causal, cross-length instances), and with ``remat`` each
+encoder layer and each decoder layer runs under
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of both
+bodies; a decoder layer's ``cross_kv`` of the encoder output runs inside
+its checkpointed body, as ``_enc_kv`` does there, so the encoder's
+gradient arrives through every layer's cross keys and values.
 """
 from __future__ import annotations
 
+import types
 from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.base import (
@@ -45,7 +53,12 @@ from repro_torch.models.cache import (
     pos_tensor,
     update_attn_cache,
 )
-from repro_torch.models.decoder import DecodeAttention, PrefillAttention
+from repro_torch.models.decoder import (
+    DecodeAttention,
+    PrefillAttention,
+    attn_tensors,
+    mlp_tensors,
+)
 from repro_torch.models.layers.attention import (
     Attention,
     attention_output,
@@ -53,6 +66,7 @@ from repro_torch.models.layers.attention import (
     cross_decode,
     cross_kv,
     flash_attention,
+    flash_attention_train,
     flash_decode,
     init_attention,
     project_qkv,
@@ -101,6 +115,46 @@ def _positions(B: int, T: int, device) -> torch.Tensor:
     return torch.arange(T, dtype=torch.int32, device=device)[None].expand(B, T)
 
 
+def encoder_layer(cfg: ModelConfig, layer, h: torch.Tensor,
+                  positions: torch.Tensor,
+                  attention: PrefillAttention) -> torch.Tensor:
+    """One encoder layer: bidirectional self-attention, then the MLP."""
+    x = rms_norm(h, layer.ln1, cfg.norm_eps)
+    q, k, v = project_qkv(layer.attn, x, positions, cfg.rope_theta)
+    h = h + attention_output(layer.attn, attention(q, k, v, causal=False))
+    return h + mlp(layer.mlp, rms_norm(h, layer.ln2, cfg.norm_eps))
+
+
+def decoder_layer(cfg: ModelConfig, layer, h: torch.Tensor,
+                  enc_out: torch.Tensor, positions: torch.Tensor,
+                  attention: PrefillAttention) -> torch.Tensor:
+    """One decoder layer: causal self-attention, cross-attention over the
+    layer's ``cross_kv`` of the encoder output, then the MLP."""
+    x = rms_norm(h, layer.ln1, cfg.norm_eps)
+    q, k, v = project_qkv(layer.attn, x, positions, cfg.rope_theta)
+    h = h + attention_output(layer.attn, attention(q, k, v, causal=True))
+    ek, ev = cross_kv(layer.xattn, enc_out)
+    h = h + cross_attention(layer.xattn, rms_norm(h, layer.lnx, cfg.norm_eps),
+                            ek, ev, attention=attention)
+    return h + mlp(layer.mlp, rms_norm(h, layer.ln2, cfg.norm_eps))
+
+
+def enc_layer_tensors(layer: EncoderLayer) -> types.SimpleNamespace:
+    """The encoder layer's tensors as they are bound now: what its
+    checkpointed body recomputes from (``decoder.layer_tensors`` says
+    why)."""
+    return types.SimpleNamespace(ln1=layer.ln1, attn=attn_tensors(layer.attn),
+                                 ln2=layer.ln2, mlp=mlp_tensors(layer.mlp))
+
+
+def dec_layer_tensors(layer: DecoderLayer) -> types.SimpleNamespace:
+    """The decoder layer's tensors as they are bound now."""
+    return types.SimpleNamespace(
+        ln1=layer.ln1, attn=attn_tensors(layer.attn), lnx=layer.lnx,
+        xattn=attn_tensors(layer.xattn), ln2=layer.ln2,
+        mlp=mlp_tensors(layer.mlp))
+
+
 class EncDec(Model):
     """embed (vocab, d, tied head), enc_layers, enc_norm, dec_layers,
     final_norm: ``repro``'s ``init_encdec`` tree, in its shapes and init
@@ -121,10 +175,13 @@ class EncDec(Model):
         self.final_norm = zeros_param((cfg.d_model,), dtype, device)
 
     def encode(self, frames: torch.Tensor,
-               attention: PrefillAttention = flash_attention) -> torch.Tensor:
+               attention: PrefillAttention = flash_attention,
+               remat: bool = False) -> torch.Tensor:
         """frames (B, n_audio_frames, d), cast to the parameter dtype ->
         encoder output (B, n_audio_frames, d). ``attention`` (q, k, v,
-        causal=) -> out: the kernel's wrapper, or its plain version."""
+        causal=) -> out: the kernel's wrapper, or its plain version, or a
+        differentiable one. With ``remat`` each layer runs under
+        ``torch.utils.checkpoint``."""
         cfg = self.config
         if frames.dim() != 3 or frames.shape[1:] != (cfg.n_audio_frames,
                                                      cfg.d_model):
@@ -136,50 +193,48 @@ class EncDec(Model):
         B, S = h.shape[:2]
         positions = _positions(B, S, h.device)
         for layer in self.enc_layers:
-            x = rms_norm(h, layer.ln1, cfg.norm_eps)
-            q, k, v = project_qkv(layer.attn, x, positions, cfg.rope_theta)
-            h = h + attention_output(layer.attn,
-                                     attention(q, k, v, causal=False))
-            h = h + mlp(layer.mlp, rms_norm(h, layer.ln2, cfg.norm_eps))
+            if remat:
+                h = checkpoint(encoder_layer, cfg, enc_layer_tensors(layer),
+                               h, positions, attention, use_reentrant=False)
+            else:
+                h = encoder_layer(cfg, layer, h, positions, attention)
         return rms_norm(h, self.enc_norm, cfg.norm_eps)
 
     def decoder_forward(self, tokens: torch.Tensor, enc_out: torch.Tensor,
-                        attention: PrefillAttention = flash_attention
-                        ) -> torch.Tensor:
+                        attention: PrefillAttention = flash_attention,
+                        remat: bool = False) -> torch.Tensor:
         """tokens (B, T) over the encoder output -> hidden (B, T, d) after
         the final norm: causal self-attention, cross-attention over
-        the layer's ``cross_kv`` of the encoder output, MLP."""
+        the layer's ``cross_kv`` of the encoder output, MLP. With
+        ``remat`` each layer, its ``cross_kv`` included, runs under
+        ``torch.utils.checkpoint``."""
         cfg = self.config
         h = embed_tokens(self.embed, tokens)
         B, T = h.shape[:2]
         positions = _positions(B, T, h.device)
         for layer in self.dec_layers:
-            x = rms_norm(h, layer.ln1, cfg.norm_eps)
-            q, k, v = project_qkv(layer.attn, x, positions, cfg.rope_theta)
-            h = h + attention_output(layer.attn,
-                                     attention(q, k, v, causal=True))
-            ek, ev = cross_kv(layer.xattn, enc_out)
-            h = h + cross_attention(layer.xattn,
-                                    rms_norm(h, layer.lnx, cfg.norm_eps),
-                                    ek, ev, attention=attention)
-            h = h + mlp(layer.mlp, rms_norm(h, layer.ln2, cfg.norm_eps))
+            if remat:
+                h = checkpoint(decoder_layer, cfg, dec_layer_tensors(layer),
+                               h, enc_out, positions, attention,
+                               use_reentrant=False)
+            else:
+                h = decoder_layer(cfg, layer, h, enc_out, positions,
+                                  attention)
         return rms_norm(h, self.final_norm, cfg.norm_eps)
 
     def loss(self, batch: Dict[str, torch.Tensor],
-             attention: PrefillAttention = flash_attention):
+             attention: PrefillAttention = flash_attention_train,
+             remat: bool = True):
         """(mean next-token CE, {"ce": it}) of ``batch["tokens"]`` against
         ``batch["labels"]`` given ``batch["audio_frames"]``, as
-        ``repro``'s ``encdec_loss``; its value only: with grad mode on
-        it raises ``NotImplementedError``."""
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                f"{self.config.arch_id}: training the encoder-decoder needs "
-                "the non-causal, cross-length attention backward (ROADMAP "
-                "modules item 6, Whisper training); call loss under "
-                "torch.no_grad() for its value")
-        enc_out = self.encode(batch["audio_frames"], attention=attention)
+        ``repro``'s ``encdec_loss``: differentiable through
+        ``attention`` (``flash_attention_train`` by default,
+        ``attention_train_ref`` for the plain forward and backward), each
+        layer under ``torch.utils.checkpoint`` with ``remat``."""
+        enc_out = self.encode(batch["audio_frames"], attention=attention,
+                              remat=remat)
         h = self.decoder_forward(batch["tokens"], enc_out,
-                                 attention=attention)
+                                 attention=attention, remat=remat)
         loss = next_token_loss(h, self.embed, None, batch["labels"])
         return loss, {"ce": loss}
 

@@ -14,9 +14,10 @@ plain forward and backward).
 
 ``cross_attention`` is the encoder-decoder's: T decoder positions over
 S precomputed encoder keys and values, non-causal, through the same
-flash-attention kernel (its ``causal=False`` instances); its decode-step
-form ``cross_decode`` goes through the flash-decode kernel with every
-slot live. The sharding hooks are the identity on one card and are
+flash-attention kernel (its ``causal=False`` instances) or, in training,
+through ``flash_attention_train`` (its backward's non-causal,
+cross-length instances); its decode-step form ``cross_decode`` goes
+through the flash-decode kernel with every slot live. The sharding hooks are the identity on one card and are
 dropped.
 """
 from __future__ import annotations
@@ -120,9 +121,12 @@ def cross_attention(p: Attention, x: torch.Tensor, enc_k: torch.Tensor,
     """Full (non-causal) cross-attention of the decoder stream x (B, T, d)
     over precomputed encoder keys / values (B, S, nkv, hd), then ``wo``
     -> (B, T, d): ``repro``'s ``cross_attention``. ``attention`` (q, k,
-    v, causal=False) -> out is the kernel's wrapper, or its plain
-    version. The reference upcasts q, k, v and keeps p in fp32; the
-    kernel rounds p as its route does (exact in fp32, hi + lo in bf16)."""
+    v, causal=False) -> out is the kernel's wrapper, its plain version,
+    or a differentiable one. The reference upcasts q, k, v and keeps p
+    in fp32, and differentiates that; the kernel rounds p as its route
+    does (exact in fp32, hi + lo in bf16), and its backward rounds p and
+    ds once to a half input's dtype, as the self-attention backward
+    does."""
     o = attention(_project_q(p, x), enc_k, enc_v, causal=False)
     return attention_output(p, o)
 

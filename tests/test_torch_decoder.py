@@ -47,7 +47,7 @@ from repro_torch.models.layers.rope import apply_rope
 MODEL_TOL = dict(rtol=2e-3, atol=2e-3)   # tests/test_models.py:137-140
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
 SMOKE = ["qwen2-0.5b-smoke", "gemma3-1b-smoke", "qwen2.5-3b-smoke",
-         "minitron-8b-smoke", "deepseek-moe-16b-smoke"]
+         "minitron-8b-smoke", "deepseek-moe-16b-smoke", "dbrx-132b-smoke"]
 
 
 @pytest.fixture(autouse=True)

@@ -7,12 +7,14 @@ passes), held against ``jax.vjp`` of the JAX model's
 ``attention_bwd_ref``.
 
 The model follows the kernels block by block: a dK / dV block owns
-``kernel.bwd_tiles(hd)[0]`` keys and visits the query tiles of
-``kernel.dkdv_query_tiles``; a dQ block owns as many queries and visits
-the key tiles of ``kernel.dq_key_tiles`` (the same plan in every dtype).
-p = exp2(s * scale * log2 e - lse * log2 e) with s the unscaled fp32
-dot, masked (p = 0) only on the tiles where a warp's 16 rows cross the
-diagonal, the window's edge or T; ds = p (dp - delta) scale. bf16 /
+``kernel.bwd_tiles(hd)[0]`` keys of S and visits the query tiles of
+``kernel.dkdv_query_tiles``; a dQ block owns as many queries of T and
+visits the key tiles of ``kernel.dq_key_tiles`` (the same plan in every
+dtype), causal (the decoders, S == T) or not (the encoder-decoder's
+encoder and cross attention, any S). p = exp2(s * scale * log2 e - lse *
+log2 e) with s the unscaled fp32 dot, masked (p = 0) only on the tiles
+where a warp's 16 rows cross the diagonal (causal only), the window's
+edge, T (dK / dV) or S (dQ); ds = p (dp - delta) scale. bf16 /
 fp16: every product takes operands rounded to the input dtype and sums
 in fp32, one 16-wide k-step at a time, in the kernels' tile and k-step
 order; p enters dV rounded once, as the reference's ``pb``, and ds
@@ -92,26 +94,27 @@ def _accumulate(acc, a, b, kw, passes):
     return acc
 
 
-def bwd_model(q, k, v, out, lse, dout, window=0, *, split_p=False,
-              cast=True, passes=3):
+def bwd_model(q, k, v, out, lse, dout, window=0, *, causal=True,
+              split_p=False, cast=True, passes=3):
     """The tile kernels' arithmetic: (dq, dk, dv) of q (B, T, nq, hd),
-    k / v (B, T, nkv, hd), the forward's out and lse (B, nq, T) and
-    dout, in q's dtype (fp32, before the one rounding, when ``cast`` is
-    False). ``split_p`` feeds bf16 / fp16 p to dV as hi + lo, two rounded
+    k / v (B, S, nkv, hd), the forward's out and lse (B, nq, T) and
+    dout, causal or not, in q's dtype (fp32, before the one rounding,
+    when ``cast`` is False). ``split_p`` feeds bf16 / fp16 p to dV as hi + lo, two rounded
     terms (the forward's bf16 split), where the kernel rounds it once.
     fp32 takes 8-wide k-steps of ``passes`` TF32 products (the kernel's
     3, or 1 to show what one pass would give)."""
     dt = q.dtype
     kw, passes = (8, passes) if dt == torch.float32 else (16, 0)
     B, T, nq, hd = q.shape
-    nkv = k.shape[2]
+    S, nkv = k.shape[1], k.shape[2]
     group = nq // nkv
     rows, bq, bk = kernel.bwd_tiles(hd)
-    pad = -(-T // 64) * 64 + 64   # room for every tile that crosses T
+    # room for every tile that crosses T or S
+    pad = -(-max(T, S) // 64) * 64 + 64
 
-    def heads(x):   # (B, T, h, hd) -> (B, h, pad, hd) fp32, rows past T 0
+    def heads(x):   # (B, n, h, hd) -> (B, h, pad, hd) fp32, rows past n 0
         o = torch.zeros((B, x.shape[2], pad, hd))
-        o[:, :, :T] = x.float().transpose(1, 2)
+        o[:, :, :x.shape[1]] = x.float().transpose(1, 2)
         return o
 
     qf, gf = heads(q), heads(dout)
@@ -124,12 +127,15 @@ def bwd_model(q, k, v, out, lse, dout, window=0, *, split_p=False,
     delta = torch.zeros((B, nq, pad))
     delta[..., :T] = (dout.float() * out.float()).sum(-1).transpose(1, 2)
 
-    def p_ds(s, dp, t, keys, edge, t_end):
+    def p_ds(s, dp, t, keys, edge, t_end, s_end):
         """p and ds of a (queries t) x (keys) tile of scores s, dp; the
-        mask (queries at or past ``t_end`` dead too) applies where
-        ``edge`` (per query row or key column) is set."""
+        mask (queries at or past ``t_end`` and keys at or past ``s_end``
+        dead too) applies where ``edge`` (per query row or key column)
+        is set."""
         p = torch.exp2(s * scale_log2 - lse2[:, :, t, None])
-        live = (keys[None, :] <= t[:, None]) & (t < t_end)[:, None]
+        live = (t < t_end)[:, None] & (keys < s_end)[None, :]
+        if causal:
+            live &= keys[None, :] <= t[:, None]
         if window > 0:
             live &= t[:, None] - keys[None, :] < window
         p = torch.where(edge & ~live, torch.zeros(()), p)
@@ -141,22 +147,24 @@ def bwd_model(q, k, v, out, lse, dout, window=0, *, split_p=False,
     # dK / dV: per key block, the live query tiles in order
     dk_part = torch.zeros((B, nq, pad, hd))
     dv_part = torch.zeros((B, nq, pad, hd))
-    for k0 in range(0, T, rows):
+    for k0 in range(0, S, rows):
         keys = torch.arange(k0, k0 + rows)
         kw0 = k0 + 16 * ((keys - k0) // 16)   # each key's warp's first key
         dk_acc = torch.zeros((B, nq, rows, hd))
         dv_acc = torch.zeros((B, nq, rows, hd))
-        for qt in kernel.dkdv_query_tiles(k0, T, window, hd):
+        for qt in kernel.dkdv_query_tiles(k0, T, window, hd, S=S,
+                                          causal=causal):
             q0 = qt * bq
             t = torch.arange(q0, q0 + bq)
-            edge = (q0 < kw0 + 15) | (q0 + bq > T)
+            edge = ((q0 < kw0 + 15) & causal) | (q0 + bq > T)
             if window > 0:
                 edge |= q0 + bq - 1 - kw0 >= window
             s = _products(qf[:, :, q0:q0 + bq], kf[:, :, k0:k0 + rows], kw,
                           passes)
             dp = _products(gf[:, :, q0:q0 + bq], vf[:, :, k0:k0 + rows], kw,
                            passes)
-            p, ds = p_ds(s, dp, t, keys, edge[None, :], T)
+            # keys past S are never stored
+            p, ds = p_ds(s, dp, t, keys, edge[None, :], T, pad)
             pt, dst = p.transpose(-1, -2), ds.transpose(-1, -2)
             if split_p:
                 hi = rounded(pt)
@@ -178,18 +186,18 @@ def bwd_model(q, k, v, out, lse, dout, window=0, *, split_p=False,
         t = torch.arange(q0, q0 + rows)
         qw0 = q0 + 16 * ((t - q0) // 16)   # each row's warp's first row
         acc = torch.zeros((B, nq, rows, hd))
-        for kt in kernel.dq_key_tiles(q0, T, window, hd):
+        for kt in kernel.dq_key_tiles(q0, T, window, hd, S=S, causal=causal):
             k0 = kt * bk
             keys = torch.arange(k0, k0 + bk)
-            edge = k0 + bk - 1 > qw0
+            edge = ((k0 + bk - 1 > qw0) & causal) | (k0 + bk > S)
             if window > 0:
                 edge |= qw0 + 15 - k0 >= window
             s = _products(qf[:, :, q0:q0 + rows], kf[:, :, k0:k0 + bk], kw,
                           passes)
             dp = _products(gf[:, :, q0:q0 + rows], vf[:, :, k0:k0 + bk], kw,
                            passes)
-            _, ds = p_ds(s, dp, t, keys, edge[:, None], pad)   # rows past T
-            # are dropped at the end
+            _, ds = p_ds(s, dp, t, keys, edge[:, None], pad, S)   # rows
+            # past T are dropped at the end
             acc = _accumulate(acc, rounded(ds), kf[:, :, k0:k0 + bk], kw,
                               passes)
         dq[:, :, q0:q0 + rows] = acc
@@ -202,24 +210,25 @@ def bwd_model(q, k, v, out, lse, dout, window=0, *, split_p=False,
 
     dk = summed(dk_part) if group > 1 else dk_part
     dv = summed(dv_part) if group > 1 else dv_part
-    grads = [x[:, :, :T].transpose(1, 2) for x in (dq, dk, dv)]
+    grads = [x[:, :, :n].transpose(1, 2)
+             for x, n in ((dq, T), (dk, S), (dv, S))]
     return tuple(x.to(dt) for x in grads) if cast else tuple(grads)
 
 
-def _inputs(seed, B, T, nq, nkv, hd, dtype):
+def _inputs(seed, B, T, nq, nkv, hd, dtype, S=None):
     rng = np.random.default_rng(seed)
+    S = T if S is None else S
     arrays = [rng.normal(size=s).astype(np.float32) for s in
-              ((B, T, nq, hd), (B, T, nkv, hd), (B, T, nkv, hd),
+              ((B, T, nq, hd), (B, S, nkv, hd), (B, S, nkv, hd),
                (B, T, nq, hd))]
     return [torch.from_numpy(a).to(dtype) for a in arrays]
 
 
-def _jax_vjp(q, k, v, g, window):
+def _jax_vjp(q, k, v, g, window, causal=True):
     jd = JDT[q.dtype]
     args = [jnp.asarray(t.float().numpy()).astype(jd) for t in (q, k, v)]
-    _, vjp = jax.vjp(lambda a, b, c: blockwise_attention(a, b, c,
-                                                         window=window),
-                     *args)
+    _, vjp = jax.vjp(lambda a, b, c: blockwise_attention(
+        a, b, c, causal=causal, window=window), *args)
     grads = vjp(jnp.asarray(g.float().numpy()).astype(jd))
     return [np.asarray(x, np.float32) for x in grads]
 
@@ -250,8 +259,37 @@ CASES = [
     (1, 70, 2, 1, 256, 20, torch.float32),     # hd 256, MQA
     (1, 100, 4, 1, 256, 0, torch.float32),     # hd 256, four key blocks
 ]
-IDS = [f"B{c[0]}-T{c[1]}-{c[2]}x{c[3]}-hd{c[4]}-w{c[5]}-"
-       f"{str(c[6]).split('.')[-1]}" for c in CASES]
+# non-causal (B, T, S, nq, nkv, hd, window, dtype): Whisper's shapes cut
+# down (an encoder layer T == S; the cross attention, T < S), T > S,
+# ragged S past a key tile, one-sided windows with T <= S (every query
+# keeps a live key), hd 32 to 256, every dtype
+NONCAUSAL = [
+    (2, 70, 70, 4, 4, 64, 0, torch.bfloat16),     # an encoder layer
+    (1, 30, 150, 4, 4, 64, 0, torch.bfloat16),    # cross attention, T < S
+    (1, 150, 45, 4, 2, 32, 0, torch.float16),     # T > S, GQA
+    (1, 40, 90, 4, 1, 128, 7, torch.bfloat16),    # window 7, hd 128
+    (1, 20, 70, 2, 1, 256, 0, torch.float16),     # hd 256
+    (2, 70, 70, 4, 4, 64, 0, torch.float32),      # an encoder layer
+    (1, 30, 150, 4, 4, 64, 0, torch.float32),     # cross attention, T < S
+    (1, 150, 45, 4, 2, 32, 0, torch.float32),     # T > S, GQA
+    (1, 40, 90, 4, 1, 128, 7, torch.float32),     # window 7, hd 128
+    (1, 20, 70, 2, 1, 256, 3, torch.float32),     # hd 256, window 3
+]
+
+
+def _dt(d):
+    return str(d).split(".")[-1]
+
+
+# the causal cases keep their names from before the non-causal ones came
+ALL = ([pytest.param(B, T, T, nq, nkv, hd, w, True, dt,
+                     id=f"B{B}-T{T}-{nq}x{nkv}-hd{hd}-w{w}-{_dt(dt)}")
+        for B, T, nq, nkv, hd, w, dt in CASES]
+       + [pytest.param(B, T, S, nq, nkv, hd, w, False, dt,
+                       id=f"noncausal-B{B}-T{T}-S{S}-{nq}x{nkv}-hd{hd}-w{w}-"
+                          f"{_dt(dt)}")
+          for B, T, S, nq, nkv, hd, w, dt in NONCAUSAL])
+ARGS = "B,T,S,nq,nkv,hd,window,causal,dtype"
 
 
 @pytest.fixture(autouse=True)
@@ -261,28 +299,42 @@ def _no_launches():
     assert kernel.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0}
 
 
-def _model_case(B, T, nq, nkv, hd, window, dtype, **kw):
-    q, k, v, g = _inputs(T + nq + hd + window, B, T, nq, nkv, hd, dtype)
-    out, lse = ref.attention_lse_ref(q, k, v, window=window)
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread for these small CPU tensors: under a parallel
+    test run, torch's default of a thread a core in every worker made a
+    float64 ``gradcheck`` here take minutes instead of seconds."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _model_case(B, T, S, nq, nkv, hd, window, causal, dtype, **kw):
+    seed = T + nq + hd + window + (0 if causal else S)
+    q, k, v, g = _inputs(seed, B, T, nq, nkv, hd, dtype, S=S)
+    out, lse = ref.attention_lse_ref(q, k, v, causal=causal, window=window)
     return (q, k, v, out, lse, g), bwd_model(q, k, v, out, lse, g, window,
-                                             **kw)
+                                             causal=causal, **kw)
 
 
-@pytest.mark.parametrize("B,T,nq,nkv,hd,window,dtype", CASES, ids=IDS)
-def test_model_matches_blockwise_attention_vjp(B, T, nq, nkv, hd, window,
-                                               dtype):
-    (q, k, v, _, _, g), got = _model_case(B, T, nq, nkv, hd, window, dtype)
-    want = _jax_vjp(q, k, v, g, window)
+@pytest.mark.parametrize(ARGS, ALL)
+def test_model_matches_blockwise_attention_vjp(B, T, S, nq, nkv, hd, window,
+                                               causal, dtype):
+    (q, k, v, _, _, g), got = _model_case(B, T, S, nq, nkv, hd, window,
+                                          causal, dtype)
+    want = _jax_vjp(q, k, v, g, window, causal)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and a.shape == b.shape
         np.testing.assert_allclose(a.float().numpy(), b, err_msg=name,
                                    **TOL[dtype])
 
 
-@pytest.mark.parametrize("B,T,nq,nkv,hd,window,dtype", CASES, ids=IDS)
-def test_model_matches_attention_bwd_ref(B, T, nq, nkv, hd, window, dtype):
-    args, got = _model_case(B, T, nq, nkv, hd, window, dtype)
-    want = ref.attention_bwd_ref(*args, window=window)
+@pytest.mark.parametrize(ARGS, ALL)
+def test_model_matches_attention_bwd_ref(B, T, S, nq, nkv, hd, window,
+                                         causal, dtype):
+    args, got = _model_case(B, T, S, nq, nkv, hd, window, causal, dtype)
+    want = ref.attention_bwd_ref(*args, causal=causal, window=window)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == b.dtype == dtype
         np.testing.assert_allclose(a.float().numpy(), b.float().numpy(),
@@ -340,14 +392,16 @@ def test_one_tf32_pass_breaks_the_tolerance():
         assert (worst < 1.0) if ok else (worst > 5.0), (passes, worst)
 
 
-def _visits(tiles_of, T, window, hd, block, tile, owner_is_key):
-    """(T, T) count of the visits each (query, key) pair gets from the
-    blocks of ``block`` rows and their tiles of ``tile`` rows."""
-    n = np.zeros((T, T), np.int64)
-    for r0 in range(0, T, block):
-        own = slice(r0, min(r0 + block, T))
-        for i in tiles_of(r0, T, window, hd):
-            other = slice(i * tile, min((i + 1) * tile, T))
+def _visits(tiles_of, T, S, window, hd, block, tile, owner_is_key):
+    """(T, S) count of the visits each (query, key) pair gets from the
+    blocks of ``block`` rows (keys of S when ``owner_is_key``, else
+    queries of T) and their tiles of ``tile`` rows."""
+    n = np.zeros((T, S), np.int64)
+    own_n, other_n = (S, T) if owner_is_key else (T, S)
+    for r0 in range(0, own_n, block):
+        own = slice(r0, min(r0 + block, own_n))
+        for i in tiles_of(r0, window):
+            other = slice(i * tile, min((i + 1) * tile, other_n))
             if owner_is_key:
                 n[other, own] += 1
             else:
@@ -355,30 +409,45 @@ def _visits(tiles_of, T, window, hd, block, tile, owner_is_key):
     return n
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
-@pytest.mark.parametrize("T,window", [
+# the causal cases with S == T keep their names from before the others
+SCHEDULES = [pytest.param(T, T, w, True, id=f"{T}-{w}") for T, w in [
     (1, 0), (17, 0), (70, 0), (70, 1), (70, 5), (70, 69), (300, 64),
     (512, 0), (1280, 1024), (1000, 2048), (333, 31),
-])
-def test_schedules_visit_every_live_pair_once(hd, T, window):
+]] + [pytest.param(T, S, w, c, id=f"{'' if c else 'non'}causal-T{T}-S{S}-w{w}")
+      for T, S, w, c in [
+    (1536, 1536, 0, False), (448, 1536, 0, False), (1536, 448, 0, False),
+    (70, 70, 5, False), (17, 300, 64, False), (333, 100, 31, False),
+    (300, 17, 0, False), (100, 333, 31, True), (333, 100, 31, True),
+    (70, 1, 0, False), (1, 70, 0, True),
+]]
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("T,S,window,causal", SCHEDULES)
+def test_schedules_visit_every_live_pair_once(hd, T, S, window, causal):
     """``dkdv_query_tiles`` and ``dq_key_tiles`` (the CUDA loop bounds)
     visit every live (query, key) pair exactly once, and no tile that
-    holds no live pair for its block."""
+    holds no live pair for its block, causal or not, at any T and S; a
+    block whose keys no query reaches visits nothing."""
     rows, bq, bk = kernel.bwd_tiles(hd)
-    t, s = np.arange(T)[:, None], np.arange(T)[None, :]
-    live = s <= t
+    t, s = np.arange(T)[:, None], np.arange(S)[None, :]
+    live = s <= t if causal else np.ones((T, S), bool)
     if window > 0:
         live &= t - s < window
+    kw = dict(S=S, causal=causal)
     for tiles_of, tile, owner_is_key in (
-            (kernel.dkdv_query_tiles, bq, True),
-            (kernel.dq_key_tiles, bk, False)):
-        n = _visits(tiles_of, T, window, hd, rows, tile, owner_is_key)
+            (lambda r0, w: kernel.dkdv_query_tiles(r0, T, w, hd, **kw), bq,
+             True),
+            (lambda r0, w: kernel.dq_key_tiles(r0, T, w, hd, **kw), bk,
+             False)):
+        n = _visits(tiles_of, T, S, window, hd, rows, tile, owner_is_key)
         assert (n[live] == 1).all()
         assert n.max() <= 1
-        for r0 in range(0, T, rows):   # every visited tile holds live work
-            own = slice(r0, min(r0 + rows, T))
-            for i in tiles_of(r0, T, window, hd):
-                other = slice(i * tile, min((i + 1) * tile, T))
+        own_n, other_n = (S, T) if owner_is_key else (T, S)
+        for r0 in range(0, own_n, rows):   # every visited tile holds live
+            own = slice(r0, min(r0 + rows, own_n))   # work
+            for i in tiles_of(r0, window):
+                other = slice(i * tile, min((i + 1) * tile, other_n))
                 block = live[other, own] if owner_is_key else live[own, other]
                 assert block.any(), (r0, i)
 
@@ -391,7 +460,11 @@ def test_bwd_tiles_and_instances():
     with pytest.raises(ValueError, match="head dim"):
         kernel.bwd_tiles(16)
     inst = kernel.bwd_instances()
-    assert len(inst) == len(set(inst)) == 30
+    # 2 common kernels a dtype, and 2 tile kernels a dtype at 4 head dims,
+    # each causal and not
+    assert len(inst) == len(set(inst)) == 3 * (2 + 2 * 4 * 2) == 54
+    assert {c for name, _, hd, c in inst
+            if name in kernel.BWD_COMMON_KERNELS} == {None}
     assert kernel.bwd_route(torch.bfloat16).startswith("tensor cores")
     assert kernel.bwd_route(torch.float32) == \
         "tensor cores (mma.sync, 3 x TF32)"
@@ -412,7 +485,7 @@ def test_bwd_kernels_are_the_source_kernels():
     found = set(re.findall(
         r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(bwd_\w+)\(",
         src))
-    named = {name for name, _, _ in kernel.bwd_instances()}
+    named = {name for name, _, _, _ in kernel.bwd_instances()}
     assert found == named
 
 

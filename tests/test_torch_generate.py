@@ -72,7 +72,8 @@ def _clients(params, n, seed):
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b-smoke", "gemma3-1b-smoke",
                                   "zamba2-1.2b-smoke", "minitron-8b-smoke",
-                                  "deepseek-moe-16b-smoke"])
+                                  "deepseek-moe-16b-smoke",
+                                  "dbrx-132b-smoke"])
 def test_fused_model_generates_as_the_reference(arch):
     jcfg = jget_config(arch)
     jmodel = jbuild_model(jcfg)

@@ -251,7 +251,7 @@ def _batch(vocab, B, T, seed):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b-smoke",
-                                  "minitron-8b-smoke"])
+                                  "minitron-8b-smoke", "dbrx-132b-smoke"])
 def test_decoder_loss_and_grads_match_reference(arch):
     """fp32 smoke models at T = 40: the loss (for the MoE model with the
     weighted load-balance loss of the scatter path, capacity drops
@@ -313,10 +313,11 @@ def test_remat_on_and_off_give_equal_moe_gradients():
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "minitron-8b",
-                                  "qwen2.5-3b"])
+                                  "qwen2.5-3b", "dbrx-132b"])
 def test_full_size_tree_matches_the_reference(arch):
     """The full configs on the meta device: ``repro``'s tree, leaf for
-    leaf (names, shapes, the router in fp32), and its parameter count."""
+    leaf (names, shapes, the router in fp32), and its parameter count;
+    DBRX-132B's MoE layers hold no shared experts."""
     cfg = get_config(arch)
     net = Decoder(cfg, device="meta")
     ref = jax.eval_shape(jbuild_model(jget_config(arch)).init,
@@ -334,9 +335,13 @@ def test_full_size_tree_matches_the_reference(arch):
         m = layer["moe"]
         for name in ("router", "w_gate", "w_up", "w_down"):
             want[f"layers.{L - 1}.moe.{name}"] = getattr(m, name).shape[1:]
-        for name in ("w_gate", "w_up", "w_down"):
-            want[f"layers.{L - 1}.moe.shared.{name}"] = \
-                getattr(m.shared, name).shape[1:]
+        if m.shared is None:
+            assert not any(".moe.shared." in k for k in shapes)
+            assert net.layers[0].moe.shared is None
+        else:
+            for name in ("w_gate", "w_up", "w_down"):
+                want[f"layers.{L - 1}.moe.shared.{name}"] = \
+                    getattr(m.shared, name).shape[1:]
         assert dtypes["layers.0.moe.router"] == torch.float32
         assert dtypes["layers.0.moe.w_gate"] == torch.bfloat16
     else:
@@ -362,22 +367,31 @@ def test_importing_moe_loads_no_jax():
     assert res.returncode == 0 and res.stdout.strip() == "OK", res.stderr
 
 
-def test_cli_serves_the_moe_model_without_a_fusion_round():
-    """``--clients 0`` serves the seeded model as it is (a full-size
-    DeepSeek-MoE-16B client does not fit beside the model on one card);
-    the MoE run says how prefill and decode differ."""
+def _cli_serves_unfused(arch):
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.generate", "--arch",
-         "deepseek-moe-16b-smoke", "--device", "cpu", "--clients", "0",
+         arch, "--device", "cpu", "--clients", "0",
          "--batch", "2", "--prompt-len", "6", "--new-tokens", "4",
          "--seed", "3"],
         cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO / "src")),
         capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr
     lines = res.stdout.splitlines()
-    assert lines[0] == (f"[serve] deepseek-moe-16b-smoke: "
-                        f"{get_config('deepseek-moe-16b-smoke').num_params()}"
+    assert lines[0] == (f"[serve] {arch}: {get_config(arch).num_params()}"
                         " params, no fusion round (--clients 0)")
     assert "capacity factor 1.25, a decode step none" in lines[1]
     assert lines[-1].startswith("[serve] tokens:")
+
+
+def test_cli_serves_the_moe_model_without_a_fusion_round():
+    """``--clients 0`` serves the seeded model as it is (a full-size
+    DeepSeek-MoE-16B client does not fit beside the model on one card);
+    the MoE run says how prefill and decode differ."""
+    _cli_serves_unfused("deepseek-moe-16b-smoke")
+
+
+def test_cli_serves_dbrx_smoke():
+    """The generate CLI serves DBRX-132B at its -smoke size (the full
+    model, 264 GB in bf16, fits no single 80 GB card)."""
+    _cli_serves_unfused("dbrx-132b-smoke")
 

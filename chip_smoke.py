@@ -5,7 +5,8 @@
 
 Phase 0 requires a CUDA device, prints the card's name and power limit as
 ``nvidia-smi`` gives them, builds the CUDA kernels from
-``src/repro_torch/csrc`` (one nvcc per source, side by side), counts
+``src/repro_torch/csrc`` (one nvcc per source, side by side), dumps
+each library's SASS (one cuobjdump each, side by side), counts
 the attention library's tensor-core, async-copy and ldmatrix
 instructions in its SASS, and the decode library's 16-byte loads and
 copies and cluster barriers, its registers and spills (``ptxas -v``) and
@@ -160,8 +161,16 @@ tokens) on 8 layers, an fp32 one on 2 layers against the plain
 attention, and a FedAvg of 2 clients on 2 layers. Phase 1 holds the
 attention kernel's non-causal route (Whisper's encoder layer and cross
 attention in bf16 and fp32, ragged T and S, windows) and the decode
-kernel's Whisper steps against their plain versions too.
-Phases 2-12
+kernel's Whisper steps against their plain versions too. Phase 13, run
+after phase 12 and before phase 9, serves xLSTM-350M (21 mLSTM and 3
+sLSTM blocks, plain PyTorch: the reference has no kernel for either
+cell) at full width and depth: in bf16 a FedAvg of 4 clients through
+the weighted sum against float64 Eq. 1 (its fp32 gate leaves too),
+prefills of 4 x 1024 (one profiled: busy share, host launches) and a 64
++ 32-token generate (7 steps profiled); in fp32 prefills of 2 x 512 and
+1 x 300 against teacher-forced decoding; the CLI with 2 clients. It
+must launch the weighted sum once a fusion and no other kernel.
+Phases 2-13
 each start with the launch counts at 0, and every serving run must
 launch exactly what its prefills, decode steps and fusions take. The
 second-to-last line is ``{"kernels": [...]}`` and the last
@@ -171,6 +180,7 @@ machine without a card, or a directory that holds this file alone.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -2308,8 +2318,10 @@ def _sdpa(q, k, v, mask=None, causal=False):
         qt, kt, vt, attn_mask=mask, is_causal=causal, enable_gqa=gqa)
 
 
+@functools.lru_cache(maxsize=None)
 def _sass(name: str) -> str:
-    """The SASS of the built library ``lib<name>.so``."""
+    """The SASS of the built library ``lib<name>.so``, dumped once (phase
+    0 dumps every library's together, one ``cuobjdump`` each)."""
     from repro_torch.kernels import _build
 
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
@@ -2381,8 +2393,10 @@ def _template_label(fn: str, entry: str) -> str:
 
 
 def _sass_sections(sass: str):
-    """{mangled kernel name: its SASS text}."""
-    parts = re.split(r"\s+Function : (\S+)", sass)
+    """{mangled kernel name: its SASS text}. The split is anchored at a
+    line's start: a pattern that opens with ``\\s+`` is retried at every
+    blank of a listing's deep indentation, and took seconds a library."""
+    parts = re.split(r"\n\s*Function : (\S+)", sass)
     return dict(zip(parts[1::2], parts[2::2]))
 
 
@@ -3424,6 +3438,45 @@ def phase_ssd_bwd_kernel(dev, hbm_bw, mma_peak):
     return cases
 
 
+def _kineto_records(prof):
+    """({kernel name: (calls, device ns)}, {host op name: (calls, self
+    ns)}) of a finished ``torch.profiler`` session, from its raw kineto
+    records; spin kernels are left out. (``key_averages`` builds an
+    event tree over every record first, the slowest part of a profile
+    with many records: an xLSTM-350M prefill has ~67,000 kernels.) A
+    host op's self time is its span less the spans nested in it on its
+    thread, as ``key_averages`` counts it."""
+    kernels, host, threads = {}, {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            if "spin" not in e.name():
+                calls, ns = kernels.get(e.name(), (0, 0))
+                kernels[e.name()] = (calls + 1, ns + e.duration_ns())
+        else:
+            threads.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), e.end_ns(), e.name()))
+    for spans in threads.values():
+        spans.sort(key=lambda sp: (sp[0], -sp[1]))
+        stack = []   # [end, name, self ns] of the open spans, outermost first
+        for start, end, name in spans + [(math.inf, math.inf, None)]:
+            while stack and stack[-1][0] <= start:
+                _, done, own = stack.pop()
+                calls, ns = host.get(done, (0, 0))
+                host[done] = (calls + 1, ns + own)
+            if name is not None:
+                if stack:
+                    stack[-1][2] -= end - start
+                stack.append([end, name, end - start])
+    return kernels, host
+
+
+def _top(records, top, width):
+    """The ``top`` largest of {name: (calls, ns)}, as "name ms xcalls"."""
+    lead = sorted(records.items(), key=lambda kv: -kv[1][1])[:top]
+    return "; ".join(f"{name[:width]} {ns / 1e6:.3f} x{calls}"
+                     for name, (calls, ns) in lead)
+
+
 def _profile(fn, what, top=6, phase="phase4"):
     """Device busy time and the kernels and host ops that take the most
     time in one run of ``fn``, under ``torch.profiler`` (CPU + CUDA).
@@ -3441,23 +3494,15 @@ def _profile(fn, what, top=6, phase="phase4"):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    kernels = [e for e in events if str(e.device_type).endswith("CUDA")
-               and "spin" not in e.key]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    by_device = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    by_host = sorted((e for e in events if e not in kernels),
-                     key=lambda e: -e.self_cpu_time_total)
+    kernels, host = _kineto_records(prof)
+    busy_ms = sum(ns for _, ns in kernels.values()) / 1e6
     print(f"[{phase}] profile {what}: wall {wall_ms:.3f} ms under the "
           f"profiler, device busy {busy_ms:.3f} ms "
           f"({busy_ms / wall_ms:.1%}); top kernels (ms, calls): "
-          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} "
-                      f"x{e.count}" for e in by_device[:top])
-          + "; top host ops (self ms, calls): "
-          + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.3f} "
-                      f"x{e.count}" for e in by_host[:top]), flush=True)
-    return wall_ms, busy_ms, {e.key: (e.count, e.self_device_time_total / 1e3)
-                              for e in kernels}
+          f"{_top(kernels, top, 60)}; top host ops (self ms, calls): "
+          f"{_top(host, top, 40)}", flush=True)
+    return wall_ms, busy_ms, {name: (calls, ns / 1e6)
+                              for name, (calls, ns) in kernels.items()}
 
 
 def _decode_profile(fn, steps, per_step, what, phase, tries=5):
@@ -3506,9 +3551,11 @@ def _per_call(cfg):
     once per call point of the shared block; the encoder-decoder runs
     flash_attention once per encoder layer and twice per decoder layer
     (self, cross) in prefill, flash_decode twice per decoder layer in a
-    step."""
+    step; the xLSTM reaches no kernel in either."""
     from repro_torch.models.zamba import call_points
 
+    if cfg.xlstm is not None:
+        return {}, {}
     if cfg.family == "audio":
         return ({"flash_attention": cfg.n_encoder_layers + 2 * cfg.n_layers},
                 {"flash_decode": 2 * cfg.n_layers})
@@ -3566,8 +3613,9 @@ def _prefill_vs_decode(model, tokens, what, rtol, atol, phase="phase4",
     """Prefill's last-position logits (flash-attention kernel, and the
     SSD-scan kernel in a hybrid) against the same tokens teacher-forced
     through ``decode_step`` (flash-decode kernel) and against prefill
-    through the plain versions. An encoder-decoder takes ``frames``:
-    the decode steps read cross caches its encoder output fills."""
+    through the plain versions (not for the xLSTM, whose prefill has no
+    kernel to swap). An encoder-decoder takes ``frames``: the decode
+    steps read cross caches its encoder output fills."""
     import torch
 
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -3594,15 +3642,18 @@ def _prefill_vs_decode(model, tokens, what, rtol, atol, phase="phase4",
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     delta = _launch_delta(before)
-    plain_kw = {"attention": attention_ref}
-    if model.config.ssm is not None:
-        plain_kw["ssd"] = ssd_scan_ref
-    plain = model.prefill(batch, **plain_kw)
     tf = logits[:, 0]
     err_tf = _check_close(tf.cpu().numpy(), pre.double().cpu().numpy(),
                           rtol, atol, f"{what}: teacher-forced vs prefill")
-    err_plain = _check_close(plain.cpu().numpy(), pre.double().cpu().numpy(),
-                             rtol, atol, f"{what}: plain vs kernel prefill")
+    err_plain = None     # the xLSTM's prefill reaches no kernel
+    if model.config.xlstm is None:
+        plain_kw = {"attention": attention_ref}
+        if model.config.ssm is not None:
+            plain_kw["ssd"] = ssd_scan_ref
+        plain = model.prefill(batch, **plain_kw)
+        err_plain = _check_close(plain.cpu().numpy(),
+                                 pre.double().cpu().numpy(), rtol, atol,
+                                 f"{what}: plain vs kernel prefill")
     print(f"[{phase}] {what}: prefill {B}x{T} {prefill_s * 1e3:.3f} ms, "
           f"{T} teacher-forced steps {decode_s:.3f} s; max_abs_err "
           f"teacher-forced={err_tf} plain={err_plain} (rtol={rtol}, "
@@ -4484,6 +4535,195 @@ def phase_whisper_llava(dev, cases):
     return out
 
 
+XLSTM_CLIENTS = 4   # clients of phase 13's full-size FedAvg
+
+
+def _profile_launches(fn, what, phase, runs=1):
+    """``_profile`` of ``fn``, and the device kernels it recorded (spins
+    left out), each one a host launch; per run of ``runs``."""
+    wall, busy, kernels = _profile(fn, what, phase=phase)
+    n = sum(c for c, _ in kernels.values())
+    print(f"[{phase}] {what}: {n / runs:.0f} device kernels (host launches) "
+          f"a run, busy {busy / wall:.1%} of the profiled wall", flush=True)
+    return wall, busy, n / runs
+
+
+def phase_xlstm(dev):
+    """Phase 13: xLSTM-350M (21 mLSTM and 3 sLSTM blocks, no kernel of
+    its own) through ``build_model`` and ``launch.generate``. (a) At full
+    width and depth in bf16: a FedAvg of ``XLSTM_CLIENTS`` perturbed
+    clients through ``fuse_clients`` (one weighted_sum launch) against
+    float64 Eq. 1 a parameter at a time, the fp32 gate leaves (w_if,
+    b_if, r, b) among them and equal to their fused values; prefills of
+    4 x 1024 (median of 10 after the first, the enqueue beside it, one
+    profiled: busy share, top kernels, host launches); a 64-token
+    teacher-forced + 32-token greedy generate (7 steps profiled); the
+    peak memory. (b) In fp32 at full width and depth, prefills of 2 x
+    512 (two chunks of 256) and 1 x 300 (one chunk of 300) against the
+    same tokens teacher-forced through ``decode_step`` at 2e-3. (c) The
+    generate CLI at full size with 2 clients. No run may launch any
+    kernel but the fusions' weighted sums."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import generate as gen
+    from repro_torch.models import build_model
+
+    rng = np.random.default_rng(SEED + 13)
+    out = {}
+    cfg = get_config("xlstm-350m")
+    arch = cfg.arch_id
+    mark = [time.perf_counter()]
+
+    def done(step):
+        """Prints and keeps the seconds since the last step ended."""
+        now = time.perf_counter()
+        out[f"{step}_s"] = now - mark[0]
+        print(f"[phase13] {step}: done in {now - mark[0]:.3f} s", flush=True)
+        mark[0] = now
+
+    # (a) bf16, full width and depth
+    print(f"[phase13] {arch}: building bf16, {cfg.n_layers} blocks",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    if n != cfg.num_params():
+        raise AssertionError(f"{arch}: {n} params, want {cfg.num_params()}")
+    print(f"[phase13] {arch}: built {n} params in "
+          f"{time.perf_counter() - t0:.3f} s, "
+          f"{_gb(torch.cuda.memory_allocated()):.2f} GB on the card",
+          flush=True)
+
+    print(f"[phase13] {arch}: fusing {XLSTM_CLIENTS} clients", flush=True)
+    clients = gen.perturbed_clients(model, XLSTM_CLIENTS, seed=SEED + 1)
+    weights = rng.integers(1, 100, size=XLSTM_CLIENTS).astype(np.float32)
+    before = _all_launches()
+    t0 = time.perf_counter()
+    fused, report = gen.fuse_clients(model, clients, weights)
+    torch.cuda.synchronize()
+    out["fuse_s"] = time.perf_counter() - t0
+    delta = _launch_delta(before)
+    _serving_launches(delta, f"{arch} fusion", cfg, 0, 0, fusions=1)
+    print(f"[phase13] {arch} bf16 FedAvg of {XLSTM_CLIENTS} clients: "
+          f"wall={out['fuse_s']:.3f}s fuse={report.fuse_seconds:.3f}s "
+          f"phases={report.phase_seconds} launches={delta}", flush=True)
+    out["fuse_max_abs_err"] = _fused_vs_eq1(
+        fused, clients, weights, model.state_dict(),
+        f"{arch} bf16 FedAvg of {XLSTM_CLIENTS} clients", "phase13")
+    offset, fp32 = 0, []
+    for name, p in model.state_dict().items():
+        if p.dtype == torch.float32:
+            if not torch.equal(p.reshape(-1),
+                               fused[offset:offset + p.numel()]):
+                raise AssertionError(f"{arch}: fp32 leaf {name} does not "
+                                     "hold its fused value")
+            fp32.append(name)
+        offset += p.numel()
+    if len(fp32) != 2 * cfg.n_layers:
+        raise AssertionError(f"{arch}: fp32 leaves {fp32}")
+    print(f"[phase13] {arch}: the {len(fp32)} fp32 gate leaves hold their "
+          "fused values", flush=True)
+    del clients, fused
+    torch.cuda.empty_cache()
+    done("build_and_fusion")
+
+    print(f"[phase13] {arch}: prefills 4x1024", flush=True)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           size=(4, 1024))).to(dev)
+    before = _all_launches()
+    last, first_ms, prefill_ms, enqueue_ms = _time_prefill(model, prompt)
+    _serving_launches(_launch_delta(before), f"{arch} prefills", cfg,
+                      PREFILL_REPS + 1, 0)
+    if tuple(last.shape) != (4, cfg.vocab) or not torch.isfinite(last).all():
+        raise AssertionError(f"{arch} prefill logits {tuple(last.shape)}")
+    out["prefill_ms"] = prefill_ms
+    out["prefill_enqueue_ms"] = enqueue_ms
+    print(f"[phase13] {arch} bf16 prefill 4x1024: {prefill_ms:.3f} ms "
+          f"(median of {PREFILL_REPS}; host enqueue {enqueue_ms:.3f} ms; "
+          f"first call {first_ms:.3f} ms)", flush=True)
+    done("timed_prefills")
+    before = _all_launches()
+    wall, busy, n = _profile_launches(
+        lambda: model.prefill({"tokens": prompt}),
+        f"{arch} bf16 prefill 4x1024", "phase13")
+    _serving_launches(_launch_delta(before), f"{arch} profiled prefill", cfg,
+                      1, 0)
+    out["prefill_device_busy_ms"] = busy
+    out["prefill_device_busy_share"] = busy / wall
+    out["prefill_launches"] = n
+    del last
+    done("profiled_prefill")
+
+    print(f"[phase13] {arch}: decoding", flush=True)
+    prompt = prompt[:, :64].contiguous()
+    n_new = 32
+    gen.generate(model, prompt[:, :4], 2, cache_len=2048)    # warm-up
+    torch.cuda.synchronize()
+    before = _all_launches()
+    t0 = time.perf_counter()
+    tokens, logits = gen.generate(model, prompt, n_new, cache_len=2048,
+                                  return_logits=True)
+    torch.cuda.synchronize()
+    steps = prompt.shape[1] + n_new - 1
+    out["decode_ms_per_step"] = (time.perf_counter() - t0) / steps * 1e3
+    _serving_launches(_launch_delta(before), f"{arch} generate", cfg, 0,
+                      steps)
+    if tuple(tokens.shape) != (4, 64 + n_new) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"{arch} generate {tuple(tokens.shape)}")
+    wall, busy, n = _profile_launches(
+        lambda: gen.generate(model, prompt[:, :4], 4, cache_len=2048),
+        f"{arch} bf16 decode, 7 steps", "phase13", runs=7)
+    out["decode_device_busy_ms_per_step"] = busy / 7
+    out["decode_device_busy_share"] = busy / wall
+    out["decode_launches_per_step"] = n
+    out["serving_peak_gb"] = _gb(torch.cuda.max_memory_allocated())
+    print(f"[phase13] {arch} bf16 generate: {steps} steps (64 "
+          f"teacher-forced + {n_new - 1} greedy, B=4): "
+          f"{out['decode_ms_per_step']:.3f} ms/step; peak "
+          f"{out['serving_peak_gb']:.2f} GB", flush=True)
+    del model, prompt, tokens, logits
+    torch.cuda.empty_cache()
+    done("decode")
+
+    # (b) fp32 at full width and depth: 2 chunks of 256, and one chunk of
+    # 300 (300 % 256 != 0)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    print(f"[phase13] {arch} fp32: building", flush=True)
+    model = build_model(cfg32, device=dev, seed=SEED)
+    for B, T in [(2, 512), (1, 300)]:
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                               size=(B, T))).to(dev)
+        _prefill_vs_decode(model, tokens, f"{arch} fp32, {B}x{T}", 2e-3,
+                           2e-3, phase="phase13")
+    del model, tokens
+    torch.cuda.empty_cache()
+    done("fp32_checks")
+
+    # (c) the CLI, as a user runs it
+    print(f"[phase13] {arch}: CLI generate", flush=True)
+    before = _all_launches()
+    t0 = time.perf_counter()
+    gen.main(["--arch", arch, "--clients", "2", "--batch", "2",
+              "--prompt-len", "16", "--new-tokens", "8",
+              "--seed", str(SEED)])
+    delta = _launch_delta(before)
+    torch.cuda.empty_cache()
+    print(f"[phase13] CLI generate {arch} --clients 2: "
+          f"wall={time.perf_counter() - t0:.3f}s launches={delta}",
+          flush=True)
+    _serving_launches(delta, f"CLI generate {arch}", cfg, 1, 16 + 8 - 1,
+                      fusions=1)
+    done("cli")
+    return out
+
+
 TRAIN_STEP_REPS = 5
 
 
@@ -5094,11 +5334,20 @@ def main() -> int:
             done.result()
     print(f"[phase0] kernel build seconds={time.perf_counter() - t0:.3f} "
           f"by library {build_s}", flush=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(5) as pool:   # one cuobjdump per library
+        list(pool.map(_sass, ("flash_attention", "robust_fusion", "ssd_chunk",
+                              "flash_decode", "fused_fusion")))
+    print(f"[phase0] SASS dump seconds={time.perf_counter() - t0:.3f}",
+          flush=True)
     _attention_sass()
     _attention_bwd_build()
     _decode_build()
     _ssd_build()
     _fusion_build()
+    _sass.cache_clear()   # the listings are read by phase 0 alone
+    print(f"[phase0] build checks seconds={time.perf_counter() - t0:.3f} "
+          "(the SASS dumps and the checks)", flush=True)
     mma_peak = _mma_peak(dev, hw.sm_count)
 
     # -- data, made from the seed on the card ---------------------------
@@ -5166,6 +5415,8 @@ def main() -> int:
     run_phase("phase11", phase_more_decoders, dev, cases)
     # the encoder-decoder and the vision-language decoder
     run_phase("phase12", phase_whisper_llava, dev, cases)
+    # the recurrent xLSTM: no kernel of its own, fused by the weighted sum
+    run_phase("phase13", phase_xlstm, dev)
     run_phase("phase9", phase_training, dev, cases)     # federated training
     launches = {k: sum(p.get(k, 0) for p in by_phase.values())
                 for k in _all_launches()}
@@ -5187,6 +5438,7 @@ def main() -> int:
                 "weighted_sum", "flash_attention", "flash_decode")) \
             or any(by_phase["phase12"].get(k, 0) == 0 for k in (
                 "weighted_sum", "flash_attention", "flash_decode")) \
+            or set(by_phase["phase13"]) != {"weighted_sum"} \
             or any(by_phase["phase10"].get(k, 0) == 0 for k in (
                 "weighted_sum", "weighted_sum_dequant", "topk_carve",
                 "trimmed_mean", "coord_median")):

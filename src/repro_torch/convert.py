@@ -3,7 +3,7 @@
 What crosses between the two packages is data — a streamed round's
 reducer carry, a server optimizer's state, the pytree an update is
 shaped like, and a model's parameters (the decoders', dense, MoE or
-vision-language, Zamba2's and the encoder-decoder's).
+vision-language, Zamba2's, the encoder-decoder's and the xLSTM's).
 Each comes over as numpy arrays, which is how a ``repro`` caller holds
 them (``np.asarray`` of its leaves; bf16 leaves as ``ml_dtypes.bfloat16``
 arrays, read as raw 16-bit words), so nothing here imports JAX.
@@ -218,4 +218,53 @@ def encdec_state_from_numpy(params, cfg: ModelConfig,
 def encdec_from_numpy(params, cfg: ModelConfig, device: DeviceLike = None):
     """An ``EncDec`` holding ``repro``'s encoder-decoder parameters."""
     return _model_holding(encdec_state_from_numpy(params, cfg, device), cfg,
+                          device)
+
+
+_MLSTM_FIELDS = ("w_up", "w_z", "conv_w", "w_q", "w_k", "w_v", "w_if",
+                 "b_if", "gn_scale", "w_out")
+_SLSTM_FIELDS = ("w_in", "r", "b", "gn_scale", "w_gate", "w_upp", "w_down")
+
+
+def xlstm_state_from_numpy(params, cfg: ModelConfig,
+                           device: DeviceLike = None
+                           ) -> "collections.OrderedDict[str, torch.Tensor]":
+    """``repro``'s ``init_xlstm`` tree (numpy leaves) as the
+    ``state_dict`` of this package's ``XLSTM``, on ``device``, keys in
+    ``Model.state_dict()``'s order: ``embed``, ``final_norm``, then
+    ``blocks.<i>.norm`` and ``blocks.<i>.cell.<field>`` in block order.
+
+    The JAX tree stacks the mLSTM leaves as (n_seg, m_per, ...) and the
+    sLSTM leaves as (n_seg, ...) (``jax.vmap`` init); segment ``s`` is
+    blocks ``s * k`` to ``s * k + k - 1``, its sLSTM last. With
+    ``slstm_every = 0`` the tree has no ``"slstm"`` key. Every leaf keeps
+    its dtype (``w_if``, ``b_if``, ``r`` and ``b`` are fp32 in a bf16
+    model)."""
+    from repro_torch.models.xlstm import _segment_shape
+
+    dev = resolve_device(device)
+    dt = lambda x: to_device(np.asarray(x), dev)   # noqa: E731
+    state = collections.OrderedDict()   # in Model.state_dict()'s order
+    state["embed"] = dt(params["embed"])
+    state["final_norm"] = dt(params["final_norm"])
+    n_seg, m_per = _segment_shape(cfg)
+    kinds = [("mlstm", _MLSTM_FIELDS, lambda a, s, j: a[s, j])] * m_per
+    if cfg.xlstm.slstm_every:
+        kinds.append(("slstm", _SLSTM_FIELDS, lambda a, s, j: a[s]))
+    i = 0
+    for s in range(n_seg):
+        for j, (key, fields, pick) in enumerate(kinds):
+            tree = params[key]
+            pre = f"blocks.{i}."
+            state[pre + "norm"] = dt(pick(np.asarray(tree["norm"]), s, j))
+            for name in fields:
+                leaf = np.asarray(_field(tree["cell"], name))
+                state[pre + "cell." + name] = dt(pick(leaf, s, j))
+            i += 1
+    return state
+
+
+def xlstm_from_numpy(params, cfg: ModelConfig, device: DeviceLike = None):
+    """An ``XLSTM`` holding ``repro``'s xLSTM parameters."""
+    return _model_holding(xlstm_state_from_numpy(params, cfg, device), cfg,
                           device)

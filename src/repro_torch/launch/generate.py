@@ -1,6 +1,7 @@
 """Serve a federated model: fuse K client models with FedAvg, then prefill
 a prompt and decode from it with per-layer caches (KV rings; for the
-Mamba2 layers of Zamba2, the conv window and SSM state).
+Mamba2 layers of Zamba2, the conv window and SSM state; for xLSTM's
+blocks, their recurrent states).
 
     PYTHONPATH=src python -m repro_torch.launch.generate --arch qwen2-0.5b
     PYTHONPATH=src python -m repro_torch.launch.generate \
@@ -14,6 +15,8 @@ Mamba2 layers of Zamba2, the conv window and SSM state).
         --arch dbrx-132b-smoke --clients 0
     PYTHONPATH=src python -m repro_torch.launch.generate \
         --arch whisper-small --clients 2
+    PYTHONPATH=src python -m repro_torch.launch.generate \
+        --arch xlstm-350m --clients 2
 
 The serving half of ``examples/serve_federated_model.py``: the clients'
 models (``state_dict``-shaped trees; local training comes with the
@@ -24,8 +27,10 @@ decodes greedily. The families are the dense decoders (Qwen2-0.5B,
 Qwen2.5-3B, Minitron-8B, Gemma3-1B), the mixture-of-experts decoders
 (DeepSeek-MoE-16B, and DBRX-132B, whose 264 GB in bf16 fit no single
 80 GB card: its -smoke form serves), the Mamba2 / shared-attention
-hybrid (Zamba2-1.2B)
-and the encoder-decoder (Whisper-small): for it the CLI makes seeded
+hybrid (Zamba2-1.2B), the recurrent xLSTM (xLSTM-350M: its cache is
+the blocks' states, O(1) in the context, and neither prefill nor a
+decode step reaches a kernel) and the encoder-decoder (Whisper-small):
+for it the CLI makes seeded
 frames (B, n_audio_frames, d), encodes them, fills the decoder's cross
 caches from the encoder output and serves the prompt over them. On the
 card the fusion runs the weighted-sum kernel; prefill runs the

@@ -1,6 +1,8 @@
-"""Model stack: the dense decoder family and the Mamba2 / shared-attention
-hybrid so far, as ``nn.Module``s whose attention and SSD scan run through
-the port's kernels on the card."""
+"""Model stack: the decoders (dense, MoE, the vision-language backbone),
+the Mamba2 / shared-attention hybrid, the encoder-decoder and the xLSTM,
+as ``nn.Module``s whose attention and SSD scan run through the port's
+kernels on the card (the xLSTM's cells, like the reference's, through
+none)."""
 from repro_torch.models.base import Model
 from repro_torch.models.registry import build_model
 

@@ -39,6 +39,7 @@ from repro_torch.models.base import lm_logits
 from repro_torch.models.cache import init_attn_cache
 from repro_torch.models.decoder import Decoder, layer_windows
 from repro_torch.models.encdec import EncDec
+from repro_torch.models.xlstm import XLSTM
 from repro_torch.models.layers.attention import Attention, project_qkv
 from repro_torch.models.layers.mlp import MLP, mlp
 from repro_torch.models.layers.norms import rms_norm
@@ -266,14 +267,18 @@ def test_configs_mirror_the_reference():
             if dataclasses.is_dataclass(a):
                 a, b = dataclasses.asdict(a), dataclasses.asdict(b)
             assert a == b, (arch, f.name)
+    # every architecture of the reference, xLSTM-350M the last to arrive
+    assert "xlstm-350m" in ARCHITECTURES
     with pytest.raises(KeyError):
-        get_config("xlstm-350m")
+        get_config("no-such-arch")
 
 
 def test_families_not_yet_ported_raise():
     """``vlm`` builds the decoder and ``audio`` the encoder-decoder since
-    their slice; xLSTM (``ssm`` with ``cfg.xlstm``) still raises, naming
-    ROADMAP's item 9."""
+    their slice, ``ssm`` with ``cfg.xlstm`` the xLSTM since its own: no
+    family of ``repro`` is left unported. What still raises is a config
+    with neither an ``SSMConfig`` nor an ``XLSTMConfig`` in the ``ssm``
+    family, as in ``repro``."""
     assert type(build_model(get_config("llava-next-34b-smoke"),
                             device="cpu")) is Decoder
     assert type(build_model(get_config("whisper-small-smoke"),
@@ -281,8 +286,12 @@ def test_families_not_yet_ported_raise():
     xlstm = jget_config("xlstm-350m-smoke")
     cfg = dataclasses.replace(get_config("zamba2-1.2b-smoke"), family="ssm",
                               xlstm=xlstm.xlstm)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_model(cfg, device="cpu")
+    assert type(build_model(cfg, device="cpu")) is XLSTM
+    assert type(build_model(get_config("xlstm-350m-smoke"),
+                            device="cpu")) is XLSTM
+    neither = dataclasses.replace(cfg, ssm=None, xlstm=None)
+    with pytest.raises(ValueError, match="unknown family 'ssm'"):
+        build_model(neither, device="cpu")
     # the decoders train since the training slice, Zamba2 since its own;
     # an MoE block builds and trains since the MoE slice
     toks = torch.zeros((1, 8), dtype=torch.int64)

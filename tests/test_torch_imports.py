@@ -63,6 +63,9 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
             "repro_torch.models.decoder",
             "repro_torch.models.layers.mamba2",
             "repro_torch.models.zamba",
+            "repro_torch.models.xlstm",
+            "repro_torch.models.layers.xlstm_layers",
+            "repro_torch.configs.xlstm_350m",
             "repro_torch.launch.generate",
             "repro_torch.core.adaptive",
             "repro_torch.checkpoint",

@@ -36,6 +36,7 @@ from repro_torch.kernels.ssd_chunk.ref import ssd_scan_ref
 from repro_torch.models import build_model
 from repro_torch.models.cache import AttnCache
 from repro_torch.models.layers.mamba2 import Mamba2Cache
+from repro_torch.models.xlstm import XLSTM
 from repro_torch.models.zamba import Zamba, segments
 
 REPO = Path(__file__).resolve().parents[1]
@@ -164,15 +165,22 @@ def test_full_size_shapes_segments_and_caches():
 
 
 def test_registry_routes_the_hybrid_and_refuses_xlstm():
+    """``hybrid`` and ``ssm`` with a Mamba2 ``SSMConfig`` build the
+    hybrid; ``ssm`` with an ``XLSTMConfig`` builds the xLSTM since its
+    slice (no longer refused), routed first as in ``repro``; what the
+    registry refuses now is the ``ssm`` family with neither config."""
     assert isinstance(build_model(get_config(SMOKE), device="cpu"), Zamba)
     ssm = dataclasses.replace(get_config(SMOKE), family="ssm",
                               hybrid_shared_every=0)
     model = build_model(ssm, device="cpu")
     assert isinstance(model, Zamba) and model.shared is None
     cfg = dataclasses.replace(get_config(SMOKE), family="ssm", ssm=None,
-                              xlstm=jget_config("xlstm-350m").xlstm)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_model(cfg, device="cpu")
+                              xlstm=jget_config("xlstm-350m-smoke").xlstm)
+    assert isinstance(build_model(cfg, device="cpu"), XLSTM)
+    both = dataclasses.replace(ssm, xlstm=cfg.xlstm)
+    assert isinstance(build_model(both, device="cpu"), XLSTM)
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(cfg, xlstm=None), device="cpu")
 
 
 def test_cli_on_the_cpu():

@@ -123,7 +123,21 @@ step over 4 x 1536 frames through the attention's forward and backward
 kernels (72 and 36 launches, 48 and 24 of them non-causal: encoder and
 cross attention) against ``attention_train_ref``, fp32 at (e)'s limits
 and bf16 at (a)'s, then a FedAvg round of 2 Whisper clients through
-``Client.train_round``, frames in their batches, against float64 Eq. 1.
+``Client.train_round``, frames in their batches, against float64 Eq. 1;
+(h) xLSTM-350M (plain PyTorch, no kernel of the model's): fp32 cuts of
+the full width on the card against the host CPU, a 2-block cut (mLSTM,
+sLSTM) at 2 x 512 (two chunks: the carry) at (e)'s limits and an
+8-block cut at 2 x 256 against float64 on the host, every leaf's cosine
+at (e)'s limit and the global norm at 1e-2 (seven mLSTM blocks in a row
+amplify rounding; a TF32 step must miss those limits); bf16 against
+fp32 at (a)'s limits on the 2-block cut at 2 x 512, where an fp32 step
+at weights moved by 2^-9 stays within them; the full model in bf16, one
+4 x 512 step against fp32, the loss at (a)'s limit and the gradient's
+cosine printed beside that control's, then timed and profiled (busy
+share, host and device launches, the sLSTM blocks' share, peak memory),
+launching no kernel of the port; a FedAvg round of 2 clients x 1 step at
+2 x 512 against float64 Eq. 1 (one weighted_sum launch); and the train
+CLI at full size. Each step prints a line before it starts.
 Phase 10, run after phase 8 on the same data, drives
 the distributed engine and the mesh service over NCCL at world size 1
 ((1, 1) and (1, 1, 1) meshes, every collective called): FedAvg, IterAvg
@@ -3477,11 +3491,12 @@ def _top(records, top, width):
                      for name, (calls, ns) in lead)
 
 
-def _profile(fn, what, top=6, phase="phase4"):
+def _profile(fn, what, top=6, phase="phase4", host_ops=None):
     """Device busy time and the kernels and host ops that take the most
     time in one run of ``fn``, under ``torch.profiler`` (CPU + CUDA).
     Returns (wall ms under the profiler, device busy ms, {kernel name:
-    (calls, device ms)}). The session opens with ``_lead_in``, as
+    (calls, device ms)}); ``host_ops``, a dict, also receives {host op
+    name: (calls, self ns)}. The session opens with ``_lead_in``, as
     ``_device_kernels``'s do; its spins are left out of the kernels and
     the busy time."""
     import torch
@@ -3495,6 +3510,8 @@ def _profile(fn, what, top=6, phase="phase4"):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels, host = _kineto_records(prof)
+    if host_ops is not None:
+        host_ops.update(host)
     busy_ms = sum(ns for _, ns in kernels.values()) / 1e6
     print(f"[{phase}] profile {what}: wall {wall_ms:.3f} ms under the "
           f"profiler, device busy {busy_ms:.3f} ms "
@@ -4764,6 +4781,38 @@ def _step_grads(model, params, batch, **kw):
     return loss.detach(), collections.OrderedDict(zip(leaves, g))
 
 
+def _timed_step(model, params, batch, what, host_ops=None):
+    """One local SGD step (a ``Client`` with ``sgd(0.25)``) timed, synced,
+    ``TRAIN_STEP_REPS`` times after one, then profiled. Returns (times
+    ms, peak GB, profiled wall ms, device busy ms, {kernel: (calls,
+    ms)}); ``host_ops`` as ``_profile``'s."""
+    import torch
+
+    from repro_torch.fl import Client
+    from repro_torch.optim import sgd
+
+    dev = next(iter(params.values())).device
+    client = Client(client_id=0, model=model, optimizer=sgd(0.25))
+    opt_state = client.optimizer.init(params)
+
+    def step():
+        return client._step(params, opt_state, batch, 0)
+
+    step()   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(TRAIN_STEP_REPS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    wall, busy, kernels = _profile(step, what, phase="phase9",
+                                   host_ops=host_ops)
+    return times, peak, wall, busy, kernels
+
+
 def _train_step(model, params, batch, cfg, what, case, key, *, loss_rel,
                 cos_min, norm_rel, launches=None, plain=None, truth=None,
                 noncausal=None):
@@ -4787,9 +4836,7 @@ def _train_step(model, params, batch, cfg, what, case, key, *, loss_rel,
     backward kernels' device time, the peak memory. {key_*: number}."""
     import torch
 
-    from repro_torch.fl import Client
     from repro_torch.models.layers.attention import attention_train_ref
-    from repro_torch.optim import sgd
 
     if launches is None:
         launches = {"flash_attention": 2 * cfg.n_layers,
@@ -4797,8 +4844,6 @@ def _train_step(model, params, batch, cfg, what, case, key, *, loss_rel,
     if plain is None:
         plain = {"attention": attention_train_ref}
     out = {}
-    dev = next(iter(params.values())).device
-
     if noncausal is None:
         noncausal = {"flash_attention": 0, "flash_attention_bwd": 0}
     before, nc_before = _all_launches(), _noncausal_launches()
@@ -4846,24 +4891,10 @@ def _train_step(model, params, batch, cfg, what, case, key, *, loss_rel,
     out[f"{key}_norm_rel"] = nrel
     del g_k, g_p
 
-    client = Client(client_id=0, model=model, optimizer=sgd(0.25))
-    opt_state = client.optimizer.init(params)
-
-    def step():
-        return client._step(params, opt_state, batch, 0)
-
-    step()   # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    times = []
-    for _ in range(TRAIN_STEP_REPS):
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    times, peak, wall, busy, kernels = _timed_step(model, params, batch,
+                                                   what)
     out[f"{key}_ms"] = statistics.median(times)
-    out[f"{key}_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    wall, busy, kernels = _profile(step, what, phase="phase9")
+    out[f"{key}_peak_gb"] = peak
     out[f"{key}_device_busy_share"] = busy / wall
     out[f"{key}_device_launches"] = sum(n for n, _ in kernels.values())
     bwd_ms = sum(ms for name, (_, ms) in kernels.items()
@@ -4936,7 +4967,10 @@ def phase_training(dev, attn_cases):
     full-depth Whisper-small 4 x 448 step over 4 x 1536 frames through
     the attention kernels' causal and non-causal forward and backward, in
     fp32 at (e)'s limits and bf16 at (a)'s, then a FedAvg round of 2
-    Whisper clients (``_whisper_training``)."""
+    Whisper clients (``_whisper_training``); (h) xLSTM-350M: the card
+    against the host and float64 on an fp32 8-block cut, a full-size bf16
+    step beside fp32, timed and profiled, a FedAvg round of 2 clients
+    and the train CLI (``_xlstm_training``)."""
     import collections
     import dataclasses
 
@@ -5153,6 +5187,7 @@ def phase_training(dev, attn_cases):
     del server, seen, res, model, params
     torch.cuda.empty_cache()
     out.update(_whisper_training(dev))
+    out.update(_xlstm_training(dev))
     return out
 
 
@@ -5284,6 +5319,397 @@ def _whisper_training(dev):
           f"non-causal {nc}", flush=True)
     del server, seen, res, model, params
     torch.cuda.empty_cache()
+    return out
+
+
+XLSTM_TRAIN_CUT = 8   # (h1b)'s blocks: 7 mLSTM + 1 sLSTM at slstm_every 8
+XLSTM_FP32_NORM_REL = 1e-2   # (h1b)'s global-norm limit (see (h1b))
+
+
+def _xlstm_held(what, loss_a, g_a, loss_b, g_b, *, loss_rel, cos_min,
+                norm_rel, whole=False, every=False, hold=True):
+    """Holds one step's loss and gradients (``a``) against another's
+    (``b``): the loss within ``loss_rel``, every gradient finite, the
+    global norm within ``norm_rel``, and ``cos_min`` on every leaf's
+    cosine or, with ``whole``, on the whole gradient's (a limit of None
+    is printed, not held; with ``hold`` False nothing is held, and
+    ``ok`` says whether every limit was met). Prints the worst leaves
+    (every leaf with ``every`` or if a limit is missed). {loss_rel,
+    cos_min, cos_whole, norm_rel, ok}."""
+    rel = abs(loss_a - loss_b) / abs(loss_b)
+    cos, nrel, whole_cos = _leaf_cosines(g_a, g_b)
+    order = sorted(cos, key=cos.get)
+    held = whole_cos if whole else cos[order[0]]
+    finite = math.isfinite(loss_a) and all(
+        bool(g.isfinite().all()) for g in g_a.values())
+    ok = (rel <= loss_rel and finite
+          and (cos_min is None or held >= cos_min)
+          and (norm_rel is None or nrel <= norm_rel))
+    print(f"[phase9] (h) {what}: loss {loss_a:.6f} against {loss_b:.6f} "
+          f"(rel {rel:.2e}, limit {loss_rel:g}); gradients finite {finite}; "
+          f"cosine {'whole' if whole else 'min'} {held:.6f} (limit "
+          f"{cos_min}; whole {whole_cos:.6f}); global-norm rel diff "
+          f"{nrel:.2e} (limit {norm_rel}); worst leaves: "
+          + "; ".join(f"{k} {cos[k]:.6f}" for k in order[:8]), flush=True)
+    if every or not ok:
+        print(f"[phase9] (h) {what}: every leaf's cosine: "
+              + "; ".join(f"{k} {cos[k]:.6f}" for k in order), flush=True)
+    if hold and not ok:
+        raise AssertionError(f"(h) {what}: loss rel {rel}, cosine {held}, "
+                             f"norm rel {nrel}")
+    return {"loss_rel": rel, "cos_min": cos[order[0]],
+            "cos_whole": whole_cos, "norm_rel": nrel, "ok": ok}
+
+
+def _xlstm_float64_grads(cfg, params, batch):
+    """(loss, {leaf: gradient}) of the xLSTM loss on the host in float64,
+    from the fp32 tree ``params``: (h1)'s oracle. The port computes a
+    float64 tree in float64 throughout (``norms.at_least_fp32``)."""
+    import collections
+
+    import torch
+
+    from repro_torch.fl.client import batch_to_device
+    from repro_torch.models.xlstm import XLSTM
+
+    loss, g = _step_grads(
+        XLSTM(cfg, device="meta"),
+        collections.OrderedDict((k, v.double()) for k, v in params.items()),
+        batch_to_device(batch, torch.device("cpu")))
+    if loss.dtype != torch.float64:
+        raise AssertionError(f"the float64 oracle ran in {loss.dtype}")
+    return loss.item(), g
+
+
+def _xlstm_training(dev):
+    """(h) of phase 9: federated training of xLSTM-350M (24 blocks, 21
+    mLSTM and 3 sLSTM, d 1024, vocab 50,304; weights from the seed), no
+    kernel of the model's own. Cuts of the full width: (h1a) one mLSTM
+    block then one sLSTM block, fp32, one 2 x 512 step (two chunks of
+    256: the inter-chunk carry is in the gradient) on the card and on the
+    host CPU at (e)'s limits; (h1b) 8 blocks (7 mLSTM + 1 sLSTM), fp32,
+    one 2 x 256 step on the card and on the host, each against the same
+    step in float64 on the host and against each other, every leaf's
+    cosine >= 0.9999, the global norm at 1e-2, with a TF32 step on the
+    card that must miss those limits and an fp32 step at weights moved
+    by 2^-24 printed; (h2a) the 2-block cut in bf16, 2 x 512, against
+    the same weights in fp32 at (a)'s limits, an fp32 step at weights
+    moved by 2^-9 held there first (the control that the gradient is
+    conditioned for bf16 at this size). (h2b) the full model in bf16,
+    one 4 x 512 step against the same weights in fp32, the loss within
+    1e-2 and the gradients finite, their cosine printed beside the
+    2^-9 control's (at 24 blocks neither is near 0.99), then the step
+    timed and profiled (busy share, host and device launches, the sLSTM
+    loops' share of them, peak memory); (h3) a FedAvg round of 2 clients
+    x 1 step at 2 x 512 through ``FederatedServer`` against float64 Eq.
+    1, exactly one ``weighted_sum`` launch; (h4) the train CLI. No step
+    may launch a kernel of the port."""
+    import collections
+    import dataclasses
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.fl.client import batch_to_device
+    from repro_torch.models import build_model
+    from repro_torch.models.layers.xlstm_layers import slstm_forward
+    from repro_torch.models.xlstm import XLSTM
+
+    out = {}
+    cfg = get_config("xlstm-350m")
+    rng = np.random.default_rng(SEED + 14)
+    mark = [time.perf_counter()]
+
+    def done(step):
+        now = time.perf_counter()
+        out[f"xlstm_{step}_s"] = now - mark[0]
+        print(f"[phase9] (h) {step}: done in {now - mark[0]:.3f} s",
+              flush=True)
+        mark[0] = now
+
+    def grads(model, params, batch, what):
+        """``_step_grads``, with no kernel launched."""
+        before = _all_launches()
+        loss, g = _step_grads(model, params, batch)
+        torch.cuda.synchronize()
+        delta = {k: v for k, v in _launch_delta(before).items() if v}
+        if delta:
+            raise AssertionError(f"(h) {what} launched {delta}")
+        return loss.item(), g
+
+    def cut_of(dtype, n_layers, slstm_every):
+        return dataclasses.replace(
+            cfg, n_layers=n_layers, dtype=dtype,
+            xlstm=dataclasses.replace(cfg.xlstm, slstm_every=slstm_every))
+
+    def fp32(params):   # the state_dict's type and order
+        return collections.OrderedDict((k, v.float())
+                                       for k, v in params.items())
+
+    def moved(params, scale, seed):
+        """``params`` in fp32 times 1 + seeded noise uniform in +-scale."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return collections.OrderedDict(
+            (k, v * (1 + (torch.rand(v.shape, generator=g, device=dev) * 2
+                          - 1) * scale))
+            for k, v in fp32(params).items())
+
+    def card_and_host(cut, B, T, what):
+        """The card's fp32 step and the host's on the same weights and
+        batch: (host tree, batch, card (loss, grads) on the host, host
+        (loss, grads), card params)."""
+        print(f"[phase9] (h1) xlstm-350m fp32 {what} ({cut.num_params()} "
+              f"params): a {B} x {T} step on the card and on the host",
+              flush=True)
+        params = build_model(cut, device=dev, seed=SEED).state_dict()
+        tokens = rng.integers(0, cfg.vocab, size=(B, T))
+        batch = {"tokens": tokens, "labels": tokens}
+        loss_d, g_d = grads(XLSTM(cut, device="meta"), params,
+                            batch_to_device(batch, dev), f"fp32 {what}")
+        host = collections.OrderedDict((k, v.cpu()) for k, v in
+                                       params.items())
+        t0 = time.perf_counter()
+        loss_h, g_h = _step_grads(XLSTM(cut, device="meta"), host,
+                                  batch_to_device(batch, torch.device("cpu")))
+        print(f"[phase9] (h1) host step: {time.perf_counter() - t0:.3f} s on "
+              f"{torch.get_num_threads()} threads", flush=True)
+        g_d = collections.OrderedDict((k, v.cpu()) for k, v in g_d.items())
+        return host, batch, (loss_d, g_d), (loss_h.item(), g_h), params
+
+    # (h1a) the card against the host at (e)'s limits, the inter-chunk
+    # carry in the gradient: one mLSTM block then one sLSTM block, fp32,
+    # 2 x 512 (two chunks of 256)
+    pair = cut_of("float32", 2, 2)
+    e_lim = dict(loss_rel=1e-4, cos_min=0.9999, norm_rel=1e-3)
+    host, _, card, on_host, params = card_and_host(
+        pair, 2, 512, "2-block cut (mLSTM, sLSTM)")
+    held = _xlstm_held("xlstm-350m fp32 2-block cut 2x512, card vs host",
+                       *card, *on_host, **e_lim)
+    out.update({f"xlstm_pair_card_vs_host_{k}": v for k, v in held.items()})
+    del host, card, on_host, params
+    done("h1a")
+
+    # (h1b) the 8-block cut of the model's own pattern (7 mLSTM + 1 sLSTM),
+    # 2 x 256: the card and the host, each against float64 on the host.
+    # Seven mLSTM blocks in a row amplify rounding (a relative move of the
+    # weights moves the exact gradient ~2e2 times as far,
+    # tools/xlstm_grad_conditioning.py), so the global norm is held at
+    # XLSTM_FP32_NORM_REL: above what one rounding of the weights in fp32
+    # moves it (printed), below what TF32's rounding moves it (held)
+    cut = cut_of("float32", XLSTM_TRAIN_CUT, cfg.xlstm.slstm_every)
+    host, batch, card, on_host, params = card_and_host(
+        cut, 2, 256, f"{cut.n_layers}-block cut")
+    print("[phase9] (h1) the same step on the host in float64", flush=True)
+    loss_x, g_x = _xlstm_float64_grads(cut, host, batch)
+    lim = dict(loss_rel=1e-4, cos_min=0.9999, norm_rel=XLSTM_FP32_NORM_REL)
+    what = f"xlstm-350m {cut.n_layers}-block cut 2x256"
+    for key, label, a, b in (
+            ("host_vs_float64", "host fp32 vs float64", on_host,
+             (loss_x, g_x)),
+            ("card_vs_float64", "card fp32 vs float64", card, (loss_x, g_x)),
+            ("card_vs_host", "fp32 card vs host", card, on_host)):
+        held = _xlstm_held(f"{what}, {label}", *a, *b, **lim)
+        out.update({f"xlstm_{key}_{k}": v for k, v in held.items()})
+    dbatch = batch_to_device(batch, dev)
+    loss_u, g_u = grads(XLSTM(cut, device="meta"),
+                        moved(params, 2.0 ** -24, SEED + 16), dbatch,
+                        "fp32 step at weights moved by 2^-24")
+    g_u = collections.OrderedDict((k, v.cpu()) for k, v in g_u.items())
+    ulp = _xlstm_held(f"{what}, card fp32 at weights moved by 2^-24 vs "
+                      "unmoved", loss_u, g_u, *card, hold=False, **lim)
+    out.update({f"xlstm_ulp_moved_{k}": v for k, v in ulp.items()})
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        loss_t, g_t = grads(XLSTM(cut, device="meta"), params, dbatch,
+                            "TF32 step")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    g_t = collections.OrderedDict((k, v.cpu()) for k, v in g_t.items())
+    tf32 = _xlstm_held(f"{what}, card TF32 vs float64 (a control: must "
+                       "miss a limit)", loss_t, g_t, loss_x, g_x,
+                       hold=False, **lim)
+    out.update({f"xlstm_tf32_vs_float64_{k}": v for k, v in tf32.items()})
+    if tf32["ok"]:
+        raise AssertionError("(h1) the TF32 step meets (h1)'s fp32 limits: "
+                             "they cannot tell TF32 from fp32")
+    del g_u, g_t, g_x, host, card, on_host, params, dbatch
+    torch.cuda.empty_cache()
+    done("h1b")
+
+    # (h2a) bf16 against the same weights in fp32 at (a)'s limits, where
+    # the gradient is conditioned for it: the 2-block cut at 2 x 512. An
+    # fp32 step at weights moved by half a bf16 step (relative noise of
+    # 2^-9) must stay at (a)'s cosine: the control that the size suits
+    bpair = cut_of("bfloat16", 2, 2)
+    print(f"[phase9] (h2) xlstm-350m bf16 2-block cut (mLSTM, sLSTM) "
+          f"({bpair.num_params()} params): a 2 x 512 step against fp32",
+          flush=True)
+    a_lim = dict(loss_rel=1e-2, cos_min=0.99, norm_rel=5e-2, whole=True)
+    params = build_model(bpair, device=dev, seed=SEED).state_dict()
+    tokens = rng.integers(0, cfg.vocab, size=(2, 512))
+    batch = batch_to_device({"tokens": tokens, "labels": tokens}, dev)
+    f32 = XLSTM(dataclasses.replace(bpair, dtype="float32"), device="meta")
+    loss32, g32 = grads(f32, fp32(params), batch, "fp32 step")
+    loss_p, g_p = grads(f32, moved(params, 2.0 ** -9, SEED + 15), batch,
+                        "fp32 step at moved weights")
+    loss16, g16 = grads(XLSTM(bpair, device="meta"), params, batch,
+                        "bf16 step")
+    ctl = _xlstm_held("xlstm-350m 2-block cut 2x512, fp32 at weights moved "
+                      "by 2^-9 vs unmoved (a control)", loss_p, g_p, loss32,
+                      g32, **a_lim)
+    held = _xlstm_held("xlstm-350m bf16 2-block cut 2x512 vs the same "
+                       "weights in fp32", loss16, g16, loss32, g32,
+                       every=True, **a_lim)
+    out.update({f"xlstm_pair_bf16_vs_fp32_{k}": v for k, v in held.items()})
+    out.update({f"xlstm_pair_moved_vs_fp32_{k}": v for k, v in ctl.items()})
+    del params, g32, g_p, g16
+    torch.cuda.empty_cache()
+    done("h2a")
+
+    # (h2b) full size, bf16: the loss against the same weights in fp32 at
+    # (a)'s limit, the gradients finite; their cosine and norm printed,
+    # not held: at 24 blocks the control reads far below (a)'s cosine
+    print(f"[phase9] (h2) xlstm-350m bf16, {cfg.n_layers} blocks "
+          f"({cfg.num_params()} params): a 4 x 512 step against fp32",
+          flush=True)
+    model = build_model(cfg, device=dev, seed=SEED)
+    params = model.state_dict()
+    tokens = rng.integers(0, cfg.vocab, size=(4, 512))
+    batch = batch_to_device({"tokens": tokens, "labels": tokens}, dev)
+    f32 = XLSTM(dataclasses.replace(cfg, dtype="float32"), device="meta")
+    loss32, g32 = grads(f32, fp32(params), batch, "fp32 step")
+    loss_p, g_p = grads(f32, moved(params, 2.0 ** -9, SEED + 15), batch,
+                        "perturbed fp32 step")
+    loss16, g16 = grads(model, params, batch, "bf16 step")
+    held = _xlstm_held("xlstm-350m bf16 4x512 vs the same weights in fp32 "
+                       "(the loss held)", loss16, g16, loss32, g32,
+                       loss_rel=1e-2, cos_min=None, norm_rel=None,
+                       whole=True)
+    moved_full = _xlstm_held("xlstm-350m fp32 4x512 at weights moved by "
+                             "2^-9 vs unmoved", loss_p, g_p, loss32, g32,
+                             loss_rel=1e-2, cos_min=None, norm_rel=None,
+                             whole=True)
+    out.update({f"xlstm_bf16_vs_fp32_{k}": v for k, v in held.items()})
+    out.update({f"xlstm_fp32_moved_vs_fp32_{k}": v
+                for k, v in moved_full.items()})
+    del g32, g16, g_p
+    torch.cuda.empty_cache()
+    done("h2_check")
+
+    print("[phase9] (h2) timing and profiling the bf16 step", flush=True)
+    before, host_ops = _all_launches(), {}
+    times, peak, wall, busy, kernels = _timed_step(
+        model, params, batch, "xlstm-350m bf16 local step 4x512",
+        host_ops=host_ops)
+    out["xlstm_step_ms"] = statistics.median(times)
+    out["xlstm_step_peak_gb"] = peak
+    delta = {k: v for k, v in _launch_delta(before).items() if v}
+    if delta:
+        raise AssertionError(f"(h2) the timed steps launched {delta}")
+    n_dev = sum(n for n, _ in kernels.values())
+    n_host = sum(n for name, (n, _) in host_ops.items()
+                 if "LaunchKernel" in name)
+    out["xlstm_step_device_busy_share"] = busy / wall
+    out["xlstm_step_device_launches"] = n_dev
+    out["xlstm_step_host_launches"] = n_host
+
+    # one sLSTM block's forward and backward alone, at the step's shapes
+    blk = next(b for b in model.blocks if b.kind == "slstm")
+    fields = ("w_in", "r", "b", "gn_scale", "w_gate", "w_upp", "w_down")
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    x = torch.randn((4, 512, cfg.d_model), generator=g, device=dev
+                    ).to(torch.bfloat16).requires_grad_()
+
+    def slstm_block():
+        leaves = [getattr(blk.cell, f).detach().requires_grad_() for f in
+                  fields]
+        p = types.SimpleNamespace(**dict(zip(fields, leaves)))
+        y = slstm_forward(p, model.sdims, x)
+        torch.autograd.grad(y.float().square().sum(), [x] + leaves)
+
+    slstm_block()   # warm-up
+    s_wall, s_busy, s_kernels = _profile(
+        slstm_block, "one sLSTM block 4x512, forward and backward",
+        phase="phase9")
+    n_slstm = sum(b.kind == "slstm" for b in model.blocks)
+    share = n_slstm * sum(n for n, _ in s_kernels.values()) / n_dev
+    out["xlstm_step_slstm_launch_share"] = share
+    out["xlstm_step_slstm_wall_share"] = n_slstm * s_wall / wall
+    print(f"[phase9] (h2) xlstm-350m bf16 local step 4x512: "
+          f"{out['xlstm_step_ms']:.3f} ms (median of {TRAIN_STEP_REPS}: "
+          f"{[round(t, 3) for t in times]}); device busy {busy:.3f} of "
+          f"{wall:.3f} ms profiled ({busy / wall:.1%}); {n_dev} device "
+          f"kernels, {n_host} host kernel launches; the {n_slstm} sLSTM "
+          f"blocks' forward and backward alone {share:.1%} of the kernels "
+          f"and {out['xlstm_step_slstm_wall_share']:.1%} of the profiled "
+          f"wall (one block {s_wall:.3f} ms, {s_busy:.3f} busy); peak "
+          f"{out['xlstm_step_peak_gb']:.2f} GB; launches of the port's "
+          f"kernels {delta}", flush=True)
+    del batch, x
+    torch.cuda.empty_cache()
+    done("h2_timed")
+
+    # (h3) a FedAvg round of 2 clients x 1 step at 2 x 512
+    print("[phase9] (h3) xlstm-350m bf16 FedAvg round, 2 clients", flush=True)
+    server, seen = _server_for(dev, model, SyntheticLM(vocab=cfg.vocab,
+                                                       seed=SEED),
+                               "fedavg", False, params, n_clients=2,
+                               batch=2, seq_len=512)
+    before = _all_launches()
+    t0 = time.perf_counter()
+    res = server.run_round(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = {k: v for k, v in _launch_delta(before).items() if v}
+    if not math.isfinite(res.mean_client_loss) or delta != {
+            "weighted_sum": 1}:
+        raise AssertionError(f"(h3) xlstm fedavg round: loss "
+                             f"{res.mean_client_loss}, launches {delta}")
+    err = _fused_vs_eq1(seen["flat"], seen["updates"],
+                        np.asarray(seen["weights"], np.float32),
+                        seen["template"], "(h3) xlstm fedavg fused params",
+                        "phase9")
+    offset, fp32 = 0, 0
+    for name, p in seen["template"].items():
+        if p.dtype == torch.float32:
+            fp32 += 1
+            if not torch.equal(seen["tree"][name].reshape(-1),
+                               seen["flat"][offset:offset + p.numel()]):
+                raise AssertionError(f"(h3) fp32 leaf {name} does not hold "
+                                     "its fused value")
+        offset += p.numel()
+    if fp32 != 2 * cfg.n_layers:
+        raise AssertionError(f"(h3) {fp32} fp32 leaves")
+    out["xlstm_round"] = {"wall_s": wall, "loss": res.mean_client_loss,
+                          "fuse_s": res.report.fuse_seconds,
+                          "launches": delta, "max_abs_err": err}
+    print(f"[phase9] (h3) xlstm fedavg round, 2 clients x 1 step at 2 x 512: "
+          f"wall={wall:.3f}s loss={res.mean_client_loss:.4f} "
+          f"fuse={res.report.fuse_seconds:.4f}s launches={delta}; the "
+          f"{fp32} fp32 gate leaves hold their fused values", flush=True)
+    del server, seen, res, model, params
+    torch.cuda.empty_cache()
+    done("h3")
+
+    # (h4) the train CLI, as (d) runs it
+    print("[phase9] (h4) the train CLI, --arch xlstm-350m --full-config",
+          flush=True)
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "xlstm-350m", "--full-config", "--rounds", "1", "--clients", "2",
+         "--local-steps", "1", "--batch", "2", "--seq-len", "32"],
+        capture_output=True, text=True, timeout=600, cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    print(res.stdout.strip(), flush=True)
+    if res.returncode != 0 or "[round   0] loss=" not in res.stdout \
+            or "arch=xlstm-350m " not in res.stdout:
+        raise AssertionError(f"(h4) train CLI: {res.stderr[-3000:]}")
+    done("h4_cli")
     return out
 
 

@@ -14,7 +14,9 @@ served module's own parameters (``requires_grad=False``) are never
 touched; the optimizer state is made fresh each round, as in the
 reference. On the card the models' attention runs the forward and
 backward flash-attention kernels (the encoder-decoder's encoder and
-cross attention through their non-causal instances).
+cross attention through their non-causal instances). xLSTM has no
+kernel on the model: its steps are plain PyTorch, and its rounds reach
+a kernel only in the fusion's weighted sum.
 """
 from __future__ import annotations
 

@@ -1,23 +1,27 @@
 """End-to-end federated training driver, as ``repro.launch.train``.
 
-Trains a reduced variant of a decoder architecture or of the Mamba2 /
-shared-attention hybrid (or the full one with ``--full-config``) with
-the full stack: synthetic non-IID data -> per-client local SGD steps ->
-AggregationService (FedAvg through the weighted-sum kernel) -> global
-model update.
+Trains a reduced variant of a decoder architecture, of the Mamba2 /
+shared-attention hybrid or of xLSTM (or the full one with
+``--full-config``) with the full stack: synthetic non-IID data ->
+per-client local SGD steps -> AggregationService (FedAvg through the
+weighted-sum kernel) -> global model update.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --rounds 20 --clients 8 --local-steps 2 --fusion fedavg
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch zamba2-1.2b
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch xlstm-350m
 
 On the card (``--device cuda``, the default) each local step runs the
 attention through the forward and backward flash-attention kernels
 and, for ``--arch zamba2-1.2b``, every Mamba2 layer's scan through the
 SSD scan's forward and backward kernels, and the round's fusion through
 the fusion kernels (``--local-strategy kernel``; ``torch`` is the plain
-baseline of the fusion). ``--device cpu`` runs every kernel's plain
-version.
+baseline of the fusion). ``--arch xlstm-350m`` trains the reduced
+``xlstm-350m-smoke`` (one mLSTM and one sLSTM block); its local steps
+reach no kernel, its rounds the weighted sum. ``--device cpu`` runs
+every kernel's plain version.
 """
 from __future__ import annotations
 
@@ -35,8 +39,8 @@ from repro_torch.optim import sgd
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
-        description="End-to-end federated training of a decoder or the "
-                    "Mamba2 hybrid")
+        description="End-to-end federated training of a decoder, the "
+                    "Mamba2 hybrid or xLSTM")
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--clients", type=int, default=8)

@@ -10,6 +10,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers.init import normal_param
+from repro_torch.models.layers.norms import at_least_fp32
 
 
 def init_embedding(vocab: int, d: int, dtype: torch.dtype, device=None,
@@ -26,7 +27,7 @@ def lm_logits(h: torch.Tensor, embed: torch.Tensor,
     """h (B, T, d) -> (B, T, vocab) fp32: tied (embed.T) or separate head
     (d, vocab), in the parameter dtype, then cast."""
     logits = h @ head if head is not None else h @ embed.t()
-    return logits.float()
+    return at_least_fp32(logits)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -67,11 +68,13 @@ def next_token_loss(h: torch.Tensor, embed: torch.Tensor,
     B, T, _ = h.shape
     labels = labels.long()
     labels_shift = torch.cat([labels[:, 1:], labels.new_zeros((B, 1))], dim=1)
-    mask = torch.ones((B, T), dtype=torch.float32, device=h.device)
+    f32 = dict(dtype=torch.promote_types(h.dtype, torch.float32),
+               device=h.device)
+    mask = torch.ones((B, T), **f32)
     mask[:, -1] = 0.0
     if T % chunk:
         chunk = T
-    s = torch.zeros((), dtype=torch.float32, device=h.device)
+    s = torch.zeros((), **f32)
     for c0 in range(0, T, chunk):
         sl = slice(c0, c0 + chunk)
         s = s + checkpoint(_chunk_nll_sum, h[:, sl], embed, head,

@@ -27,7 +27,7 @@ from torch.nn import functional as F
 
 from repro_torch.kernels.ssd_chunk.ops import ssd_scan
 from repro_torch.models.layers.init import normal_param
-from repro_torch.models.layers.norms import group_norm
+from repro_torch.models.layers.norms import at_least_fp32, group_norm
 
 # (lam, Bm, Cm, xdt, chunk=) -> y (B, T, H, P) fp32: the kernel's wrapper
 # by default; ``kernels/ssd_chunk/ref.ssd_scan_ref`` is the plain version.
@@ -104,7 +104,7 @@ def _causal_conv(xbc: torch.Tensor, conv_w: torch.Tensor) -> torch.Tensor:
     out = torch.zeros_like(xbc)
     for k in range(W):
         out = out + pad[:, k: k + T, :] * conv_w[k]
-    return F.silu(out.float()).to(xbc.dtype)
+    return F.silu(at_least_fp32(out)).to(xbc.dtype)
 
 
 def _gate_out(p: Mamba2, dims: Mamba2Dims, y: torch.Tensor, z: torch.Tensor,

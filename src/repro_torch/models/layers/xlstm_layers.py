@@ -12,14 +12,17 @@ no Pallas kernel for either cell.
 
 Products in this file keep the reference's operand dtypes: the model's
 dtype for the projections, fp32 for the gates, the recurrences and the
-sLSTM's input pre-activations. The three-operand contractions of the
-reference are written as a product and one batched matmul each, never
-through ``torch.einsum``'s planner, which may build a (B, L, L, nh, hv)
-intermediate.
+sLSTM's input pre-activations (``at_least_fp32``: the forward of a
+float64 tree runs in float64 throughout). The three-operand
+contractions of the reference are written as a product and one batched
+matmul each, never through ``torch.einsum``'s planner, which may build
+a (B, L, L, nh, hv) intermediate.
 
 Unlike the reference's functional steps, ``mlstm_decode_step`` and
 ``slstm_decode_step`` update the state's tensors IN PLACE (and return
-the same state), as ``mamba2_decode_step`` does.
+the same state), as ``mamba2_decode_step`` does. Nothing else here
+writes in place, so the forward path (``mlstm_forward``,
+``slstm_forward``) is differentiable, the fp32 gate leaves included.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from torch.nn import functional as F
 
 from repro_torch.models.layers.init import normal_param, zeros_param
 from repro_torch.models.layers.mamba2 import _causal_conv
-from repro_torch.models.layers.norms import group_norm
+from repro_torch.models.layers.norms import at_least_fp32, group_norm
 
 NEG = -1e30
 
@@ -102,7 +105,7 @@ class MLSTM(nn.Module):
 def _gates(p: MLSTM, nh: int, xc: torch.Tensor):
     """(i_raw, f_log), each (..., nh) fp32: xc in fp32 times w_if plus
     b_if, the forget half through log-sigmoid."""
-    gates = xc.float() @ p.w_if + p.b_if
+    gates = at_least_fp32(xc) @ p.w_if + p.b_if
     return gates[..., :nh], F.logsigmoid(gates[..., nh:])
 
 
@@ -127,7 +130,7 @@ def _mlstm_out(p: MLSTM, dims: MLSTMDims, h: torch.Tensor, z: torch.Tensor
     """h (B, T, d_v) in the model dtype -> group norm per head, times
     silu(z) (its first d_v channels), out projection."""
     h = group_norm(h, p.gn_scale, n_groups=dims.n_heads)
-    h = h * F.silu(z.float()).to(h.dtype)[..., : h.shape[-1]]
+    h = h * F.silu(at_least_fp32(z)).to(h.dtype)[..., : h.shape[-1]]
     return h @ p.w_out
 
 
@@ -175,14 +178,14 @@ def mlstm_forward(p: MLSTM, dims: MLSTMDims, x: torch.Tensor
         L = T
     q, k, v, i_raw, f_log, z, _ = _mlstm_qkvif(p, dims, x)
     heads = lambda a: a.transpose(1, 2)   # noqa: E731  (B, nh, T, ...)
-    qf = heads(q.float() * hq ** -0.5)
-    kf, vf = heads(k.float()), heads(v.float())
+    qf = heads(at_least_fp32(q) * hq ** -0.5)
+    kf, vf = heads(at_least_fp32(k)), heads(at_least_fp32(v))
     ih, fh = heads(i_raw), heads(f_log)
-    dev = x.device
-    C = torch.zeros((B, nh, hq, hv), dtype=torch.float32, device=dev)
-    n = torch.zeros((B, nh, hq), dtype=torch.float32, device=dev)
-    m = torch.zeros((B, nh), dtype=torch.float32, device=dev)
-    causal = torch.ones((L, L), dtype=torch.bool, device=dev).tril()
+    f32 = dict(dtype=qf.dtype, device=x.device)
+    C = torch.zeros((B, nh, hq, hv), **f32)
+    n = torch.zeros((B, nh, hq), **f32)
+    m = torch.zeros((B, nh), **f32)
+    causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
     hs = []
     for c0 in range(0, T, L):
         sl = slice(c0, c0 + L)
@@ -300,10 +303,10 @@ class SLSTMState(NamedTuple):
     h: torch.Tensor
 
 
-def init_slstm_state(batch: int, dims: SLSTMDims,
-                     device=None) -> SLSTMState:
+def init_slstm_state(batch: int, dims: SLSTMDims, device=None,
+                     dtype: torch.dtype = torch.float32) -> SLSTMState:
     shape = (batch, dims.n_heads, dims.h)
-    z = lambda v: torch.full(shape, v, dtype=torch.float32,  # noqa: E731
+    z = lambda v: torch.full(shape, v, dtype=dtype,  # noqa: E731
                              device=device)
     return SLSTMState(c=z(0.0), n=z(1e-6), m=z(0.0), h=z(0.0))
 
@@ -332,7 +335,9 @@ def _slstm_cell(r2: torch.Tensor, state: SLSTMState,
     f = torch.exp(f_log + state.m - m_new)
     c = f * state.c + i * torch.tanh(z_raw)
     n = f * state.n + i
-    h = torch.sigmoid(o_raw) * c / torch.clamp(n, min=1e-6)
+    # torch.maximum, not torch.clamp: at n == 1e-6 it passes half the
+    # gradient to each side, as jnp.maximum does (clamp passes it all)
+    h = torch.sigmoid(o_raw) * c / torch.maximum(n, n.new_tensor(1e-6))
     return SLSTMState(c=c, n=n, m=m_new, h=h)
 
 
@@ -343,7 +348,7 @@ def _slstm_ffn(p: SLSTM, dims: SLSTMDims, h: torch.Tensor,
     h = group_norm(h.to(dtype), p.gn_scale, n_groups=dims.n_heads)
     gte = h @ p.w_gate
     up = h @ p.w_upp
-    y = F.gelu(gte.float(), approximate="tanh").to(dtype) * up
+    y = F.gelu(at_least_fp32(gte), approximate="tanh").to(dtype) * up
     return y @ p.w_down
 
 
@@ -352,9 +357,9 @@ def slstm_forward(p: SLSTM, dims: SLSTMDims, x: torch.Tensor
     """x (B, T, d) -> (B, T, d): the input pre-activations of every step
     in one fp32 product, then a loop over time on x's device."""
     B, T, d = x.shape
-    pre = x.float() @ p.w_in.float() + p.b                # (B, T, 4d)
+    pre = at_least_fp32(x) @ at_least_fp32(p.w_in) + p.b  # (B, T, 4d)
     r2 = _recurrent(p.r)
-    state = init_slstm_state(B, dims, device=x.device)
+    state = init_slstm_state(B, dims, device=x.device, dtype=pre.dtype)
     hs = []
     for t in range(T):
         state = _slstm_cell(r2, state, pre[:, t])

@@ -9,13 +9,23 @@ stack inner); here the blocks are one ``nn.ModuleList`` in block order,
 walked by a plain loop. A decode step carries each block's recurrent
 state, so the cache is O(1) in the context length. No block reaches a
 kernel: the model's only kernel is the fusion's weighted sum.
+
+``loss`` trains: each mLSTM block runs under ``torch.utils.checkpoint``
+(as ``jax.checkpoint`` around the reference's ``m_body``), then the
+chunked next-token loss against the tied embedding. The sLSTM blocks
+are not checkpointed: the reference's outer checkpoint keeps a
+``lax.scan`` body at one segment, which a Python loop does not need, and
+recomputing a block's loop over time would add its ~20 host launches a
+step to a host-bound step.
 """
 from __future__ import annotations
 
+import types
 from typing import Dict, List, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.base import (
@@ -82,6 +92,25 @@ class Block(nn.Module):
                               generator=generator)
 
 
+def _mlstm_block(cfg: ModelConfig, dims, block, h: torch.Tensor
+                 ) -> torch.Tensor:
+    x = rms_norm(h, block.norm, cfg.norm_eps)
+    return h + mlstm_forward(block.cell, dims, x)
+
+
+def _mlstm_tensors(block: Block) -> types.SimpleNamespace:
+    """The mLSTM block's tensors as they are bound now (see
+    ``decoder.layer_tensors``: a checkpointed block recomputes from the
+    tensors of the forward, the caller's under ``functional_call``)."""
+    c = block.cell
+    return types.SimpleNamespace(
+        norm=block.norm,
+        cell=types.SimpleNamespace(w_up=c.w_up, w_z=c.w_z, conv_w=c.conv_w,
+                                   w_q=c.w_q, w_k=c.w_k, w_v=c.w_v,
+                                   w_if=c.w_if, b_if=c.b_if,
+                                   gn_scale=c.gn_scale, w_out=c.w_out))
+
+
 class XLSTM(Model):
     """embed (vocab, d, tied), final_norm (d,) and blocks (n_layers of
     norm + cell, in block order): ``repro``'s ``init_xlstm`` tree in its
@@ -101,25 +130,30 @@ class XLSTM(Model):
         self.mdims = mlstm_dims(cfg)
         self.sdims = slstm_dims(cfg)
 
-    def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
+    def hidden(self, tokens: torch.Tensor, remat: bool = False
+               ) -> torch.Tensor:
         """Embeds, runs every block (h + cell(rms_norm(h))), final norm
-        -> hidden (B, T, d)."""
+        -> hidden (B, T, d). With ``remat`` each mLSTM block runs under
+        ``torch.utils.checkpoint``: its activations are recomputed in
+        backward."""
         cfg = self.config
         h = embed_tokens(self.embed, tokens)
         for block in self.blocks:
-            x = rms_norm(h, block.norm, cfg.norm_eps)
-            if block.kind == "mlstm":
-                h = h + mlstm_forward(block.cell, self.mdims, x)
+            if block.kind == "mlstm" and remat:
+                h = checkpoint(_mlstm_block, cfg, self.mdims,
+                               _mlstm_tensors(block), h, use_reentrant=False)
+            elif block.kind == "mlstm":
+                h = _mlstm_block(cfg, self.mdims, block, h)
             else:
+                x = rms_norm(h, block.norm, cfg.norm_eps)
                 h = h + slstm_forward(block.cell, self.sdims, x)
         return rms_norm(h, self.final_norm, cfg.norm_eps)
 
-    def loss(self, batch: Dict[str, torch.Tensor]):
+    def loss(self, batch: Dict[str, torch.Tensor], remat: bool = True):
         """(mean next-token CE, {"ce": loss}) of ``batch["tokens"]``
         against ``batch["labels"]`` with the tied embedding as the head,
-        as ``repro.models.xlstm.xlstm_loss`` (whose remat changes no
-        value)."""
-        h = self.hidden(batch["tokens"])
+        as ``repro.models.xlstm.xlstm_loss``."""
+        h = self.hidden(batch["tokens"], remat=remat)
         loss = next_token_loss(h, self.embed, None, batch["labels"])
         return loss, {"ce": loss}
 
